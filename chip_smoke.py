@@ -6,9 +6,10 @@
 1. Prints the card's name and power limit, and builds the port's CUDA
    kernels from csrc/ (one nvcc per source, all started together).
 2. Kernel phase: holds each hand-written kernel against its plain
-   PyTorch version on the card, at the shapes the serving path gives it,
-   and times kernel, plain version and the nearest single PyTorch call
-   (timed only; the port never calls it).
+   PyTorch version on the card, at the shapes the serving path gives it
+   (forward kernels) and the training step gives it (dropout, backward
+   kernels, SupCon), and times kernel, plain version and the nearest
+   single PyTorch call (timed only; the port never calls it).
 3. Serve phase: builds XLS-R-300M (24 layers, 1024 wide, 'layer' norm)
    with a linear head from seeded random numpy weights in the JAX tree
    layout, passed through the port's weight bridge; scores 4 batches of
@@ -16,7 +17,15 @@
    counters reset just before and read just after; compares 2 clips with
    the same model run in fp32 on the CPU; times serving, then breaks 3
    batches down by device kernel with torch.profiler.
-4. Prints one JSON line with every kernel's numbers, then the result
+4. Train phase: `Stage1Trainer` at XLS-R-300M width (the port's
+   Stage1Config defaults with finetune_encoder=True, use_rawboost=False:
+   bf16, dropout, SpecAugment, remat) takes 8 SupCon steps on one fixed
+   batch of 32 x 5 s clips at alpha = 1, with the launch counters reset
+   just before and read just after; checks the losses and the exact
+   launch counts; times the steps and breaks one down with
+   torch.profiler. Then one step at 2 layers, B=4, dropout and
+   SpecAugment off, on the card in bf16 against the CPU in fp32.
+5. Prints one JSON line with every kernel's numbers, then the result
    line. Any failure exits non-zero before the result line.
 
 Needs torch with CUDA, triton and nvcc; imports nothing of JAX.
@@ -48,6 +57,31 @@ N_BATCHES = 4
 # O(1) and both are held to the same absolute bound.
 Z_TOL = 5e-2                     # max |z_gpu - z_cpu|
 LOGIT_TOL = 5e-2                 # max |logit_gpu - logit_cpu|
+
+TRAIN_BATCH = 32                 # Stage1Config.batch_size
+TRAIN_STEPS = 8
+# attention forward/backward: bf16 outputs on both sides (q/k/v/g, p and
+# ds rounded to bf16 at different places: the plain autograd also rounds
+# dp to bf16); the tolerances of tests/test_attention_pallas.py
+ATT_FWD_TOL = dict(atol=2e-3, rtol=2e-2)
+ATT_BWD_TOL = dict(atol=5e-2, rtol=5e-2)
+# LN+GELU backward: dx is bf16 on both sides (tests/test_conv_ln_pallas.py's
+# bf16 tolerance); dscale/dbias are fp32 sums over up to 511,968 rows taken
+# in another order (per-program partial sums) than autograd's
+LN_DX_TOL = dict(atol=2e-2, rtol=2e-2)
+LN_DPARAM_TOL = dict(atol=5e-2, rtol=1e-3)
+# SupCon: fp32 on both sides; the tolerances of tests/test_supcon_pallas.py
+SUPCON_LOSS_TOL = dict(atol=2e-5, rtol=2e-5)
+SUPCON_GRAD_TOL = dict(atol=5e-6, rtol=5e-4)
+# one train step, bf16 on the card against fp32 on the CPU, 2 layers at
+# full width: measured |d loss| 7.3e-5 and a proj-gradient cosine of
+# 0.99997 on an H100 (the first run of this check). The bounds leave a
+# factor of ~70 on the loss and ~30 on 1 - cosine for other seeds and
+# cards; a wrong kernel moves the loss by O(1e-1) and the cosine far
+# below 0.999. The gradient is held by its direction because bf16 moves
+# its small entries by more than their size.
+STEP_LOSS_TOL = 5e-3             # |loss_gpu - loss_cpu|
+STEP_GRAD_COS = 0.999            # cosine(proj grad gpu, proj grad cpu)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -242,6 +276,211 @@ def kernel_phase(dev):
     return results
 
 
+def _bias_with_tails(lengths, t, dev):
+    return torch.where(torch.arange(t, device=dev)[None, :]
+                       < lengths[:, None], 0.0, -1e30).to(torch.float32)
+
+
+def _grad_ms(out, inputs, g) -> float:
+    """Device time of one backward through `out`'s graph (kept alive)."""
+    return cuda_ms(lambda: torch.autograd.grad(out, inputs, g,
+                                               retain_graph=True))
+
+
+def train_kernel_phase(dev, results) -> None:
+    """The kernels of the training step at its shapes: attention with
+    dropout, forward and backward; LN+GELU backward; SupCon."""
+    from wav2vec_contr_loss_torch.config import SupConConfig
+    from wav2vec_contr_loss_torch.losses import supcon_binary_loss
+    from wav2vec_contr_loss_torch.ops import attention, conv_ln, supcon
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    F = torch.nn.functional
+
+    # attention at the training shape: padded tails, one fully masked clip
+    b, h, t, d = TRAIN_BATCH, 16, 249, 64
+    lengths = torch.full((b,), t, device=dev)
+    lengths[1], lengths[5], lengths[9], lengths[30] = 200, 120, 10, 0
+    bias = _bias_with_tails(lengths, t, dev)
+    q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device=dev)
+                  for _ in range(4))
+    q = (q * d ** -0.5).to(torch.bfloat16)
+    k, v, g = (x.to(torch.bfloat16) for x in (k, v, g))
+    seed = 123456789
+    got = attention.fused_attention(q, k, v, bias, seed, 0.1, h)
+    want = attention.fused_attention_plain(q, k, v, bias, seed, 0.1)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"attention_fwd rate 0.1 {tuple(q.shape)} max_abs_err={err:.3e} "
+          f"(tolerance {ATT_FWD_TOL}: the same mask, so the rate-0 one)")
+    torch.testing.assert_close(got.float(), want.float(), **ATT_FWD_TOL)
+    ms_drop = cuda_ms(lambda: attention.fused_attention(q, k, v, bias, seed,
+                                                        0.1, h))
+    ms_nodrop = cuda_ms(lambda: attention.fused_attention(q, k, v, bias, 0,
+                                                          0.0, h))
+    train_bound, _ = bound(4 * q.numel() * 2 + b * t * 4,
+                           4 * b * h * t * t * d, BF16_FLOP_PER_S)
+    print(f"attention_fwd {tuple(q.shape)}: rate 0.1 {ms_drop:.4f} ms, "
+          f"rate 0 {ms_nodrop:.4f} ms, bound {train_bound:.4f} ms")
+    results["attention_fwd"].update(train_shape_ms=ms_drop,
+                                    train_shape_bound_ms=train_bound)
+
+    bwd_err = 0.0
+    for rate in (0.0, 0.1):
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        out = attention.fused_attention(qs, ks, vs, bias, seed, rate, h)
+        got = torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True)
+        qp, kp, vp = (x.detach().requires_grad_() for x in (q, k, v))
+        out_p = attention.fused_attention_plain(qp, kp, vp, bias, seed, rate)
+        want = torch.autograd.grad(out_p, (qp, kp, vp), g,
+                                   retain_graph=True)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            e = (a.float() - w.float()).abs().max().item()
+            bwd_err = max(bwd_err, e)
+            print(f"attention_bwd rate {rate} {name} max_abs_err={e:.3e} "
+                  f"(max |plain| {w.float().abs().max().item():.3e}, "
+                  f"tolerance {ATT_BWD_TOL})")
+            torch.testing.assert_close(a.float(), w.float(), **ATT_BWD_TOL)
+        if rate > 0.0:
+            ms = _grad_ms(out, (qs, ks, vs), g)
+            plain_ms = _grad_ms(out_p, (qp, kp, vp), g)
+    mask16 = bias[:, None, None, :].to(torch.bfloat16)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask16,
+                                          dropout_p=0.0, scale=1.0)
+    lib_ms = _grad_ms(sdpa, (ql, kl, vl), g)
+    n = b * h * t * d
+    bound_ms, bound_by = bound(7 * n * 2 + b * t * 4, 5 * 2 * b * h * t * t * d,
+                               BF16_FLOP_PER_S)
+    results["attention_bwd"] = dict(
+        name="attention_bwd", route="cuda",
+        source="wav2vec_contr_loss_torch/csrc/attention_bwd.cu",
+        replaces="wav2vec_contr_loss_tpu/ops/attention_pallas.py:96",
+        max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms)
+    print(f"attention_bwd {tuple(q.shape)} rate 0.1: kernel {ms:.4f} ms, "
+          f"plain autograd {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+
+    # LN+GELU backward at the first conv's rows and at a ragged count
+    c = 512
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    shift = 0.1 * torch.randn(c, generator=gen, device=dev)
+    rows_main = TRAIN_BATCH * 15999
+    dx_err = 0.0
+    for rows in (rows_main, 12347):
+        x = (2.0 * torch.randn(rows, c, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        dy = torch.randn(rows, c, generator=gen, device=dev
+                         ).to(torch.bfloat16)
+        for gelu in (True, False):
+            ins = [a.detach().requires_grad_() for a in (x, scale, shift)]
+            out = conv_ln.fused_ln_gelu(*ins, 1e-5, gelu)
+            got = torch.autograd.grad(out, ins, dy, retain_graph=True)
+            ins_p = [a.detach().requires_grad_() for a in (x, scale, shift)]
+            out_p = conv_ln.fused_ln_gelu_plain(*ins_p, 1e-5, gelu)
+            want = torch.autograd.grad(out_p, ins_p, dy, retain_graph=True)
+            torch.cuda.synchronize()
+            for name, a, w, tol in zip(("dx", "dscale", "dbias"), got, want,
+                                       (LN_DX_TOL, LN_DPARAM_TOL,
+                                        LN_DPARAM_TOL)):
+                e = (a.float() - w.float()).abs().max().item()
+                if name == "dx":
+                    dx_err = max(dx_err, e)
+                print(f"ln_gelu_bwd rows={rows} gelu={gelu} {name} "
+                      f"max_abs_err={e:.3e} (max |plain| "
+                      f"{w.float().abs().max().item():.3e}, tolerance {tol})")
+                torch.testing.assert_close(a.float(), w.float(), **tol)
+            if rows == rows_main and gelu:
+                ms = _grad_ms(out, ins, dy)
+                plain_ms = _grad_ms(out_p, ins_p, dy)
+                ins_l = [a.detach().requires_grad_() for a in (x, scale, shift)]
+                lib = F.gelu(F.layer_norm(ins_l[0], (c,), ins_l[1].to(
+                    torch.bfloat16), ins_l[2].to(torch.bfloat16), 1e-5))
+                lib_ms = _grad_ms(lib, ins_l, dy)
+    nb = rows_main * c
+    # ~30 fp32 operations per element: the statistics again, erf and exp
+    # of GELU', the two row means and the dx epilogue, two column sums
+    bound_ms, bound_by = bound(3 * nb * 2 + 4 * c * 4, 30 * nb,
+                               FP32_FLOP_PER_S)
+    results["ln_gelu_bwd"] = dict(
+        name="ln_gelu_bwd", route="triton",
+        source="wav2vec_contr_loss_torch/ops/conv_ln.py",
+        replaces="wav2vec_contr_loss_tpu/ops/conv_ln_pallas.py:69",
+        max_abs_err=dx_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms)
+    print(f"ln_gelu_bwd ({rows_main},{c}) bf16 gelu: kernel {ms:.4f} ms, "
+          f"plain autograd {plain_ms:.4f} ms, F.layer_norm+F.gelu backward "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+    # SupCon at the training shape, and the edge batches
+    def normed(bz, dz):
+        z = torch.randn(bz, dz, generator=gen, device=dev)
+        return z / z.norm(dim=1, keepdim=True)
+
+    half = torch.tensor([1, 0] * (TRAIN_BATCH // 2), device=dev)
+    cases = [
+        ("B=32 cosine", normed(TRAIN_BATCH, 256), half, 1.0, SupConConfig()),
+        ("B=32 alpha 0.3 topk 4", normed(TRAIN_BATCH, 256), half, 0.3,
+         SupConConfig(topk_neg=4)),
+        ("no positives", normed(8, 256), torch.arange(8, device=dev), 0.5,
+         SupConConfig()),
+        ("all one label", normed(8, 256), torch.ones(8, device=dev,
+                                                     dtype=torch.long), 0.5,
+         SupConConfig(uniformity_weight=0.05)),
+        ("B <= topk", normed(8, 256), half[:8], 0.7, SupConConfig()),
+        ("geodesic + uniformity 0.1", normed(TRAIN_BATCH, 256), half, 0.4,
+         SupConConfig(temperature=0.07, similarity="geodesic",
+                      uniformity_weight=0.1)),
+    ]
+    err = 0.0
+    for name, z, labels, alpha, cfg in cases:
+        zk = z.detach().requires_grad_()
+        ak = torch.tensor(alpha, device=dev, requires_grad=True)
+        loss = supcon.supcon_binary_loss_fused(zk, labels, ak, cfg)
+        gz, ga = torch.autograd.grad(loss, (zk, ak))
+        zp = z.detach().requires_grad_()
+        ap = torch.tensor(alpha, device=dev, requires_grad=True)
+        loss_p = supcon_binary_loss(zp, labels, ap, cfg)
+        gzp, gap = torch.autograd.grad(loss_p, (zp, ap))
+        torch.cuda.synchronize()
+        e = (gz - gzp).abs().max().item()
+        err = max(err, e, abs(loss.item() - loss_p.item()))
+        print(f"supcon {name}: loss {loss.item():.6f} vs {loss_p.item():.6f}"
+              f", dz max_abs_err={e:.3e}, dalpha {ga.item():.6f} vs "
+              f"{gap.item():.6f} (tolerances: loss {SUPCON_LOSS_TOL}, "
+              f"dz and dalpha {SUPCON_GRAD_TOL})")
+        torch.testing.assert_close(loss, loss_p, **SUPCON_LOSS_TOL)
+        torch.testing.assert_close(gz, gzp, **SUPCON_GRAD_TOL)
+        torch.testing.assert_close(ga, gap, **SUPCON_GRAD_TOL)
+    z, labels = cases[0][1], cases[0][2]
+    cfg = SupConConfig()
+
+    def fused():
+        zk = z.detach().requires_grad_()
+        torch.autograd.grad(supcon.supcon_binary_loss_fused(zk, labels, 1.0,
+                                                            cfg), zk)
+
+    def plain():
+        zp = z.detach().requires_grad_()
+        torch.autograd.grad(supcon_binary_loss(zp, labels, 1.0, cfg), zp)
+
+    ms, plain_ms = cuda_ms(fused), cuda_ms(plain)
+    bz, dz = z.shape
+    bound_ms, bound_by = bound(2 * bz * dz * 4 + bz * 4,
+                               3 * 2 * bz * bz * dz, FP32_FLOP_PER_S)
+    results["supcon"] = dict(
+        name="supcon", route="cuda",
+        source="wav2vec_contr_loss_torch/csrc/supcon.cu",
+        replaces="wav2vec_contr_loss_tpu/ops/supcon_pallas.py:44",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+    print(f"supcon (32,256) fp32, loss+dz+dalpha: kernel {ms:.4f} ms, "
+          f"plain autograd {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}); no single PyTorch call computes it")
+
+
 def serve_phase(dev, results) -> None:
     from wav2vec_contr_loss_torch import (XLSR_300M, SpoofScorer,
                                           Stage2Config, jax_params_to_torch)
@@ -344,6 +583,171 @@ def profile_serving(scorer, waves) -> None:
         print(f"profile:   {ms_b:8.3f} ms  x{n // 3:<4d} {name[:90]}")
 
 
+def train_batch(rng, n: int, samples: int = SAMPLES):
+    """(n, samples) float32 clips, half bonafide (1) and half spoof (0),
+    two of them zero-padded."""
+    w = rng.normal(0, 0.1, (n, samples)).astype(np.float32)
+    w[1, 60000 * samples // SAMPLES:] = 0.0
+    w[-2, 30000 * samples // SAMPLES:] = 0.0
+    labels = np.array([1, 0] * (n // 2), np.int64)
+    return {"waveforms": w, "labels": labels}
+
+
+def expected_train_launches(scfg, cfg) -> dict:
+    """Kernel launches of one train step, from the config: the remat
+    recompute runs each layer's forward (and so its attention) again in
+    the backward, and `remat_conv` the conv tower's LN+GELU."""
+    n_conv = len(cfg.conv_dim)
+    frozen = scfg.freeze_feature_extractor
+    return {
+        "attention_fwd": cfg.num_layers * (2 if scfg.remat_encoder else 1),
+        "attention_bwd": cfg.num_layers,
+        "ln_gelu_fwd": n_conv * (2 if scfg.remat_conv and not frozen else 1),
+        "ln_gelu_bwd": 0 if frozen else n_conv,
+        "supcon": 1,
+    }
+
+
+def _counters():
+    from wav2vec_contr_loss_torch.ops import attention, conv_ln, supcon
+
+    return {"attention_fwd": attention.launches,
+            "attention_bwd": attention.bwd_launches,
+            "ln_gelu_fwd": conv_ln.launches,
+            "ln_gelu_bwd": conv_ln.bwd_launches,
+            "supcon": supcon.launches}
+
+
+def _reset_counters() -> None:
+    from wav2vec_contr_loss_torch.ops import attention, conv_ln, supcon
+
+    attention.launches = attention.bwd_launches = 0
+    conv_ln.launches = conv_ln.bwd_launches = 0
+    supcon.launches = 0
+
+
+def train_phase(dev, results) -> None:
+    from wav2vec_contr_loss_torch import (XLSR_300M, Stage1Config,
+                                          Stage1Trainer, jax_params_to_torch)
+
+    cfg = XLSR_300M
+    scfg = Stage1Config(finetune_encoder=True, use_rawboost=False)
+    t0 = time.perf_counter()
+    weights = jax_params_to_torch(cfg, *random_jax_trees(cfg, seed=0))
+    trainer = Stage1Trainer(scfg, cfg, weights, device=dev)
+    print(f"train: XLS-R-300M finetune, B={scfg.batch_size} x 5 s, "
+          f"{scfg.compute_dtype}, remat_encoder={scfg.remat_encoder}, "
+          f"dropout on, SpecAugment on, adam mu/nu {scfg.adam_mu_dtype}/"
+          f"{scfg.adam_nu_dtype}; built in {time.perf_counter() - t0:.1f} s")
+    batch = train_batch(np.random.default_rng(2), scfg.batch_size)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = trainer.train_step(batch, 1.0)["loss"].item()  # syncs
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train: losses {[round(x, 5) for x in losses]}")
+    want = {k: v * TRAIN_STEPS
+            for k, v in expected_train_launches(scfg, cfg).items()}
+    print(f"train: launches over {TRAIN_STEPS} steps {counts}, expected "
+          f"{want}")
+    if counts != want:
+        raise RuntimeError("train-step launch counts differ from the config")
+    for name, n in counts.items():
+        key = "train_launches" if name in ("attention_fwd",
+                                           "ln_gelu_fwd") else "launches"
+        results[name][key] = n
+    if not np.isfinite(losses).all():
+        raise RuntimeError("non-finite training loss")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    print(f"train: mean loss of the first 3 steps {first:.5f}, of the "
+          f"last 3 {last:.5f}")
+    if not last < first:
+        raise RuntimeError("the loss did not fall over the fixed batch")
+    ms = 1e3 * float(np.median(times[1:]))
+    print(f"train: step {ms:.1f} ms (median of steps 2-{TRAIN_STEPS}, host "
+          f"clock to the loss on the host; step 1 {1e3 * times[0]:.1f} ms), "
+          f"{1e3 * scfg.batch_size / ms:.1f} clips/s, peak device memory "
+          f"{peak:.2f} GiB")
+    profile_step(trainer, batch)
+
+
+def profile_step(trainer, batch) -> None:
+    """Device time by kernel over one train step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, 1.0)["loss"].item()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms_n = by_name.setdefault(e.name, [0.0, 0])
+            ms_n[0] += e.time_range.elapsed_us() / 1e3
+            ms_n[1] += 1
+    if not by_name:
+        print("profile: the profiler recorded no device activity")
+        return
+    busy = sum(v[0] for v in by_name.values())
+    print(f"profile: one train step, wall {wall_ms:.1f} ms (profiler on), "
+          f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f} %), "
+          f"{sum(v[1] for v in by_name.values())} device ops")
+    for name, (ms_b, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
+        print(f"profile:   {ms_b:8.2f} ms  x{n:<5d} {name[:90]}")
+    # the port's own kernels in this step, by their names in the trace
+    for tag in ("attention_fwd_kernel", "attention_bwd_kernel",
+                "_ln_gelu_fwd", "_ln_gelu_bwd", "_sum_partials",
+                "supcon_kernel"):
+        hits = [v for k, v in by_name.items() if tag in k]
+        print(f"profile: port kernel {tag}: "
+              f"{sum(v[0] for v in hits):.3f} ms in "
+              f"{sum(v[1] for v in hits)} launches")
+
+
+def step_vs_cpu(dev) -> None:
+    """One train step at 2 layers and full width, B=4, every dropout and
+    SpecAugment off: bf16 on the card against fp32 on the CPU."""
+    from wav2vec_contr_loss_torch import (XLSR_300M, Stage1Config,
+                                          Stage1Trainer, jax_params_to_torch)
+
+    cfg = XLSR_300M.with_(num_layers=2, hidden_dropout=0.0,
+                          attention_dropout=0.0, activation_dropout=0.0,
+                          feat_proj_dropout=0.0, apply_spec_augment=False)
+    weights = jax_params_to_torch(cfg, *random_jax_trees(cfg, seed=3))
+    batch = train_batch(np.random.default_rng(4), 4)
+    kw = dict(finetune_encoder=True, use_rawboost=False, dropout=0.0,
+              batch_size=4)
+    out = {}
+    for name, device, dtype in (("gpu", dev, "bfloat16"),
+                                ("cpu", "cpu", "float32")):
+        t0 = time.perf_counter()
+        tr = Stage1Trainer(Stage1Config(compute_dtype=dtype, **kw), cfg,
+                           weights, device=device)
+        loss = tr.train_step(batch, 0.5)["loss"].item()
+        grad = tr.compression.proj.weight.grad.detach().float().cpu()
+        out[name] = (loss, grad, time.perf_counter() - t0)
+    (lg, gg, _), (lc, gc, cpu_s) = out["gpu"], out["cpu"]
+    cos = torch.nn.functional.cosine_similarity(gg.flatten(), gc.flatten(),
+                                                dim=0).item()
+    gerr = (gg - gc).abs().max().item()
+    print(f"train step vs CPU fp32 ({cpu_s:.1f} s on the CPU): loss gpu "
+          f"{lg:.6f} cpu {lc:.6f} (|d| {abs(lg - lc):.3e}, tol "
+          f"{STEP_LOSS_TOL}); proj grad max_abs_err {gerr:.3e} (max |cpu| "
+          f"{gc.abs().max().item():.3e}), cosine {cos:.6f} (tol >= "
+          f"{STEP_GRAD_COS})")
+    if not (abs(lg - lc) <= STEP_LOSS_TOL and cos >= STEP_GRAD_COS):
+        raise RuntimeError("the GPU bf16 train step disagrees with the CPU "
+                           "fp32 step")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -371,11 +775,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     results = kernel_phase(dev)
+    train_kernel_phase(dev, results)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s (Triton JIT "
           f"included)")
     t0 = time.perf_counter()
     serve_phase(dev, results)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_phase(dev, results)
+    step_vs_cpu(dev)
+    print(f"train phase: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

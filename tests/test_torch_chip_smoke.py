@@ -1,17 +1,20 @@
 """chip_smoke.py's CPU-reachable parts: its seeded random weights have
-exactly the JAX package's tree layout, and its serving path runs at the
-XLS-R-300M widths (depth cut to one layer, 1 s clips) on the CPU."""
+exactly the JAX package's tree layout, and its serving path and its train
+phase's model run at the XLS-R-300M widths (depth cut to one or two
+layers, 1 s clips) on the CPU."""
 
 import numpy as np
 import pytest
 
 import jax
 
-from chip_smoke import random_jax_trees, serving_waves
+from chip_smoke import (expected_train_launches, random_jax_trees,
+                        serving_waves, train_batch)
 from tests.test_torch_bridge import jax_config, jax_trees, port_config
-from wav2vec_contr_loss_torch import (XLSR_300M, SpoofScorer, Stage2Config,
+from wav2vec_contr_loss_torch import (XLSR_300M, SpoofScorer, Stage1Config,
+                                      Stage1Trainer, Stage2Config,
                                       jax_params_to_torch)
-from wav2vec_contr_loss_torch.ops import attention, conv_ln
+from wav2vec_contr_loss_torch.ops import attention, conv_ln, supcon
 
 
 def _shapes(tree):
@@ -41,3 +44,26 @@ def test_serving_path_at_xlsr_width_on_cpu():
     logits = scorer.score_waveforms(waves)
     assert (attention.launches, conv_ln.launches) == before
     assert logits.shape == (3,) and np.isfinite(logits).all()
+
+
+def test_train_phase_model_steps_on_cpu():
+    """The train phase's trainer (Stage1Config defaults with
+    finetune_encoder=True, use_rawboost=False: dropout, SpecAugment and
+    remat on) at XLS-R-300M width, 2 layers, fp32, 4 clips of 1 s."""
+    cfg = XLSR_300M.with_(num_layers=2)
+    scfg = Stage1Config(finetune_encoder=True, use_rawboost=False,
+                        compute_dtype="float32", grad_dtype="float32")
+    trainer = Stage1Trainer(scfg, cfg, jax_params_to_torch(
+        cfg, *random_jax_trees(cfg)), device="cpu")
+    batch = train_batch(np.random.default_rng(0), 4, 16000)
+    before = (attention.launches, attention.bwd_launches, conv_ln.launches,
+              conv_ln.bwd_launches, supcon.launches)
+    losses = [trainer.train_step(batch, 1.0)["loss"].item()
+              for _ in range(2)]
+    assert before == (attention.launches, attention.bwd_launches,
+                      conv_ln.launches, conv_ln.bwd_launches, supcon.launches)
+    assert np.isfinite(losses).all()
+    assert trainer.compression.proj.weight.grad is not None
+    assert expected_train_launches(scfg, cfg) == {
+        "attention_fwd": 4, "attention_bwd": 2, "ln_gelu_fwd": 7,
+        "ln_gelu_bwd": 7, "supcon": 1}

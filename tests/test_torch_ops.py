@@ -61,8 +61,8 @@ def test_attention_plain_matches_pallas(case):
 def test_attention_wrapper_refuses_what_it_does_not_take():
     q = torch.zeros(1, 2, 4, 8)
     bias = torch.zeros(1, 4)
-    with pytest.raises(NotImplementedError):
-        attention.fused_attention(q, q, q, bias, 0, 0.1, 2)
+    with pytest.raises(ValueError, match="rate"):
+        attention.fused_attention(q, q, q, bias, 0, 1.0, 2)
     with pytest.raises(ValueError, match="heads"):
         attention.fused_attention(q, q, q, bias, 0, 0.0, 3)
     with pytest.raises(ValueError, match="bias"):

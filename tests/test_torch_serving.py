@@ -114,4 +114,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 12   # every submodule was walked
+    assert int(out.stdout.split()[-1]) >= 22   # every submodule was walked

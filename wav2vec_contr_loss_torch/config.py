@@ -1,10 +1,11 @@
 """Architecture configuration of the PyTorch port.
 
 The port keeps its own copy of the architecture fields of the JAX
-package's `Wav2Vec2Config` (wav2vec_contr_loss_tpu/models/wav2vec2.py)
-and of the head fields of its `Stage2Config`
-(wav2vec_contr_loss_tpu/config.py), so that it never imports the JAX
-package. TPU execution knobs (scan/remat/pipeline/sequence parallelism,
+package's `Wav2Vec2Config` (wav2vec_contr_loss_tpu/models/wav2vec2.py),
+of the head fields of its `Stage2Config`, of its `Stage1Config`
+(wav2vec_contr_loss_tpu/config.py) and of its `SupConConfig`
+(wav2vec_contr_loss_tpu/losses/supcon.py), so that it never imports the
+JAX package. TPU execution knobs (scan/pipeline/sequence parallelism,
 int8 quantization, kernel selection) have no counterpart here: the port
 picks a kernel from the device a tensor lives on.
 """
@@ -17,8 +18,9 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["Wav2Vec2Config", "Stage2Config", "XLSR_300M", "LARGE_960H",
-           "feature_frame_length", "config_from_dict"]
+__all__ = ["Wav2Vec2Config", "Stage1Config", "Stage2Config", "SupConConfig",
+           "XLSR_300M", "LARGE_960H", "feature_frame_length",
+           "config_from_dict"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -68,6 +70,82 @@ class Stage2Config:
     in_dim: int = 256           # = the compression module's output width
     hidden_dim: int = 128
     dropout: float = 0.2
+
+
+@dataclass(frozen=True)
+class Stage1Config:
+    """Stage-1 SupCon finetuning: the fields of the JAX package's
+    `Stage1Config` that change values.
+
+    Left out, because they only pick an XLA path or a TPU schedule:
+    `attention_impl`, `conv_ln_impl`, `supcon_impl` (the port always runs
+    its kernels, which compute what the 'pallas' settings compute),
+    `softmax_dtype` (the attention kernels keep fp32 scores),
+    `dropout_impl` (always the murmur hashes), `scan_unroll`,
+    `attention_layout`, `remat_policy`, `fused_qkv`, `layer_mean_dtype`,
+    `param_sharding`, `pipeline_microbatches` and `sequence_parallel`.
+    Also left out: `epochs`, `num_samples` and `model_name`, which only
+    `fit` and checkpoints read. Kept for the next slice, which reads them
+    (`fit`, the data pipeline, device RawBoost), and unread by the train
+    step: the clip length, `batch_size`, the alpha ramp, `wire_dtype`
+    and the RawBoost fields other than `use_rawboost` and
+    `rawboost_mode`."""
+
+    target_sample_rate: int = 16000
+    max_duration_seconds: int = 5
+    input_dim: int = 1024
+    hidden_dim: int = 256
+    dropout: float = 0.1
+
+    batch_size: int = 32
+    head_lr: float = 5e-3
+    enc_lr: float = 1e-5
+    weight_decay: float = 3e-3
+    seed: int = 1337
+    finetune_encoder: bool = False
+    grad_clip: float = 5.0              # on the head params only
+
+    temperature: float = 0.2
+    supcon_similarity: str = "cosine"   # 'cosine' | 'geodesic'
+    uniformity_weight: float = 0.0
+    uniformity_t: float = 2.0
+    topk_neg: int = 15
+    warmup_epochs: int = 100
+    alpha_end: float = 1.0
+    alpha_ramp_epochs: int = 80
+
+    use_rawboost: bool = True
+    rawboost_prob: float = 0.7
+    rawboost_mode: str = "device"       # 'device' | 'host' | 'off'
+    rawboost_fir_impl: str = "fft"
+    rawboost_isd_mode: str = "exact"
+
+    compute_dtype: str = "bfloat16"     # encoder compute; the loss is fp32
+    wire_dtype: str = "float32"         # 'float32' | 'int16'
+    remat_encoder: bool = True          # recompute encoder layers in bwd
+    remat_conv: bool = False            # recompute the conv tower in bwd
+    freeze_feature_extractor: bool = False
+    adam_mu_dtype: str = "bfloat16"     # AdamW moment storage; math fp32
+    adam_nu_dtype: str = "bfloat16"
+    grad_dtype: str = "auto"            # 'auto' | 'float32' | 'bfloat16'
+
+    def replace(self, **kw) -> "Stage1Config":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class SupConConfig:
+    """Static SupCon hyperparameters; alpha is passed per step."""
+
+    temperature: float = 0.2
+    similarity: str = "cosine"  # 'cosine' | 'geodesic'
+    topk_neg: int = 15
+    uniformity_weight: float = 0.0
+    uniformity_t: float = 2.0
+
+    def __post_init__(self):
+        if self.similarity not in ("cosine", "geodesic"):
+            raise ValueError(f"Unknown similarity: {self.similarity}")
 
 
 # facebook/wav2vec2-xls-r-300m

@@ -1,8 +1,8 @@
 // Masked-softmax self-attention, forward, for Hopper (sm_90a).
 //
 // Replaces the forward body of the Pallas kernel `_fwd_kernel` in
-// wav2vec_contr_loss_tpu/ops/attention_pallas.py (dropout rate 0):
-//   out = bf16(p) . v,  p = softmax_fp32(q . k^T + bias)
+// wav2vec_contr_loss_tpu/ops/attention_pallas.py:
+//   out = bf16(p * mask) . v,  p = softmax_fp32(q . k^T + bias)
 // with bf16 q/k/v (B, H, T, D), q pre-scaled by 1/sqrt(D), an fp32 (B, T)
 // additive key bias (0 or -1e30), fp32 accumulation and a bf16 output.
 // The max-subtracted softmax makes a fully masked row uniform, as in JAX.
@@ -28,7 +28,10 @@
 //           registers across chunks.
 // Recomputing q . k^T costs tensor-core time the kernel has spare and
 // keeps shared memory per block small enough for T up to 512; no score
-// leaves the SM.
+// leaves the SM. Dropout (rate > 0) multiplies the normalized fp32 p by
+// the murmur mask of dropout_mask.cuh right before its bf16 rounding, in
+// the order of `_fwd_kernel`; the backward kernel (attention_bwd.cu)
+// regenerates the same mask from the same seed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,6 +39,9 @@
 
 #include <math.h>
 #include <stddef.h>
+
+#include "common.cuh"
+#include "dropout_mask.cuh"
 
 namespace {
 
@@ -61,14 +67,6 @@ size_t smem_bytes(int T, int D) {
          + rows * (sizeof(float) * kLdc + sizeof(__nv_bfloat16) * kLdp);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  // src-size 0 fills the 16 bytes with zeros and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -84,7 +82,8 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out, int H, int T) {
+                     __nv_bfloat16* __restrict__ out, int H, int T,
+                     unsigned seed, unsigned threshold, float scale) {
   static_assert(D % 16 == 0 && D + 4 <= kLdc, "head dim");
   constexpr int kQTile = 16 * kWarps;  // query rows per block
   constexpr int LDK = D + 8;   // staged K/V/Q row stride (bf16)
@@ -94,6 +93,7 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQTile;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Tp = round_chunk(T);
+  const DropoutMask mask(seed + (unsigned)(b * H + h), threshold, scale);
 
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* vs = ks + (size_t)Tp * LDK;
@@ -192,9 +192,11 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     score_chunk(c);
     const float* bc = bs + c * kChunk + half * 32;
     __nv_bfloat16* pr = pbuf + row * kLdp + half * 32;
+    const unsigned qrow = q0 + r0 + row, kcol = c * kChunk + half * 32;
 #pragma unroll 8
     for (int i = 0; i < 32; ++i)
-      pr[i] = __float2bfloat16(__expf(prow[i] + bc[i] - m_run) * inv_l);
+      pr[i] = __float2bfloat16(__expf(prow[i] + bc[i] - m_run) * inv_l *
+                               mask(qrow, kcol + i));
     __syncwarp();
 #pragma unroll
     for (int kt = 0; kt < kChunk / 16; ++kt) {
@@ -231,6 +233,7 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 template <int W>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, void* out, int B, int H, int T,
+                   unsigned seed, unsigned threshold, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(T, 64);
   cudaError_t err = cudaFuncSetAttribute(
@@ -243,7 +246,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), H, T);
+      static_cast<__nv_bfloat16*>(out), H, T, seed, threshold, scale);
   return cudaGetLastError();
 }
 
@@ -257,18 +260,20 @@ long long attention_fwd_smem_bytes(int T, int D) {
   return (long long)smem_bytes(T, D);
 }
 
+// seed: the dropout seed (the mask of (b, h) uses seed + b*H + h);
+// threshold: min(rate * 2^32, 2^32 - 1), 0 for rate 0; scale: 1/(1-rate)
 int attention_fwd(const void* q, const void* k, const void* v,
                   const void* bias, void* out, int B, int H, int T, int D,
+                  unsigned seed, unsigned threshold, float scale,
                   void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || T > kMaxT || D != 64)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(warps_for(T) == 16 ? launch<16>(q, k, v, bias, out, B, H, T, s)
-                                  : launch<8>(q, k, v, bias, out, B, H, T, s));
-}
-
-const char* w2v_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  return (int)(warps_for(T) == 16
+                   ? launch<16>(q, k, v, bias, out, B, H, T, seed, threshold,
+                                scale, s)
+                   : launch<8>(q, k, v, bias, out, B, H, T, seed, threshold,
+                               scale, s));
 }
 
 }  // extern "C"

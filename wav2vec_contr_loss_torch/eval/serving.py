@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import Stage2Config, Wav2Vec2Config
+from ..device import resolve_device
 from ..models.compression import CompressionModule, clip_embedding
 from ..models.heads import build_head
 from ..models.wav2vec2 import Wav2Vec2Encoder
@@ -51,14 +52,6 @@ _WINDOW_AGG = {
 _WIRES = ("float32", "int16")
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; the port runs on "
-                           "the GPU unless device='cpu' is passed")
-    return dev
-
-
 class SpoofScorer:
     """Encoder + compression + stage-2 head as one scoring function.
 
@@ -71,7 +64,7 @@ class SpoofScorer:
                  stage2_cfg: Stage2Config = Stage2Config(), *,
                  sample_rate: int = 16000, max_duration_seconds: int = 5,
                  device="cuda"):
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.enc_config = enc_config
         self.sample_rate = sample_rate
         self.num_samples = max_duration_seconds * sample_rate

@@ -1,29 +1,44 @@
-"""Compression module and clip pooling, in eval mode.
+"""Compression module and clip pooling.
 
-The port of wav2vec_contr_loss_tpu/models/compression.py: LeakyReLU(0.01)
-then Linear(input_dim -> hidden_dim) per frame on the encoder's fp32
-layer-mean, and `clip_embedding` (time-mean, then L2 norm). Dropout
-belongs to training and is not ported.
+The port of wav2vec_contr_loss_tpu/models/compression.py: Dropout, then
+LeakyReLU(0.01), then Linear(input_dim -> hidden_dim) per frame on the
+encoder's fp32 layer-mean, and `clip_embedding` (time-mean, then L2
+norm). In train mode the dropout is the port's murmur dropout with a seed
+drawn from the caller's generator (the JAX module draws flax's threefry
+bits, which cannot be reproduced, so only the rate carries over).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import draw_seed, murmur_dropout
+
 __all__ = ["CompressionModule", "clip_embedding"]
 
 
 class CompressionModule(nn.Module):
-    def __init__(self, input_dim: int = 1024, hidden_dim: int = 256):
+    def __init__(self, input_dim: int = 1024, hidden_dim: int = 256,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.proj = nn.Linear(input_dim, hidden_dim)
 
-    def forward(self, layer_mean: torch.Tensor) -> torch.Tensor:
+    def forward(self, layer_mean: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, input_dim) K-averaged encoder features -> (B, T, hidden),
-        fp32."""
-        return self.proj(F.leaky_relu(layer_mean.float(), 0.01))
+        fp32. Train mode with a dropout rate needs `gen`."""
+        x = layer_mean.float()
+        if self.training and self.dropout_rate > 0.0:
+            if gen is None:
+                raise ValueError("train-mode dropout draws its seed from "
+                                 "`gen`, a torch.Generator")
+            x = murmur_dropout(x, draw_seed(gen), self.dropout_rate)
+        return self.proj(F.leaky_relu(x, 0.01))
 
 
 def clip_embedding(seq: torch.Tensor, l2_normalize: bool = True) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""Wav2Vec2 encoder in eval mode, in PyTorch.
+"""Wav2Vec2 encoder, in PyTorch.
 
-The port of wav2vec_contr_loss_tpu/models/wav2vec2.py (`Wav2Vec2Encoder`
-with deterministic=True): strided-conv feature extractor -> feature
-projection -> convolutional positional embedding -> transformer stack,
-returning the mean over all K = num_layers + 1 hidden states.
+The port of wav2vec_contr_loss_tpu/models/wav2vec2.py (`Wav2Vec2Encoder`):
+strided-conv feature extractor -> feature projection -> convolutional
+positional embedding -> transformer stack, returning the mean over all
+K = num_layers + 1 hidden states. `self.training` stands in for JAX's
+`deterministic=False`.
 
 Numerics follow the JAX code. Parameters stay fp32 and are cast to the
 compute dtype at use, as flax `Dense(dtype=bf16)` does. LayerNorm
@@ -13,11 +14,22 @@ nonzero samples pushed through the conv stride chain; padded frames are
 zeroed and get an fp32 -1e30 key bias (not -inf, so a clip with no valid
 frame attends uniformly instead of producing NaN).
 
-The two Pallas kernels of the JAX encoder have Hopper counterparts here:
-the conv extractor's LayerNorm+GELU (`ops/conv_ln.py`, 'layer' variant,
-one launch per conv) and the attention core (`ops/attention.py`, one
-launch per layer). SpecAugment, dropout, remat and the parallel layouts
-belong to training and are not ported.
+The two Pallas kernels of the JAX encoder have Hopper counterparts here,
+forward and backward: the conv extractor's LayerNorm+GELU
+(`ops/conv_ln.py`, 'layer' variant, one launch per conv) and the
+attention core with its dropout (`ops/attention.py`, one launch per
+layer).
+
+Train mode (finetuning) takes a `torch.Generator` and draws every random
+number from it before the layers run: one murmur dropout seed for each
+dropout site (feature projection, the encoder input, and per layer the
+attention probabilities, the attention output, the FFN activation and
+the FFN output, as at the JAX call sites) and the SpecAugment uniforms.
+So `remat` (`torch.utils.checkpoint` around each layer) and `remat_conv`
+(around the conv tower) recompute the same masks; they change the
+schedule, not the values. `freeze_feature_extractor` runs the conv tower
+without gradients (the JAX `stop_gradient`). The parallel layouts are not
+ported.
 
 Parameter names follow HuggingFace's `Wav2Vec2Model`; `bridge.py` maps
 the JAX trees onto them.
@@ -30,12 +42,66 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Wav2Vec2Config, feature_frame_length
 from ..ops.attention import fused_attention
 from ..ops.conv_ln import fused_ln_gelu
+from ..ops.dropout import draw_seed, murmur_dropout
 
-__all__ = ["Wav2Vec2Encoder"]
+__all__ = ["Wav2Vec2Encoder", "time_mask_spans", "max_mask_spans"]
+
+# per-layer dropout sites, in the order their seeds are drawn
+_LAYER_SITES = ("attention", "attention_out", "activation", "ffn_out")
+
+
+def _drop(x: torch.Tensor, seeds: Optional[Dict[str, int]], site: str,
+          rate: float) -> torch.Tensor:
+    """Murmur dropout at `site` when its seed was drawn (train mode)."""
+    if seeds is None or seeds.get(site) is None:
+        return x
+    return murmur_dropout(x, seeds[site], rate)
+
+
+def max_mask_spans(t_frames: int, cfg: Wav2Vec2Config) -> int:
+    """Static bound on the SpecAugment spans per clip."""
+    return max(cfg.mask_time_min_masks,
+               int(cfg.mask_time_prob * t_frames / cfg.mask_time_length) + 1)
+
+
+def time_mask_spans(lengths: torch.Tensor, t_frames: int,
+                    cfg: Wav2Vec2Config, eps: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+    """SpecAugment time mask (B, T') bool, the port of `_time_mask_spans`
+    (wav2vec2.py:206-250) with its uniforms passed in: eps (B,) and
+    u (B, max_mask_spans(t_frames, cfg)), both fp32 in [0, 1).
+
+      num_spans = max(int(p * len / L + eps), min_masks), capped so the
+      spans fit; starts drawn without replacement from [0, len - L] by
+      sequential insertion."""
+    L, p = cfg.mask_time_length, cfg.mask_time_prob
+    max_spans = max_mask_spans(t_frames, cfg)
+    flen = lengths.to(torch.float32)
+    num = torch.floor(p * flen / L + eps).to(torch.int64)
+    num = num.clamp_min(cfg.mask_time_min_masks)
+    num = torch.minimum(num, lengths // L)
+    num = torch.minimum(num, (lengths - (L - 1)).clamp_min(0))
+
+    hi = (lengths - L + 1).clamp_min(1).to(torch.float32)
+    chosen = []
+    for i in range(max_spans):
+        x = torch.floor(u[:, i] * (hi - i).clamp_min(1.0)).to(torch.int64)
+        if chosen:
+            prev = torch.sort(torch.stack(chosen, dim=1), dim=1).values
+            for j in range(i):
+                x = x + (x >= prev[:, j]).to(torch.int64)
+        chosen.append(x)
+    starts = torch.stack(chosen, dim=1)                        # (B, S)
+    active = (torch.arange(max_spans, device=lengths.device)[None, :]
+              < num[:, None])
+    fr = torch.arange(t_frames, device=lengths.device)[None, None, :]
+    spans = (fr >= starts[:, :, None]) & (fr < (starts + L)[:, :, None])
+    return (spans & active[:, :, None]).any(dim=1)
 
 
 def _linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -115,9 +181,11 @@ class FeatureProjection(nn.Module):
         self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                seeds: Optional[Dict[str, int]] = None) -> torch.Tensor:
         x = _layer_norm(self.layer_norm, x, self.cfg.torch_dtype)
-        return _linear(self.projection, x)
+        return _drop(_linear(self.projection, x), seeds, "feat_proj",
+                     self.cfg.feat_proj_dropout)
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -142,13 +210,15 @@ class SelfAttention(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         d = cfg.hidden_size
+        self.rate = cfg.attention_dropout
         self.num_heads = cfg.num_heads
         self.q_proj = nn.Linear(d, d)
         self.k_proj = nn.Linear(d, d)
         self.v_proj = nn.Linear(d, d)
         self.out_proj = nn.Linear(d, d)
 
-    def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_bias: torch.Tensor,
+                seed: Optional[int] = None) -> torch.Tensor:
         b, t, d = x.shape
         h = self.num_heads
         hd = d // h
@@ -160,19 +230,25 @@ class SelfAttention(nn.Module):
         def heads(a: torch.Tensor) -> torch.Tensor:
             return a.view(b, t, h, hd).transpose(1, 2).contiguous()
 
-        out = fused_attention(heads(q), heads(k), heads(v), key_bias, 0, 0.0, h)
+        rate = 0.0 if seed is None else self.rate
+        out = fused_attention(heads(q), heads(k), heads(v), key_bias,
+                              seed or 0, rate, h)
         return _linear(self.out_proj, out.transpose(1, 2).reshape(b, t, d))
 
 
 class FeedForward(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.cfg = cfg
         self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(self.output_dense,
-                       F.gelu(_linear(self.intermediate_dense, x)))
+    def forward(self, x: torch.Tensor,
+                seeds: Optional[Dict[str, int]] = None) -> torch.Tensor:
+        x = F.gelu(_linear(self.intermediate_dense, x))
+        x = _drop(x, seeds, "activation", self.cfg.activation_dropout)
+        return _drop(_linear(self.output_dense, x), seeds, "ffn_out",
+                     self.cfg.hidden_dropout)
 
 
 class EncoderLayer(nn.Module):
@@ -181,6 +257,7 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.hidden_dropout = cfg.hidden_dropout
         self.pre_ln = cfg.do_stable_layer_norm
         self.dtype = cfg.torch_dtype
         self.attention = SelfAttention(cfg)
@@ -189,15 +266,22 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size,
                                              eps=cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_bias: torch.Tensor,
+                seeds: Optional[Dict[str, int]] = None) -> torch.Tensor:
+        """`seeds` holds a dropout seed per site of `_LAYER_SITES` in
+        train mode, None in eval mode."""
+        attn_seed = None if seeds is None else seeds.get("attention")
+
+        def attend(y):
+            return _drop(self.attention(y, key_bias, attn_seed), seeds,
+                         "attention_out", self.hidden_dropout)
+
         if self.pre_ln:
-            x = x + self.attention(_layer_norm(self.layer_norm, x, self.dtype),
-                                   key_bias)
+            x = x + attend(_layer_norm(self.layer_norm, x, self.dtype))
             return x + self.feed_forward(
-                _layer_norm(self.final_layer_norm, x, self.dtype))
-        x = _layer_norm(self.layer_norm, x + self.attention(x, key_bias),
-                        self.dtype)
-        x = x + self.feed_forward(x)
+                _layer_norm(self.final_layer_norm, x, self.dtype), seeds)
+        x = _layer_norm(self.layer_norm, x + attend(x), self.dtype)
+        x = x + self.feed_forward(x, seeds)
         return _layer_norm(self.final_layer_norm, x, self.dtype)
 
 
@@ -214,42 +298,98 @@ class TransformerStack(nn.Module):
 
 
 class Wav2Vec2Encoder(nn.Module):
-    """Full encoder in eval mode. `forward` returns a dict:
+    """Full encoder. `forward` returns a dict:
 
       layer_mean:  (B, T', D) fp32 mean of all K = num_layers+1 hidden
                    states (pre-LN: the last one after the encoder LN),
       last_hidden: (B, T', D) final hidden state, compute dtype,
       frame_mask:  (B, T') bool validity mask in frame space,
       all_hidden:  (K, B, T', D) fp32, only with return_all_hidden_states.
+
+    In train mode `forward` needs `gen`, the generator every dropout seed
+    and SpecAugment uniform is drawn from. `remat`, `remat_conv` and
+    `freeze_feature_extractor` are the trainer's knobs of the same names.
     """
 
-    def __init__(self, cfg: Wav2Vec2Config):
+    def __init__(self, cfg: Wav2Vec2Config, *, remat: bool = False,
+                 remat_conv: bool = False,
+                 freeze_feature_extractor: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
+        self.remat_conv = remat_conv
+        self.freeze_feature_extractor = freeze_feature_extractor
         self.feature_extractor = FeatureExtractor(cfg)
         self.feature_projection = FeatureProjection(cfg)
         if cfg.apply_spec_augment:
-            # training-only (SpecAugment); kept so checkpoints round-trip
             self.masked_spec_embed = nn.Parameter(torch.empty(cfg.hidden_size))
         self.encoder = TransformerStack(cfg)
 
+    def _draw(self, gen: torch.Generator, batch: int, t_frames: int):
+        """Every random number of one train-mode forward, in a fixed
+        order: (global seeds, per-layer seeds, SpecAugment uniforms)."""
+        cfg = self.cfg
+
+        def seed(rate):
+            return draw_seed(gen) if rate > 0.0 else None
+
+        glob = {"feat_proj": seed(cfg.feat_proj_dropout),
+                "encoder_in": seed(cfg.hidden_dropout)}
+        rates = {"attention": cfg.attention_dropout,
+                 "attention_out": cfg.hidden_dropout,
+                 "activation": cfg.activation_dropout,
+                 "ffn_out": cfg.hidden_dropout}
+        layers = [{site: seed(rates[site]) for site in _LAYER_SITES}
+                  for _ in range(cfg.num_layers)]
+        spans = None
+        if cfg.apply_spec_augment and cfg.mask_time_prob > 0:
+            spans = (torch.rand(batch, generator=gen),
+                     torch.rand(batch, max_mask_spans(t_frames, cfg),
+                                generator=gen))
+        return glob, layers, spans
+
+    def _features(self, waveforms: torch.Tensor) -> torch.Tensor:
+        if self.training and self.freeze_feature_extractor:
+            with torch.no_grad():   # the JAX stop_gradient
+                return self.feature_extractor(waveforms)
+        if (self.training and self.remat_conv
+                and torch.is_grad_enabled()):
+            return checkpoint(self.feature_extractor, waveforms,
+                              use_reentrant=False)
+        return self.feature_extractor(waveforms)
+
     def forward(self, waveforms: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                return_all_hidden_states: bool = False
+                return_all_hidden_states: bool = False,
+                gen: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         dt = cfg.torch_dtype
         if attention_mask is None:
             attention_mask = waveforms != 0.0
-        features = self.feature_extractor(waveforms)
+        features = self._features(waveforms)
         t_frames = features.shape[1]
+        if self.training:
+            if gen is None:
+                raise ValueError("train mode draws its dropout seeds from "
+                                 "`gen`, a torch.Generator")
+            glob, layer_seeds, spans = self._draw(gen, features.shape[0],
+                                                  t_frames)
+        else:
+            glob, layer_seeds, spans = None, [None] * cfg.num_layers, None
 
         lengths = feature_frame_length(attention_mask.to(torch.int64).sum(-1),
                                        cfg)
         frame_idx = torch.arange(t_frames, device=features.device)
         frame_mask = frame_idx[None, :] < lengths[:, None]   # (B, T')
 
-        hidden = self.feature_projection(features)
+        hidden = self.feature_projection(features, glob)
+        if spans is not None:
+            eps, u = (a.to(features.device) for a in spans)
+            span = time_mask_spans(lengths, t_frames, cfg, eps, u) & frame_mask
+            hidden = torch.where(span[:, :, None],
+                                 self.masked_spec_embed.to(hidden.dtype),
+                                 hidden)
         hidden = hidden * frame_mask[:, :, None].to(hidden.dtype)
         key_bias = torch.where(frame_mask, 0.0, -1e30).to(torch.float32)
 
@@ -257,12 +397,17 @@ class Wav2Vec2Encoder(nn.Module):
         hidden = hidden + stack.pos_conv_embed(hidden)
         if not cfg.do_stable_layer_norm:
             hidden = _layer_norm(stack.layer_norm, hidden, dt)
+        hidden = _drop(hidden, glob, "encoder_in", cfg.hidden_dropout)
 
+        remat = self.training and self.remat and torch.is_grad_enabled()
         acc = hidden.float()
         ys = []
         h = hidden
-        for layer in stack.layers:
-            h = layer(h, key_bias)
+        for layer, seeds in zip(stack.layers, layer_seeds):
+            if remat:
+                h = checkpoint(layer, h, key_bias, seeds, use_reentrant=False)
+            else:
+                h = layer(h, key_bias, seeds)
             acc = acc + h.float()
             if return_all_hidden_states:
                 ys.append(h)

@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` exports plain C entry points (pointers and the
 stream as `void*`, sizes as `int`, a `cudaError_t` returned as `int`), so
 it compiles in seconds without PyTorch's headers. The library is built
 at first use into `_build/` beside this package (listed in .gitignore),
-named after a hash of its source, so an edited source never loads a stale
-build. Nothing is built when a module is imported.
+named after a hash of its source and the shared `csrc/*.cuh` headers, so
+an edited source never loads a stale build. Nothing is built when a
+module is imported.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["BUILD_DIR", "build", "load"]
+__all__ = ["BUILD_DIR", "build", "check", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -41,8 +42,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((SRC_DIR / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    # the shared headers are part of every source's hash
+    text = b"".join(p.read_bytes() for p in
+                    [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))])
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -79,4 +83,14 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The built library for `csrc/<name>.cu`, building it if needed."""
-    return ctypes.CDLL(str(build([name])[name]))
+    lib = ctypes.CDLL(str(build([name])[name]))
+    lib.w2v_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.w2v_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, what: str, err: int) -> None:
+    """Raise if an entry point of `lib` returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.w2v_cuda_error_string(err).decode())

@@ -1,0 +1,103 @@
+"""Counter-based (murmur3 finalizer) dropout, bit-identical to the JAX
+package's hashes for a given integer seed.
+
+Two hashes, as in the JAX package:
+
+  * `murmur_bits` / `murmur_dropout`: the port of
+    wav2vec_contr_loss_tpu/ops/fast_dropout.py, one odd multiplier per
+    axis over the whole tensor. The encoder's hidden, feature-projection
+    and activation dropouts use it.
+  * `attention_dropout_mask`: the port of `_random_bits` /
+    `_dropout_mask` / `_head_seed` of
+    wav2vec_contr_loss_tpu/ops/attention_pallas.py, over (query, key) with
+    the per-(batch, head) seed `seed + b*H + h`. The attention kernels
+    (csrc/dropout_mask.cuh) compute the same bits in registers; this is
+    their plain version.
+
+torch on the CPU has no uint32 `>>`, `>=` or `arange`, so the hash runs in
+int64 with every product reduced modulo 2^32 (`_mul32` splits the
+multiplier so no intermediate leaves int64). The seed is a Python int,
+drawn by the caller from its `torch.Generator`; JAX's threefry draw of
+that seed (fast_dropout.py:67) is not reproduced.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+__all__ = ["murmur_bits", "murmur_dropout", "attention_dropout_mask",
+           "threshold", "draw_seed"]
+
+_M32 = 0xFFFFFFFF
+# distinct odd multipliers per axis (fast_dropout.py:42)
+_AXIS_MULTS = (2654435761, 2246822519, 3266489917, 668265263, 374761393,
+               2554388019, 2869860233, 179424673)
+
+
+def threshold(rate: float) -> int:
+    """Keep an element when its bits are >= this (attention_pallas.py:74)."""
+    return min(int(rate * (2 ** 32)), 2 ** 32 - 1)
+
+
+def draw_seed(gen: torch.Generator) -> int:
+    """One dropout seed in [0, 2^31 - 1), as the JAX code draws it."""
+    return int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a constant c."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def murmur_bits(shape: Sequence[int], seed: int,
+                device=None) -> torch.Tensor:
+    """int64 tensor of uint32 values, indexed by element coordinates and
+    seed; equal to fast_dropout.murmur_bits(shape, seed)."""
+    shape = tuple(shape)
+    h = torch.full((1,) * len(shape),
+                   ((seed & _M32) * 0x9E3779B9 + 0x85EBCA6B) & _M32,
+                   dtype=torch.int64, device=device)
+    for axis, dim in enumerate(shape):
+        if dim == 1:
+            continue
+        view = [1] * len(shape)
+        view[axis] = dim
+        iota = torch.arange(dim, dtype=torch.int64, device=device).view(view)
+        h = h ^ _mul32(iota, _AXIS_MULTS[axis % len(_AXIS_MULTS)])
+    return _fmix(h.expand(shape))
+
+
+def murmur_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """Inverted dropout with counter-based bits: x / (1 - rate) where the
+    bits of an element reach the rate's threshold, else 0."""
+    if rate <= 0.0:
+        return x
+    keep = murmur_bits(x.shape, seed, x.device) >= threshold(rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def attention_dropout_mask(batch: int, heads: int, t: int, seed: int,
+                           rate: float, device=None) -> torch.Tensor:
+    """(B, H, T, T) fp32 mask of the attention kernels: 1/(1-rate) where
+    the murmur hash of (query, key, seed + b*H + h) reaches the threshold,
+    else 0 (attention_pallas.py:54-81)."""
+    r = _mul32(torch.arange(t, dtype=torch.int64, device=device), 2654435761)
+    c = _mul32(torch.arange(t, dtype=torch.int64, device=device), 0x9E3779B9)
+    bh = (seed + torch.arange(batch * heads, dtype=torch.int64,
+                              device=device)) & _M32
+    s = (_mul32(bh, 2246822519) + 0x85EBCA6B) & _M32
+    h = (r[:, None] ^ c[None, :])[None] ^ s[:, None, None]
+    keep = _fmix(h) >= threshold(rate)
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+    return torch.where(keep, scale.to(device), 0.0).view(batch, heads, t, t)

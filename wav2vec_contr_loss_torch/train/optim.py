@@ -1,0 +1,114 @@
+"""Grouped AdamW of the stage-1 trainer.
+
+The port of `build_optimizer` and `_param_groups`
+(wav2vec_contr_loss_tpu/train/stage1.py:66,124) and of the storage-dtype
+Adam core (wav2vec_contr_loss_tpu/ops/adam_bf16nu.py):
+
+  * 'head' (the compression module): global-norm clip at `grad_clip` on
+    the head's gradients only, then AdamW at `head_lr`;
+  * 'encoder' (when finetuning): AdamW at `enc_lr`;
+  * 'frozen' (the conv feature extractor under freeze_feature_extractor):
+    no update, no weight decay, no state, as optax.set_to_zero.
+
+Both moments are stored in `adam_mu_dtype` / `adam_nu_dtype` and the
+moment and step math runs in fp32; with fp32 storage it is optax.adamw's
+arithmetic. Parameters, moments and gradients are updated in place (the
+JAX package builds new trees), which keeps one copy of each on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+__all__ = ["resolve_grad_bf16", "AdamWGroup", "GroupedAdamW",
+           "build_optimizer"]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def resolve_grad_bf16(cfg) -> bool:
+    """The `grad_dtype` knob ('auto' | 'float32' | 'bfloat16'): 'auto' is
+    bf16 weight gradients exactly when compute_dtype is 'bfloat16'. Under
+    bf16 compute the port's transformer weight gradients come out of bf16
+    matrix products, which is what this asks for; the optimizer takes
+    them into fp32 math either way."""
+    gd = getattr(cfg, "grad_dtype", "auto")
+    if gd not in ("auto", "float32", "bfloat16"):
+        raise ValueError(f"grad_dtype must be 'auto', 'float32' or "
+                         f"'bfloat16'; got {gd!r}")
+    if gd == "auto":
+        return cfg.compute_dtype == "bfloat16"
+    return gd == "bfloat16"
+
+
+class AdamWGroup:
+    """One optax.adamw over a list of parameters, optionally behind a
+    global-norm clip of their gradients."""
+
+    def __init__(self, params: List[torch.nn.Parameter], lr: float,
+                 weight_decay: float, mu_dtype: torch.dtype,
+                 nu_dtype: torch.dtype, clip: Optional[float] = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, self.weight_decay, self.clip = lr, weight_decay, clip
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
+        self.nu = [torch.zeros_like(p, dtype=nu_dtype) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad.float()
+                 for p in self.params]
+        if self.clip is not None and grads:
+            # optax.clip_by_global_norm: g if |g| < clip else g / |g| * clip
+            norm = torch.sqrt(sum(g.square().sum() for g in grads))
+            keep = norm < self.clip
+            grads = [torch.where(keep, g, g / norm * self.clip)
+                     for g in grads]
+        self.count += 1
+        f32 = torch.float32
+        bc1 = float(1 - torch.tensor(self.b1, dtype=f32) ** self.count)
+        bc2 = float(1 - torch.tensor(self.b2, dtype=f32) ** self.count)
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            m32 = mu.float().mul_(self.b1).add_(g, alpha=1 - self.b1)
+            v32 = nu.float().mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
+            upd = (m32 / bc1) / ((v32 / bc2).sqrt_().add_(self.eps))
+            upd.add_(p, alpha=self.weight_decay).mul_(-self.lr)
+            p.add_(upd)
+            mu.copy_(m32)
+            nu.copy_(v32)
+
+
+class GroupedAdamW:
+    """The optax.multi_transform of the JAX trainer over named groups;
+    parameters in no group take no update."""
+
+    def __init__(self, groups: Dict[str, AdamWGroup]):
+        self.groups = groups
+
+    def zero_grad(self) -> None:
+        for grp in self.groups.values():
+            for p in grp.params:
+                p.grad = None
+
+    def step(self) -> None:
+        for grp in self.groups.values():
+            grp.step()
+
+
+def build_optimizer(cfg, head: List[torch.nn.Parameter],
+                    encoder: List[torch.nn.Parameter]) -> GroupedAdamW:
+    """Head clipped at cfg.grad_clip + AdamW(head_lr); encoder
+    AdamW(enc_lr) when it trains; shared weight decay. Frozen parameters
+    are in neither list."""
+    mu = _DTYPES[cfg.adam_mu_dtype]
+    nu = _DTYPES[cfg.adam_nu_dtype]
+    groups = {"head": AdamWGroup(head, cfg.head_lr, cfg.weight_decay, mu, nu,
+                                 clip=cfg.grad_clip)}
+    if encoder:
+        groups["encoder"] = AdamWGroup(encoder, cfg.enc_lr, cfg.weight_decay,
+                                       mu, nu)
+    return GroupedAdamW(groups)
