@@ -65,6 +65,9 @@ TRAIN_STEPS = 8
 # dp to bf16); the tolerances of tests/test_attention_pallas.py
 ATT_FWD_TOL = dict(atol=2e-3, rtol=2e-2)
 ATT_BWD_TOL = dict(atol=5e-2, rtol=5e-2)
+# LN+GELU forward: bf16 outputs on both sides, fp32 statistics
+# (tests/test_conv_ln_pallas.py's bf16 tolerance)
+LN_FWD_TOL = dict(atol=2e-2, rtol=2e-2)
 # LN+GELU backward: dx is bf16 on both sides (tests/test_conv_ln_pallas.py's
 # bf16 tolerance); dscale/dbias are fp32 sums over up to 511,968 rows taken
 # in another order (per-program partial sums) than autograd's
@@ -82,6 +85,19 @@ SUPCON_GRAD_TOL = dict(atol=5e-6, rtol=5e-4)
 # its small entries by more than their size.
 STEP_LOSS_TOL = 5e-3             # |loss_gpu - loss_cpu|
 STEP_GRAD_COS = 0.999            # cosine(proj grad gpu, proj grad cpu)
+# the same step's encoder gradients, which only the in-model backward
+# kernels (attention bwd, LN+GELU bwd and its partial sums) and the remat
+# recompute on the card produce: a transformer weight of the first layer
+# and the first conv LN's scale, the far end of the backward. Held by
+# cosine and by the ratio of the norms gpu / cpu. Measured on an H100:
+# cosines 0.9978-0.9996, norm ratios within 0.22 % of 1 (both cases);
+# the limits sit ~3x and ~4.5x outside that. A remat recompute that
+# draws other dropout masks than the forward fails both limits while the
+# proj gradient does not move.
+STEP_ENC_GRADS = ("encoder.encoder.layers.0.attention.q_proj.weight",
+                  "encoder.feature_extractor.conv_layers.0.layer_norm.weight")
+STEP_ENC_COS = 0.993             # cosine(gpu, cpu) of each
+STEP_ENC_NORM = 0.01             # |norm ratio - 1|
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -248,9 +264,9 @@ def kernel_phase(dev):
             torch.cuda.synchronize()
             e = (got.float() - want.float()).abs().max().item()
             print(f"ln_gelu_fwd rows={rows} gelu={gelu} max_abs_err={e:.3e} "
-                  f"(tolerance |d| <= 2e-2 + 2e-2 |plain|)")
+                  f"(tolerance {LN_FWD_TOL})")
             torch.testing.assert_close(got.float(), want.float(),
-                                       atol=2e-2, rtol=2e-2)
+                                       **LN_FWD_TOL)
             err = max(err, e)
     x = (2.0 * torch.randn(BATCH * 15999, c, generator=gen, device=dev)
          ).to(torch.bfloat16)
@@ -382,6 +398,14 @@ def train_kernel_phase(dev, results) -> None:
             out_p = conv_ln.fused_ln_gelu_plain(*ins_p, 1e-5, gelu)
             want = torch.autograd.grad(out_p, ins_p, dy, retain_graph=True)
             torch.cuda.synchronize()
+            # the forward at the rows the train step gives it
+            e = (out.float() - out_p.float()).abs().max().item()
+            print(f"ln_gelu_fwd rows={rows} gelu={gelu} max_abs_err={e:.3e} "
+                  f"(tolerance {LN_FWD_TOL})")
+            torch.testing.assert_close(out.float(), out_p.float(),
+                                       **LN_FWD_TOL)
+            results["ln_gelu_fwd"]["max_abs_err"] = max(
+                results["ln_gelu_fwd"]["max_abs_err"], e)
             for name, a, w, tol in zip(("dx", "dscale", "dbias"), got, want,
                                        (LN_DX_TOL, LN_DPARAM_TOL,
                                         LN_DPARAM_TOL)):
@@ -713,39 +737,65 @@ def profile_step(trainer, batch) -> None:
 
 
 def step_vs_cpu(dev) -> None:
-    """One train step at 2 layers and full width, B=4, every dropout and
-    SpecAugment off: bf16 on the card against fp32 on the CPU."""
+    """One train step at 2 layers and full width, B=4: bf16 on the card
+    against fp32 on the CPU. First with every dropout and SpecAugment off;
+    then with them on and the conv tower under remat too: the trainer
+    draws its seeds and uniforms from one CPU generator and the masks
+    hash only seeds and positions, so both sides drop the same elements
+    and the remat recompute on the card must reproduce them."""
     from wav2vec_contr_loss_torch import (XLSR_300M, Stage1Config,
                                           Stage1Trainer, jax_params_to_torch)
 
-    cfg = XLSR_300M.with_(num_layers=2, hidden_dropout=0.0,
-                          attention_dropout=0.0, activation_dropout=0.0,
-                          feat_proj_dropout=0.0, apply_spec_augment=False)
-    weights = jax_params_to_torch(cfg, *random_jax_trees(cfg, seed=3))
+    off = dict(hidden_dropout=0.0, attention_dropout=0.0,
+               activation_dropout=0.0, feat_proj_dropout=0.0,
+               apply_spec_augment=False)
     batch = train_batch(np.random.default_rng(4), 4)
-    kw = dict(finetune_encoder=True, use_rawboost=False, dropout=0.0,
-              batch_size=4)
-    out = {}
-    for name, device, dtype in (("gpu", dev, "bfloat16"),
-                                ("cpu", "cpu", "float32")):
-        t0 = time.perf_counter()
-        tr = Stage1Trainer(Stage1Config(compute_dtype=dtype, **kw), cfg,
-                           weights, device=device)
-        loss = tr.train_step(batch, 0.5)["loss"].item()
-        grad = tr.compression.proj.weight.grad.detach().float().cpu()
-        out[name] = (loss, grad, time.perf_counter() - t0)
-    (lg, gg, _), (lc, gc, cpu_s) = out["gpu"], out["cpu"]
-    cos = torch.nn.functional.cosine_similarity(gg.flatten(), gc.flatten(),
-                                                dim=0).item()
-    gerr = (gg - gc).abs().max().item()
-    print(f"train step vs CPU fp32 ({cpu_s:.1f} s on the CPU): loss gpu "
-          f"{lg:.6f} cpu {lc:.6f} (|d| {abs(lg - lc):.3e}, tol "
-          f"{STEP_LOSS_TOL}); proj grad max_abs_err {gerr:.3e} (max |cpu| "
-          f"{gc.abs().max().item():.3e}), cosine {cos:.6f} (tol >= "
-          f"{STEP_GRAD_COS})")
-    if not (abs(lg - lc) <= STEP_LOSS_TOL and cos >= STEP_GRAD_COS):
-        raise RuntimeError("the GPU bf16 train step disagrees with the CPU "
-                           "fp32 step")
+    cases = (("dropout off", XLSR_300M.with_(num_layers=2, **off),
+              dict(dropout=0.0)),
+             ("dropout and SpecAugment on, remat_conv",
+              XLSR_300M.with_(num_layers=2, mask_time_prob=0.2,
+                              mask_time_length=5),
+              dict(remat_conv=True)))
+    failed = []
+    for case, cfg, extra in cases:
+        weights = jax_params_to_torch(cfg, *random_jax_trees(cfg, seed=3))
+        kw = dict(finetune_encoder=True, use_rawboost=False, batch_size=4,
+                  **extra)
+        out = {}
+        for name, device, dtype in (("gpu", dev, "bfloat16"),
+                                    ("cpu", "cpu", "float32")):
+            t0 = time.perf_counter()
+            tr = Stage1Trainer(Stage1Config(compute_dtype=dtype, **kw), cfg,
+                               weights, device=device)
+            loss = tr.train_step(batch, 0.5)["loss"].item()
+            params = dict(tr.encoder.named_parameters(prefix="encoder"))
+            params["proj"] = tr.compression.proj.weight
+            grads = {k: params[k].grad.detach().float().cpu()
+                     for k in ("proj",) + STEP_ENC_GRADS}
+            out[name] = (loss, grads, time.perf_counter() - t0)
+        (lg, gg, _), (lc, gc, cpu_s) = out["gpu"], out["cpu"]
+        print(f"train step vs CPU fp32, {case} ({cpu_s:.1f} s on the CPU): "
+              f"loss gpu {lg:.6f} cpu {lc:.6f} (|d| {abs(lg - lc):.3e}, tol "
+              f"{STEP_LOSS_TOL})")
+        if not abs(lg - lc) <= STEP_LOSS_TOL:
+            failed.append(f"{case}: loss")
+        for key, a in gg.items():
+            w = gc[key]
+            cos = torch.nn.functional.cosine_similarity(
+                a.flatten(), w.flatten(), dim=0).item()
+            ratio = (a.norm() / w.norm()).item()
+            cos_tol = STEP_GRAD_COS if key == "proj" else STEP_ENC_COS
+            norm_ok = key == "proj" or abs(ratio - 1.0) <= STEP_ENC_NORM
+            print(f"  grad {key}: cosine {cos:.6f} (tol >= {cos_tol}), norm "
+                  f"gpu/cpu {ratio:.6f}"
+                  + ("" if key == "proj" else f" (tol 1 +- {STEP_ENC_NORM})")
+                  + f", max_abs_err {(a - w).abs().max().item():.3e} (max "
+                  f"|cpu| {w.abs().max().item():.3e})")
+            if not (cos >= cos_tol and norm_ok):
+                failed.append(f"{case}: {key}")
+    if failed:
+        raise RuntimeError(f"the GPU bf16 train step disagrees with the CPU "
+                           f"fp32 step: {failed}")
 
 
 def main() -> int:

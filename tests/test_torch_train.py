@@ -92,7 +92,9 @@ def test_train_steps_match_jax(alpha):
     # encoder (AdamW at 1e-5): 3 steps move a weight by at most ~3e-5; a
     # gradient that is zero up to rounding (the key bias under the
     # softmax) can take Adam's sign-like step either way, so the bound is
-    # two such steps, 2e-5, over the 1e-6 of fp32 rounding
+    # two such steps, 2e-5, over the 1e-6 of fp32 rounding. This bound
+    # sees a flipped or missing update only; the gradients themselves are
+    # held by test_first_step_encoder_grads_match_jax
     for g, w in zip(got_leaves, want_leaves):
         np.testing.assert_allclose(g, np.asarray(w), atol=2e-5, rtol=0)
     # head (AdamW at 5e-3 behind the norm clip): gradients well above
@@ -102,6 +104,40 @@ def test_train_steps_match_jax(alpha):
                                np.asarray(proj["kernel"]).T, atol=1e-5)
     np.testing.assert_allclose(port.compression.proj.bias.detach().numpy(),
                                np.asarray(proj["bias"]), atol=1e-5)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.3])
+def test_first_step_encoder_grads_match_jax(alpha):
+    """The gradients of one port train step, every encoder leaf and the
+    compression projection, against jax.grad of the JAX trainer's loss on
+    the same params: this holds the encoder backward (attention, LN+GELU,
+    conv tower) directly, where the params after Adam cannot."""
+    jt, state, port = _pair()
+    batch = _batch()
+    jb = _jax_batch(batch)
+
+    def loss_fn(params):
+        # every dropout is off, so the key changes nothing
+        z = jt._embed(params, state.frozen, jb, True, jax.random.PRNGKey(0))
+        return jt._loss(z, jb, jnp.float32(alpha))
+
+    want = jax.device_get(jax.grad(loss_fn)(state.params))
+    port.train_step(batch, alpha)
+    got = convert_hf_state_dict(
+        {k: p.grad.numpy() for k, p in port.encoder.named_parameters()}, TINY)
+    want_leaves, want_def = jax.tree_util.tree_flatten(want["encoder"])
+    got_leaves, got_def = jax.tree_util.tree_flatten(got)
+    assert got_def == want_def
+    # fp32 on both sides: measured at most 6e-6 of each leaf's largest
+    # entry; 2e-5 of it, plus 1e-8 for the key bias, whose gradient is
+    # zero up to rounding (~4e-9) under the softmax
+    for g, w in zip(got_leaves, want_leaves):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=2e-5 * np.abs(w).max() + 1e-8)
+    proj = np.asarray(want["compression"]["proj"]["kernel"]).T
+    np.testing.assert_allclose(port.compression.proj.weight.grad.numpy(),
+                               proj, rtol=0, atol=2e-5 * np.abs(proj).max())
 
 
 def test_eval_and_embed_steps_match_jax():
