@@ -8,8 +8,11 @@
 2. Kernel phase: holds each hand-written kernel against its plain
    PyTorch version on the card, at the shapes the serving path gives it
    (forward kernels) and the training step gives it (dropout, backward
-   kernels, SupCon), and times kernel, plain version and the nearest
-   single PyTorch call (timed only; the port never calls it).
+   kernels, SupCon), attention also at T = 400 and 999 and on the
+   strided views the model passes, and two attention backward calls bit
+   for bit; times kernel, plain version and the nearest single PyTorch
+   call (timed only; the port never calls it; SDPA on one named backend)
+   as device time under torch.profiler.
 3. Serve phase: builds XLS-R-300M (24 layers, 1024 wide, 'layer' norm)
    with a linear head from seeded random numpy weights in the JAX tree
    layout, passed through the port's weight bridge; scores 4 batches of
@@ -115,6 +118,51 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one fn() in ms: CUDA events around `iters` calls
+    queued behind a sleeping kernel, so the device runs them back to back
+    and the host's time between launches, which decides `cuda_ms` for
+    calls of a few microseconds, stays out."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)      # ~25 ms at the H100's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    if time.perf_counter() - t0 < 1e-3:
+        raise RuntimeError("the host took longer to queue the calls than "
+                           "the sleeping kernel ran: the timing would "
+                           "include host time")
+    return start.elapsed_time(end) / iters
+
+
+def sdpa_backend():
+    """(context manager factory, name) of the one SDPA backend that the
+    yardstick runs on: cuDNN's, which takes the additive mask, or the
+    memory-efficient one where cuDNN's is missing."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    F = torch.nn.functional
+    x = torch.zeros(1, 1, 64, 64, device="cuda", dtype=torch.bfloat16)
+    m = torch.zeros(1, 1, 1, 64, device="cuda", dtype=torch.bfloat16)
+    for backend in (SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(x, x, x, attn_mask=m)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return (lambda b=backend: sdpa_kernel([b])), backend.name
+    raise RuntimeError("no SDPA backend takes an additive mask here")
+
+
 def bound(nbytes: float, flops: float, flop_rate: float):
     """(least time in ms, what bounds it) on an H100 SXM."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
@@ -214,30 +262,48 @@ def kernel_phase(dev):
     lengths = torch.tensor([249, 249, 200, 249, 120, 249, 0, 10], device=dev)
     bias = torch.where(torch.arange(t, device=dev)[None, :] < lengths[:, None],
                        0.0, -1e30).to(torch.float32)
-    got = attention.fused_attention(q, k, v, bias, 0, 0.0, h)
-    want = attention.fused_attention_plain(q, k, v, bias)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    print(f"attention_fwd (8,16,249,64) max_abs_err={err:.3e} (tolerance "
-          f"|d| <= 2e-3 + 2e-2 |plain|)")
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
+    err = 0.0
+    for rate in (0.0, 0.1):
+        got = attention.fused_attention(q, k, v, bias, 7, rate, h)
+        want = attention.fused_attention_plain(q, k, v, bias, 7, rate)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        print(f"attention_fwd (8,16,249,64) rate {rate} max_abs_err={e:.3e} "
+              f"(tolerance {ATT_FWD_TOL})")
+        torch.testing.assert_close(got.float(), want.float(), **ATT_FWD_TOL)
+        err = max(err, e)
     # ragged edges off the main path: T below one tile and below the head
-    # dim, and the longest T the kernel keeps in shared memory
-    for eb, eh, et in ((2, 3, 37), (1, 2, 400)):
+    # dim; T past the earlier kernels' shared-memory caps (one and
+    # several chunks of key tiles), with and without dropout
+    for eb, eh, et in ((2, 3, 37), (2, 4, 400), (1, 4, 999)):
         eq, ek, ev = (torch.randn(eb, eh, et, d, generator=gen, device=dev
                                   ).to(torch.bfloat16) for _ in range(3))
+        eq = (eq.float() * d ** -0.5).to(torch.bfloat16)
         ebias = torch.zeros(eb, et, device=dev)
         ebias[-1, et // 2:] = -1e30
-        eg = attention.fused_attention(eq, ek, ev, ebias, 0, 0.0, eh).float()
-        ew = attention.fused_attention_plain(eq, ek, ev, ebias).float()
-        print(f"attention_fwd ({eb},{eh},{et},{d}) max_abs_err="
-              f"{(eg - ew).abs().max().item():.3e}")
-        torch.testing.assert_close(eg, ew, atol=2e-3, rtol=2e-2)
+        for rate in (0.0, 0.1):
+            eg = attention.fused_attention(eq, ek, ev, ebias, 5, rate,
+                                           eh).float()
+            ew = attention.fused_attention_plain(eq, ek, ev, ebias, 5,
+                                                 rate).float()
+            e = (eg - ew).abs().max().item()
+            print(f"attention_fwd ({eb},{eh},{et},{d}) rate {rate} "
+                  f"max_abs_err={e:.3e}")
+            torch.testing.assert_close(eg, ew, **ATT_FWD_TOL)
+            err = max(err, e)
+    sdpa_ctx, sdpa_name = sdpa_backend()
     mask16 = bias[:, None, None, :].to(torch.bfloat16)
-    ms = cuda_ms(lambda: attention.fused_attention(q, k, v, bias, 0, 0.0, h))
-    plain_ms = cuda_ms(lambda: attention.fused_attention_plain(q, k, v, bias))
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask16, scale=1.0))
+    ms = device_ms(lambda: attention.fused_attention(q, k, v, bias, 0, 0.0,
+                                                     h))
+    wall_ms = cuda_ms(lambda: attention.fused_attention(q, k, v, bias, 0,
+                                                        0.0, h))
+    plain_ms = device_ms(lambda: attention.fused_attention_plain(q, k, v,
+                                                                 bias))
+    with sdpa_ctx():
+        lib_ms = device_ms(lambda: torch.nn.functional.
+                           scaled_dot_product_attention(q, k, v,
+                                                        attn_mask=mask16,
+                                                        scale=1.0))
     nbytes = 4 * b * h * t * d * 2 + b * t * 4
     bound_ms, bound_by = bound(nbytes, 4 * b * h * t * t * d, BF16_FLOP_PER_S)
     results["attention_fwd"] = dict(
@@ -245,10 +311,11 @@ def kernel_phase(dev):
         source="wav2vec_contr_loss_torch/csrc/attention_fwd.cu",
         replaces="wav2vec_contr_loss_tpu/ops/attention_pallas.py:83",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=lib_ms)
-    print(f"attention_fwd (8,16,249,64) bf16: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})")
+        bound_by=bound_by, library_ms=lib_ms, library=f"SDPA {sdpa_name}")
+    print(f"attention_fwd (8,16,249,64) bf16 device time: kernel {ms:.4f} ms "
+          f"({wall_ms:.4f} ms a call by CUDA events, host included), plain "
+          f"{plain_ms:.4f} ms, SDPA on {sdpa_name} {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
 
     # LN+GELU at the first conv's rows (8 x 15999) and at a ragged count
     c = 512
@@ -271,10 +338,10 @@ def kernel_phase(dev):
     x = (2.0 * torch.randn(BATCH * 15999, c, generator=gen, device=dev)
          ).to(torch.bfloat16)
     s16, b16 = scale.to(torch.bfloat16), shift.to(torch.bfloat16)
-    ms = cuda_ms(lambda: conv_ln.fused_ln_gelu(x, scale, shift, 1e-5, True))
-    plain_ms = cuda_ms(
+    ms = device_ms(lambda: conv_ln.fused_ln_gelu(x, scale, shift, 1e-5, True))
+    plain_ms = device_ms(
         lambda: conv_ln.fused_ln_gelu_plain(x, scale, shift, 1e-5, True))
-    lib_ms = cuda_ms(lambda: torch.nn.functional.gelu(
+    lib_ms = device_ms(lambda: torch.nn.functional.gelu(
         torch.nn.functional.layer_norm(x, (c,), s16, b16, 1e-5)))
     n = x.numel()
     # ~16 fp32 operations per element: mean, centre, square, sum,
@@ -299,8 +366,8 @@ def _bias_with_tails(lengths, t, dev):
 
 def _grad_ms(out, inputs, g) -> float:
     """Device time of one backward through `out`'s graph (kept alive)."""
-    return cuda_ms(lambda: torch.autograd.grad(out, inputs, g,
-                                               retain_graph=True))
+    return device_ms(lambda: torch.autograd.grad(out, inputs, g,
+                                                 retain_graph=True))
 
 
 def train_kernel_phase(dev, results) -> None:
@@ -323,49 +390,116 @@ def train_kernel_phase(dev, results) -> None:
     q = (q * d ** -0.5).to(torch.bfloat16)
     k, v, g = (x.to(torch.bfloat16) for x in (k, v, g))
     seed = 123456789
-    got = attention.fused_attention(q, k, v, bias, seed, 0.1, h)
-    want = attention.fused_attention_plain(q, k, v, bias, seed, 0.1)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    print(f"attention_fwd rate 0.1 {tuple(q.shape)} max_abs_err={err:.3e} "
-          f"(tolerance {ATT_FWD_TOL}: the same mask, so the rate-0 one)")
-    torch.testing.assert_close(got.float(), want.float(), **ATT_FWD_TOL)
-    ms_drop = cuda_ms(lambda: attention.fused_attention(q, k, v, bias, seed,
-                                                        0.1, h))
-    ms_nodrop = cuda_ms(lambda: attention.fused_attention(q, k, v, bias, 0,
-                                                          0.0, h))
+    err = 0.0
+    for rate in (0.0, 0.1):
+        got = attention.fused_attention(q, k, v, bias, seed, rate, h)
+        want = attention.fused_attention_plain(q, k, v, bias, seed, rate)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        print(f"attention_fwd rate {rate} {tuple(q.shape)} max_abs_err="
+              f"{e:.3e} (tolerance {ATT_FWD_TOL}: the same mask on both "
+              f"sides, so the rate-0 one)")
+        torch.testing.assert_close(got.float(), want.float(), **ATT_FWD_TOL)
+        err = max(err, e)
+    # the (B, H, T, D) views of (B, T, H, D) tensors that the model passes
+    # give the same bits as contiguous copies
+    qv, kv, vv = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    if not torch.equal(attention.fused_attention(qv, kv, vv, bias, seed, 0.1,
+                                                 h), got):
+        raise RuntimeError("attention_fwd differs on strided views")
+    results["attention_fwd"]["max_abs_err"] = max(
+        results["attention_fwd"]["max_abs_err"], err)
+    sdpa_ctx, sdpa_name = sdpa_backend()
+    mask16 = bias[:, None, None, :].to(torch.bfloat16)
+    ms_drop = device_ms(lambda: attention.fused_attention(q, k, v, bias, seed,
+                                                          0.1, h))
+    ms_nodrop = device_ms(lambda: attention.fused_attention(q, k, v, bias, 0,
+                                                            0.0, h))
+    # inputs that need gradients: the forward also writes the backward's
+    # residuals (the remat recompute of a train step runs this one)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    ms_resid = device_ms(lambda: attention.fused_attention(qr, kr, vr, bias,
+                                                           seed, 0.1, h))
+    with sdpa_ctx():
+        sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask16, scale=1.0))
     train_bound, _ = bound(4 * q.numel() * 2 + b * t * 4,
                            4 * b * h * t * t * d, BF16_FLOP_PER_S)
-    print(f"attention_fwd {tuple(q.shape)}: rate 0.1 {ms_drop:.4f} ms, "
-          f"rate 0 {ms_nodrop:.4f} ms, bound {train_bound:.4f} ms")
-    results["attention_fwd"].update(train_shape_ms=ms_drop,
-                                    train_shape_bound_ms=train_bound)
+    print(f"attention_fwd {tuple(q.shape)} device time: rate 0.1 "
+          f"{ms_drop:.4f} ms ({ms_resid:.4f} ms writing the backward's "
+          f"residuals), rate 0 {ms_nodrop:.4f} ms, SDPA on {sdpa_name} "
+          f"{sdpa_fwd:.4f} ms, bound {train_bound:.4f} ms")
+    results["attention_fwd"].update(
+        train_shape_ms=ms_drop, train_shape_resid_ms=ms_resid,
+        train_shape_rate0_ms=ms_nodrop,
+        train_shape_library_ms=sdpa_fwd, train_shape_bound_ms=train_bound)
+
+    def grads(fn, q, k, v, g, *args):
+        """(out, (dq, dk, dv), inputs) of fn(q, k, v, *args) with cotangent g"""
+        ins = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*ins, *args)
+        return out, torch.autograd.grad(out, ins, g, retain_graph=True), ins
 
     bwd_err = 0.0
-    for rate in (0.0, 0.1):
-        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-        out = attention.fused_attention(qs, ks, vs, bias, seed, rate, h)
-        got = torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True)
-        qp, kp, vp = (x.detach().requires_grad_() for x in (q, k, v))
-        out_p = attention.fused_attention_plain(qp, kp, vp, bias, seed, rate)
-        want = torch.autograd.grad(out_p, (qp, kp, vp), g,
-                                   retain_graph=True)
+
+    def hold(label, got, want):
+        nonlocal bwd_err
         torch.cuda.synchronize()
         for name, a, w in zip(("dq", "dk", "dv"), got, want):
             e = (a.float() - w.float()).abs().max().item()
             bwd_err = max(bwd_err, e)
-            print(f"attention_bwd rate {rate} {name} max_abs_err={e:.3e} "
+            print(f"attention_bwd {label} {name} max_abs_err={e:.3e} "
                   f"(max |plain| {w.float().abs().max().item():.3e}, "
                   f"tolerance {ATT_BWD_TOL})")
             torch.testing.assert_close(a.float(), w.float(), **ATT_BWD_TOL)
+
+    for rate in (0.0, 0.1):
+        out, got, ins = grads(attention.fused_attention, q, k, v, g, bias,
+                              seed, rate, h)
+        out_p, want, ins_p = grads(attention.fused_attention_plain, q, k, v,
+                                   g, bias, seed, rate)
+        hold(f"rate {rate} {tuple(q.shape)}", got, want)
         if rate > 0.0:
-            ms = _grad_ms(out, (qs, ks, vs), g)
-            plain_ms = _grad_ms(out_p, (qp, kp, vp), g)
-    mask16 = bias[:, None, None, :].to(torch.bfloat16)
-    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask16,
-                                          dropout_p=0.0, scale=1.0)
-    lib_ms = _grad_ms(sdpa, (ql, kl, vl), g)
+            again = torch.autograd.grad(out, ins, g, retain_graph=True)
+            same = [torch.equal(a, b_) for a, b_ in zip(got, again)]
+            print(f"attention_bwd: two calls bitwise equal (dq, dk, dv): "
+                  f"{same}")
+            if not all(same):
+                raise RuntimeError("attention_bwd is not deterministic")
+            ms = _grad_ms(out, ins, g)
+            plain_ms = _grad_ms(out_p, ins_p, g)
+    # the serving shape with its clip of no valid frame, and T past the
+    # earlier kernels' caps
+    eb, eh, et = BATCH, h, t
+    sl = torch.tensor([249, 249, 200, 249, 120, 249, 0, 10], device=dev)
+    eq, ek, ev, eg = (torch.randn(eb, eh, et, d, generator=gen, device=dev)
+                      for _ in range(4))
+    eq = (eq * d ** -0.5).to(torch.bfloat16)
+    ek, ev, eg = (x.to(torch.bfloat16) for x in (ek, ev, eg))
+    for rate in (0.0, 0.1):
+        _, got, _ = grads(attention.fused_attention, eq, ek, ev, eg,
+                          _bias_with_tails(sl, et, dev), seed, rate, eh)
+        _, want, _ = grads(attention.fused_attention_plain, eq, ek, ev, eg,
+                           _bias_with_tails(sl, et, dev), seed, rate)
+        hold(f"rate {rate} {(eb, eh, et, d)}", got, want)
+    for eb, eh, et in ((2, 4, 400), (1, 4, 999)):
+        eq, ek, ev, eg = (torch.randn(eb, eh, et, d, generator=gen,
+                                      device=dev) for _ in range(4))
+        eq = (eq * d ** -0.5).to(torch.bfloat16)
+        ek, ev, eg = (x.to(torch.bfloat16) for x in (ek, ev, eg))
+        ebias = torch.zeros(eb, et, device=dev)
+        ebias[0, et - 37:] = -1e30
+        _, got, _ = grads(attention.fused_attention, eq, ek, ev, eg, ebias,
+                          seed, 0.1, eh)
+        _, want, _ = grads(attention.fused_attention_plain, eq, ek, ev, eg,
+                           ebias, seed, 0.1)
+        hold(f"rate 0.1 {(eb, eh, et, d)}", got, want)
+    with sdpa_ctx():
+        sdpa, _, ins_l = grads(
+            lambda *x: F.scaled_dot_product_attention(
+                *x, attn_mask=mask16, dropout_p=0.0, scale=1.0), q, k, v, g)
+        lib_ms = _grad_ms(sdpa, ins_l, g)
     n = b * h * t * d
     bound_ms, bound_by = bound(7 * n * 2 + b * t * 4, 5 * 2 * b * h * t * t * d,
                                BF16_FLOP_PER_S)
@@ -374,10 +508,10 @@ def train_kernel_phase(dev, results) -> None:
         source="wav2vec_contr_loss_torch/csrc/attention_bwd.cu",
         replaces="wav2vec_contr_loss_tpu/ops/attention_pallas.py:96",
         max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=lib_ms)
-    print(f"attention_bwd {tuple(q.shape)} rate 0.1: kernel {ms:.4f} ms, "
-          f"plain autograd {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+        bound_by=bound_by, library_ms=lib_ms, library=f"SDPA {sdpa_name}")
+    print(f"attention_bwd {tuple(q.shape)} rate 0.1 device time: kernels "
+          f"{ms:.4f} ms, plain autograd {plain_ms:.4f} ms, SDPA backward on "
+          f"{sdpa_name} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
 
     # LN+GELU backward at the first conv's rows and at a ragged count
     c = 512
@@ -490,6 +624,8 @@ def train_kernel_phase(dev, results) -> None:
         zp = z.detach().requires_grad_()
         torch.autograd.grad(supcon_binary_loss(zp, labels, 1.0, cfg), zp)
 
+    # both wait on the device inside (the wrapper and the plain loss read
+    # values back), so the time per call is taken with the host's share
     ms, plain_ms = cuda_ms(fused), cuda_ms(plain)
     bz, dz = z.shape
     bound_ms, bound_by = bound(2 * bz * dz * 4 + bz * 4,
@@ -727,7 +863,8 @@ def profile_step(trainer, batch) -> None:
     for name, (ms_b, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
         print(f"profile:   {ms_b:8.2f} ms  x{n:<5d} {name[:90]}")
     # the port's own kernels in this step, by their names in the trace
-    for tag in ("attention_fwd_kernel", "attention_bwd_kernel",
+    for tag in ("attention_fwd_kernel", "attention_dq_kernel",
+                "attention_dkdv_kernel",
                 "_ln_gelu_fwd", "_ln_gelu_bwd", "_sum_partials",
                 "supcon_kernel"):
         hits = [v for k, v in by_name.items() if tag in k]

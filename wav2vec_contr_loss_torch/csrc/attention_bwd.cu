@@ -2,356 +2,489 @@
 //
 // Replaces the Pallas kernel `_bwd_kernel` in
 // wav2vec_contr_loss_tpu/ops/attention_pallas.py. From the forward's
-// residuals (q, k, v, the fp32 (B, T) key bias and the dropout seed) and
-// the output cotangent g it recomputes p = softmax_fp32(q . k^T + bias)
-// and the murmur dropout mask (dropout_mask.cuh), stores no probability,
-// and computes, with bf16 operands and fp32 accumulation:
+// residuals (q, k, v, the fp32 (B, T) key bias, the row statistics
+// (m, log l) and out_exact of attention_fwd.cu, the dropout seed) and the
+// output cotangent g it recomputes p = exp(q . k^T + bias - m - log l) and
+// the murmur dropout mask (dropout_mask.cuh), stores no probability, and
+// computes, with bf16 operands and fp32 accumulation:
 //   dv = bf16(p * mask)^T . g
 //   dp = (g . v^T) * mask
-//   ds = p * (dp - rowsum(dp * p))
+//   ds = p * (dp - D),  D_i = rowsum(g_i * out_exact_i)
 //   dq = bf16(ds) . k,   dk = bf16(ds)^T . q
+// D is FlashAttention's identity, sum_j dp_ij p_ij = g_i . (p mask v)_i,
+// where Pallas sums p * dp in fp32. out_exact is (p mask) . v with p in
+// fp32, not rounded to bf16 as in out, so D carries one bf16 rounding of
+// that row and none of p. From out itself D is off by ~2^-9 |p| |dp| per
+// key, which at the training shape put a dq entry outside the tolerance
+// against the plain version (0.079 on an entry of 0.28, in a clip with 10
+// valid frames, on an H100).
 //
-// Bound on an H100 at the training shape (B=32, H=16, T=249, D=64): it
-// moves q, k, v, g, dq, dk and dv once, 114 MB (34 us at 3.35 TB/s); its
-// five T x T x D products are about 20 GFLOP (21 us at the bf16 tensor-core
-// peak). So, like the forward, it is bound by bytes, and what it must
-// avoid is sending the (T, T) scores through device memory.
+// Bound on an H100 at the training shape (B=32, H=16, T=249): it moves
+// q, k, v, g, dq, dk and dv once, 114 MB (34 us at 3.35 TB/s); its seven
+// T x T x 64 products (s and dp for dq, s^T and dp^T for dk and dv, and
+// the three gradients) are 29 GFLOP (29 us at the bf16 peak); per score
+// it also takes two exps on the SFU and, with dropout, the murmur hash
+// once (~12 integer operations at 64 a clock an SM: 27 us). Bytes,
+// products and element work are of one size, so the design keeps the
+// (T, T) panels in registers and overlaps loads with math across blocks.
 //
-// Design: one block of 8 warps per (head, batch element) owns all of
-// dq, dk and dv for that pair, so no atomics are needed. Q, K, V and G of
-// the pair are staged once in shared memory with cp.async (rows past T
-// zero-filled up to a multiple of 32, their keys get a -inf bias): at
-// T <= 256 that is 144 KB with padded rows, which leaves room for one
-// 16 x 32 fp32 score panel, one dp panel and two bf16 operand panels per
-// warp (57 KB for 8 warps) inside the 227 KB a block may use.
-//   Phase 1, a warp per 16 query rows, walking the keys in chunks of 32:
-//     pass 1: row max and sum of exp (as the forward's pass 1);
-//     pass 2: D_i = sum_j dp_ij p_ij, with s and g . v^T recomputed;
-//     pass 3: ds, rounded to bf16, then dq += ds . k on the tensor cores.
-//     The row max, 1/sum and D go to shared memory.
-//   Phase 2, a warp per 16 key rows, walking the queries in chunks of 32:
-//     s^T = k . q^T and (g . v^T)^T = v . g^T on the tensor cores, p^T
-//     from the stored row statistics, the mask at (query, key), then
-//     dv += bf16(p * mask)^T . g and dk += bf16(ds)^T . q.
-// Every product runs on the tensor cores (WMMA bf16 16x16x16, fp32
-// accumulate); the scores are recomputed four times, which costs
-// tensor-core time the kernel has spare and keeps shared memory inside
-// one block.
+// Design: two kernels, each one consumer warpgroup of 64 rows and one
+// producer warp that loads 64-row tiles by TMA into an mbarrier ring, all
+// products by wgmma with fp32 accumulators in registers, softmax
+// arithmetic in registers (quads of lanes hold a row). No atomics: every
+// output element is written once by one block, so two calls give the
+// same bits.
+//   1. dq kernel, grid (query tile, head, batch): D of its 64 rows from
+//      g and out_exact (written out for kernel 2), then for each key tile
+//      j s = q_i k_j^T and dp = g_i v_j^T, ds in registers, and
+//      dq_i += bf16(ds) . k_j with ds as the register A operand. With
+//      dropout it hashes the mask and hands it to kernel 2 as one bit a
+//      score (4 MB at the training shape), so the hash runs once.
+//   2. dk/dv kernel, grid (key tile, head, batch): k_j and v_j stay in
+//      shared memory; for each query tile i (q_i, g_i, their row
+//      statistics, D and the mask bits by TMA and bulk copies)
+//      s^T = k_j q_i^T and dp^T = v_j g_i^T, then
+//      dv_j += bf16(p^T * mask) . g_i and dk_j += bf16(ds^T) . q_i.
+// Each block takes 82-87 KB of shared memory and at most 168 registers a
+// thread, so two blocks share an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "common.cuh"
 #include "dropout_mask.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace hopper;
 
-constexpr int kD = 64;               // head dim
-constexpr int kC = 32;               // keys (phase 1) / queries (phase 2) per panel
-constexpr int kWarps = 8;
-constexpr int kMaxT = 256;
-constexpr int kLdk = kD + 8;         // staged Q/K/V/G row stride (bf16)
-constexpr int kLdc = kC + 4;         // fp32 panel row stride
-constexpr int kLdp = kC + 8;         // bf16 operand panel row stride
-constexpr int kLdo = kD + 4;         // fp32 output staging row stride
-constexpr int kDT = kD / 16;         // WMMA tiles along D
-constexpr int kCT = kC / 16;         // WMMA tiles along a panel
-// per warp: two fp32 panels (or one output staging tile) + two bf16 panels
-constexpr int kWarpF32 = 16 * 2 * kLdc;
-constexpr int kWarpBf16 = 2 * 16 * kLdp;
-static_assert(16 * kLdo <= kWarpF32, "output staging fits the fp32 panels");
+constexpr int kStages = 4;      // ring slots (a K/V or Q/G tile pair each)
+constexpr int kThreads = 160;   // one consumer warpgroup + a producer warp
 
-__host__ __device__ __forceinline__ int round_c(int x) {
-  return (x + kC - 1) / kC * kC;
+struct Strides {  // element strides (batch, head, row) of a (B, H, T, 64)
+  long long b, h, t;
+};
+
+template <typename Smem>
+__device__ __forceinline__ Smem& aligned_smem(unsigned char* raw) {
+  return *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
 }
 
-size_t smem_bytes(int T) {
-  const size_t tp = round_c(T);
-  return sizeof(__nv_bfloat16) * 4 * tp * kLdk   // Q, K, V, G
-         + sizeof(float) * 4 * tp                 // bias, max, 1/sum, D
-         + kWarps * (sizeof(float) * kWarpF32 + sizeof(__nv_bfloat16) * kWarpBf16);
+// rows r_lo and r_lo + 8 of a (64 x 64) fp32 accumulator as bf16 into
+// `dst` (rows below T only)
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, Strides s,
+                                           int b, int h, int r_lo, int T,
+                                           int c_lane, const float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    if (r >= T) continue;
+    __nv_bfloat16* row = dst + b * s.b + h * s.h + r * s.t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + c_lane) =
+          pack_bf16(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+  }
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                              wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                              wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// x = a . b^T and y = c . d^T over 64 x 64 K-major tiles, once the ring
+// slot's loads (the phase of use t) have landed
+__device__ __forceinline__ void score_pair(uint64_t* full, int t,
+                                           float (&x)[32], const void* a,
+                                           const void* b, float (&y)[32],
+                                           const void* c, const void* d) {
+  bar_wait(full, (t / kStages) & 1);
+  wg_fence();
+  tile_abt(x, a, b);
+  tile_abt(y, c, d);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(x);
+  fence_regs(y);
+}
 
-// panel(16 x kC) = a_rows(16 x D) . src[c0 : c0 + kC]^T
-__device__ __forceinline__ void rows_times_panel_t(
-    float* panel, const FragA (&a)[kDT], const __nv_bfloat16* src, int c0) {
-#pragma unroll
-  for (int nt = 0; nt < kCT; ++nt) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kDT; ++kk) {
-      FragBc b;
-      wmma::load_matrix_sync(b, src + (c0 + nt * 16) * kLdk + kk * 16, kLdk);
-      wmma::mma_sync(acc, a[kk], b, acc);
+// ---------------------------------------------------------------- dq ----
+
+struct __align__(1024) DqSmem {
+  __nv_bfloat16 q[kTile * 64], g[kTile * 64];
+  __nv_bfloat16 k[kStages][kTile * 64], v[kStages][kTile * 64];
+  uint64_t full[kStages], empty[kStages], qg_full;
+};
+constexpr size_t kDqSmem = sizeof(DqSmem) + 1024;
+
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreads, 2)
+attention_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap gmap,
+                    const __nv_bfloat16* __restrict__ g, Strides gs,
+                    const __nv_bfloat16* __restrict__ out_exact, Strides os,
+                    const float* __restrict__ bias,
+                    const float2* __restrict__ stats,
+                    float* __restrict__ dbuf, uint32_t* __restrict__ keep_out,
+                    __nv_bfloat16* __restrict__ dq, Strides dqs, int H, int T,
+                    unsigned seed,
+                    unsigned threshold, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = (T + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&sm.full[s], 1);
+      bar_init(&sm.empty[s], 128);
     }
-    wmma::store_matrix_sync(panel + nt * 16, acc, kLdc, wmma::mem_row_major);
+    bar_init(&sm.qg_full, 1);
+    bar_init_fence();
   }
-}
-
-// acc(16 x D) += op(16 x kC, bf16) . src[c0 : c0 + kC]
-__device__ __forceinline__ void accumulate_panel(
-    FragC (&acc)[kDT], const __nv_bfloat16* op, const __nv_bfloat16* src,
-    int c0) {
-#pragma unroll
-  for (int kt = 0; kt < kCT; ++kt) {
-    FragA a;
-    wmma::load_matrix_sync(a, op + kt * 16, kLdp);
-#pragma unroll
-    for (int nt = 0; nt < kDT; ++nt) {
-      FragBr b;
-      wmma::load_matrix_sync(b, src + (c0 + kt * 16) * kLdk + nt * 16, kLdk);
-      wmma::mma_sync(acc[nt], a, b, acc[nt]);
-    }
-  }
-}
-
-// write rows [r0, r0 + 16) of a (T, D) bf16 output from fp32 fragments,
-// staged through the warp's fp32 panels for coalesced stores
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
-                                           const FragC (&acc)[kDT],
-                                           float* stage, int r0, int T,
-                                           int lane) {
-#pragma unroll
-  for (int nt = 0; nt < kDT; ++nt)
-    wmma::store_matrix_sync(stage + nt * 16, acc[nt], kLdo,
-                            wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * (kD / 2); i += 32) {
-    const int r = i / (kD / 2), c = i - r * (kD / 2), t = r0 + r;
-    if (t < T)
-      reinterpret_cast<__nv_bfloat162*>(out + (size_t)t * kD)[c] =
-          __floats2bfloat162_rn(stage[r * kLdo + 2 * c],
-                                stage[r * kLdo + 2 * c + 1]);
-  }
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-attention_bwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ g,
-                     const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ dq,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int H, int T,
-                     unsigned seed, unsigned threshold, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.y, h = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int Tp = round_c(T);
-  const DropoutMask mask(seed + (unsigned)(b * H + h), threshold, scale);
-
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + (size_t)Tp * kLdk;
-  __nv_bfloat16* qs = vs + (size_t)Tp * kLdk;
-  __nv_bfloat16* gs = qs + (size_t)Tp * kLdk;
-  float* bs = reinterpret_cast<float*>(gs + (size_t)Tp * kLdk);
-  float* row_max = bs + Tp;
-  float* row_inv = row_max + Tp;
-  float* row_d = row_inv + Tp;
-  float* fpan = row_d + Tp + warp * kWarpF32;
-  float* spanel = fpan;                 // scores (or s^T)
-  float* dpanel = fpan + 16 * kLdc;     // g . v^T (or its transpose)
-  __nv_bfloat16* pbuf = reinterpret_cast<__nv_bfloat16*>(
-                            row_d + Tp + kWarps * kWarpF32) + warp * kWarpBf16;
-  __nv_bfloat16* dsbuf = pbuf + 16 * kLdp;
-
-  const size_t bh = ((size_t)b * H + h) * T * kD;
-  constexpr int kVec = kD / 8;  // 16-byte vectors per row
-  const __nv_bfloat16* srcs[4] = {k + bh, v + bh, q + bh, g + bh};
-  __nv_bfloat16* dsts[4] = {ks, vs, qs, gs};
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-    for (int i = tid; i < Tp * kVec; i += blockDim.x) {
-      const int j = i / kVec, c = i - j * kVec;
-      cp_async16(dsts[a] + j * kLdk + c * 8,
-                 srcs[a] + (size_t)min(j, T - 1) * kD + c * 8, j < T);
-    }
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int j = tid; j < Tp; j += blockDim.x) {
-    bs[j] = j < T ? bias[(size_t)b * T + j] : -INFINITY;
-    row_max[j] = 0.f;
-    row_inv[j] = 0.f;
-    row_d[j] = 0.f;
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
 
-  // two lanes per panel row, each over half of the kC columns
-  const int row = lane >> 1, half = lane & 1;
-  constexpr int kHalf = kC / 2;
-  const float* srow = spanel + row * kLdc + half * kHalf;
-  const float* drow = dpanel + row * kLdc + half * kHalf;
-  __nv_bfloat16* prow = pbuf + row * kLdp + half * kHalf;
-  __nv_bfloat16* dsrow = dsbuf + row * kLdp + half * kHalf;
-  const int n_chunks = Tp / kC;
-
-  // ---- phase 1: a warp per 16 query rows -> row stats and dq ----
-  for (int tile = warp; tile * 16 < T; tile += kWarps) {
-    const int r0 = tile * 16;
-    const unsigned qi = r0 + row;
-    FragA qa[kDT], ga[kDT];
-#pragma unroll
-    for (int kk = 0; kk < kDT; ++kk) {
-      wmma::load_matrix_sync(qa[kk], qs + r0 * kLdk + kk * 16, kLdk);
-      wmma::load_matrix_sync(ga[kk], gs + r0 * kLdk + kk * 16, kLdk);
-    }
-    // pass 1: row max and sum of exp over all keys
-    float m_run = -INFINITY, l_run = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      rows_times_panel_t(spanel, qa, ks, c * kC);
-      __syncwarp();
-      const float* bc = bs + c * kC + half * kHalf;
-      float mc = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) mc = fmaxf(mc, srow[i] + bc[i]);
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-      float lc = 0.f;
-      if (mc != -INFINITY) {
-#pragma unroll
-        for (int i = 0; i < kHalf; ++i) lc += __expf(srow[i] + bc[i] - mc);
+  if (warp == 4) {  // ---- producer ----
+    if (lane == 0) {
+      prefetch_map(&qmap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      prefetch_map(&gmap);
+      bar_expect(&sm.qg_full, 2 * kTileBytes);
+      tma_load(sm.q, &qmap, qt * kTile, h, b, &sm.qg_full);
+      tma_load(sm.g, &gmap, qt * kTile, h, b, &sm.qg_full);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        bar_wait(&sm.empty[s], ((t / kStages) & 1) ^ 1);
+        bar_expect(&sm.full[s], 2 * kTileBytes);
+        tma_load(sm.k[s], &kmap, t * kTile, h, b, &sm.full[s]);
+        tma_load(sm.v[s], &vmap, t * kTile, h, b, &sm.full[s]);
       }
-      lc += __shfl_xor_sync(0xffffffffu, lc, 1);
-      const float m_new = fmaxf(m_run, mc);
-      if (m_new != -INFINITY) {
-        l_run = l_run * expf(m_run - m_new) + lc * expf(mc - m_new);
-        m_run = m_new;
-      }
-      __syncwarp();
     }
-    const float inv_l = 1.f / l_run;
-    // pass 2: D = sum_j dp_ij p_ij
-    float d_acc = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      rows_times_panel_t(spanel, qa, ks, c * kC);
-      rows_times_panel_t(dpanel, ga, vs, c * kC);
-      __syncwarp();
-      const float* bc = bs + c * kC + half * kHalf;
-      const unsigned kc = c * kC + half * kHalf;
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const float p = __expf(srow[i] + bc[i] - m_run) * inv_l;
-        d_acc += p * (drow[i] * mask(qi, kc + i));
-      }
-      __syncwarp();
-    }
-    d_acc += __shfl_xor_sync(0xffffffffu, d_acc, 1);
-    // pass 3: ds in bf16, dq += ds . k
-    FragC acc[kDT];
-#pragma unroll
-    for (int nt = 0; nt < kDT; ++nt) wmma::fill_fragment(acc[nt], 0.f);
-    for (int c = 0; c < n_chunks; ++c) {
-      rows_times_panel_t(spanel, qa, ks, c * kC);
-      rows_times_panel_t(dpanel, ga, vs, c * kC);
-      __syncwarp();
-      const float* bc = bs + c * kC + half * kHalf;
-      const unsigned kc = c * kC + half * kHalf;
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const float p = __expf(srow[i] + bc[i] - m_run) * inv_l;
-        dsrow[i] = __float2bfloat16(p * (drow[i] * mask(qi, kc + i) - d_acc));
-      }
-      __syncwarp();
-      accumulate_panel(acc, dsbuf, ks, c * kC);
-      __syncwarp();
-    }
-    if (half == 0) {
-      row_max[r0 + row] = m_run;
-      row_inv[r0 + row] = inv_l;
-      row_d[r0 + row] = d_acc;
-    }
-    store_rows(dq + bh, acc, fpan, r0, T, lane);
+    return;
   }
-  __syncthreads();  // row statistics of every query are in shared memory
 
-  // ---- phase 2: a warp per 16 key rows -> dk and dv ----
-  for (int tile = warp; tile * 16 < T; tile += kWarps) {
-    const int j0 = tile * 16;
-    const unsigned kj = j0 + row;
-    const float bj = bs[j0 + row];
-    FragA ka[kDT], va[kDT];
+  // ---- consumer warpgroup: 64 query rows ----
+  const DropoutMask mask(seed + (unsigned)(b * H + h), threshold, scale);
+  const int r_lo = qt * kTile + 16 * warp + (lane >> 2);
+  const int c_lane = 2 * (lane & 3);
+  const size_t bh_rows = (size_t)(b * H + h) * n_tiles * kTile;
+  const float* brow = bias + (size_t)b * T;
+
+  // D of rows r_lo, r_lo + 8: each lane of the quad sums 16 of the 64
+  // (from device memory: the loads overlap the TMA of the Q and G tiles)
+  float m2[2], l2[2], d_row[2];  // row max, log2 of the row sum, D
 #pragma unroll
-    for (int kk = 0; kk < kDT; ++kk) {
-      wmma::load_matrix_sync(ka[kk], ks + j0 * kLdk + kk * 16, kLdk);
-      wmma::load_matrix_sync(va[kk], vs + j0 * kLdk + kk * 16, kLdk);
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    float acc = 0.f;
+    if (r < T) {
+      const int c0 = 16 * (lane & 3);
+      const uint4* gp = reinterpret_cast<const uint4*>(
+          g + b * gs.b + h * gs.h + r * gs.t + c0);
+      const uint4* op = reinterpret_cast<const uint4*>(
+          out_exact + b * os.b + h * os.h + r * os.t + c0);
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const uint4 gv = __ldg(gp + w), ov = __ldg(op + w);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(g2[e]);
+          const float2 c = __bfloat1622float2(o2[e]);
+          acc = fmaf(a.x, c.x, acc);
+          acc = fmaf(a.y, c.y, acc);
+        }
+      }
     }
-    FragC dk_acc[kDT], dv_acc[kDT];
+    d_row[i] = quad_sum(acc);
+    if ((lane & 3) == 0) dbuf[bh_rows + r] = d_row[i];
+    const float2 st = stats[bh_rows + r];
+    m2[i] = st.x;
+    l2[i] = st.y * kLog2e;
+  }
+
+  float dqa[32];
 #pragma unroll
-    for (int nt = 0; nt < kDT; ++nt) {
-      wmma::fill_fragment(dk_acc[nt], 0.f);
-      wmma::fill_fragment(dv_acc[nt], 0.f);
+  for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+  bar_wait(&sm.qg_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int slot = t % kStages;
+    float s[32], dp[32];  // s = q k_t^T, dp = g v_t^T
+    score_pair(&sm.full[slot], t, s, sm.q, sm.k[slot], dp, sm.g, sm.v[slot]);
+    // the mask of this thread's 32 elements, bit n for accumulator entry
+    // n, handed to the dk/dv kernel (one word per thread and tile pair)
+    uint32_t keep = 0;
+    if (kDrop) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            keep |= (uint32_t)(mask((unsigned)(r_lo + 8 * i),
+                                    (unsigned)(t * kTile + 8 * j + c_lane +
+                                               e)) != 0.f)
+                    << (4 * j + 2 * i + e);
+      keep_out[((bh_rows / kTile + qt) * n_tiles + t) * 128 + tid] = keep;
     }
-    for (int c = 0; c < n_chunks; ++c) {
-      rows_times_panel_t(spanel, ka, qs, c * kC);  // s^T
-      rows_times_panel_t(dpanel, va, gs, c * kC);  // (g . v^T)^T
-      __syncwarp();
-      const int q0 = c * kC + half * kHalf;
 #pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const int qi = q0 + i;
-        const float p = __expf(srow[i] + bj - row_max[qi]) * row_inv[qi];
-        const float mv = mask(qi, kj);
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = t * kTile + 8 * j + c_lane + e;
+        const float bv = col < T ? __ldg(brow + col) : -INFINITY;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int idx = 4 * j + 2 * i + e;
+          const float p =
+              fast_exp2(fmaf((s[idx] + bv) - m2[i], kLog2e, -l2[i]));
+          float dpv = dp[idx];
+          if (kDrop) dpv = (keep >> idx) & 1u ? dpv * mask.scale : 0.f;
+          s[idx] = p * (dpv - d_row[i]);
+        }
+      }
+    uint32_t ds[16];
+    to_operand(ds, s);
+    wg_fence();
+    tile_pb(dqa, ds, sm.k[slot]);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dqa);
+    fence_regs(ds);
+    bar_arrive(&sm.empty[slot]);
+  }
+  store_rows(dq, dqs, b, h, r_lo, T, c_lane, dqa);
+}
+
+// ------------------------------------------------------------- dk, dv ----
+
+struct __align__(1024) DkvSmem {
+  __nv_bfloat16 k[kTile * 64], v[kTile * 64];
+  __nv_bfloat16 q[kStages][kTile * 64], g[kStages][kTile * 64];
+  float2 stats[kStages][kTile];
+  float d[kStages][kTile];
+  uint32_t keep[kStages][128];  // the dq kernel's mask words of the tile pair
+  uint64_t full[kStages], empty[kStages], kv_full;
+};
+constexpr size_t kDkvSmem = sizeof(DkvSmem) + 1024;
+
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreads, 2)
+attention_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap gmap,
+                      const float* __restrict__ bias,
+                      const float2* __restrict__ stats,
+                      const float* __restrict__ dbuf,
+                      const uint32_t* __restrict__ keep_in,
+                      __nv_bfloat16* __restrict__ dk, Strides dks,
+                      __nv_bfloat16* __restrict__ dv, Strides dvs, int H,
+                      int T, unsigned seed, unsigned threshold, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  DkvSmem& sm = aligned_smem<DkvSmem>(smem_raw);
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = (T + kTile - 1) / kTile;
+  const size_t bh_rows = (size_t)(b * H + h) * n_tiles * kTile;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&sm.full[s], 1);
+      bar_init(&sm.empty[s], 128);
+    }
+    bar_init(&sm.kv_full, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---- producer ----
+    if (lane == 0) {
+      prefetch_map(&qmap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      prefetch_map(&gmap);
+      bar_expect(&sm.kv_full, 2 * kTileBytes);
+      tma_load(sm.k, &kmap, kt * kTile, h, b, &sm.kv_full);
+      tma_load(sm.v, &vmap, kt * kTile, h, b, &sm.kv_full);
+      const uint32_t bytes = 2 * kTileBytes +
+                             kTile * (sizeof(float2) + sizeof(float)) +
+                             (kDrop ? 128 * sizeof(uint32_t) : 0);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        bar_wait(&sm.empty[s], ((t / kStages) & 1) ^ 1);
+        bar_expect(&sm.full[s], bytes);
+        tma_load(sm.q[s], &qmap, t * kTile, h, b, &sm.full[s]);
+        tma_load(sm.g[s], &gmap, t * kTile, h, b, &sm.full[s]);
+        bulk_load(sm.stats[s], stats + bh_rows + t * kTile,
+                  kTile * sizeof(float2), &sm.full[s]);
+        bulk_load(sm.d[s], dbuf + bh_rows + t * kTile, kTile * sizeof(float),
+                  &sm.full[s]);
+        if (kDrop)
+          bulk_load(sm.keep[s],
+                    keep_in + ((bh_rows / kTile + t) * n_tiles + kt) * 128,
+                    128 * sizeof(uint32_t), &sm.full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: 64 key rows ----
+  const DropoutMask mask(seed + (unsigned)(b * H + h), threshold, scale);
+  const int r_lo = kt * kTile + 16 * warp + (lane >> 2);  // key rows
+  const int c_lane = 2 * (lane & 3);
+  float kb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    kb[i] = r < T ? __ldg(bias + (size_t)b * T + r) : -INFINITY;
+  }
+
+  float dka[32], dva[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  bar_wait(&sm.kv_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int slot = t % kStages;
+    // s^T = k q_t^T and dp^T = v g_t^T: rows keys, columns queries
+    float st[32], dpt[32];
+    score_pair(&sm.full[slot], t, st, sm.k, sm.q[slot], dpt, sm.v,
+               sm.g[slot]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cq = 8 * j + c_lane + e;  // query within the tile
+        const int qi = t * kTile + cq;
+        const float2 rs = sm.stats[slot][cq];
+        const float ll2 = rs.y * kLog2e;
+        const float dq_row = sm.d[slot][cq];
         const bool valid = qi < T;
-        prow[i] = __float2bfloat16(valid ? p * mv : 0.f);
-        dsrow[i] = __float2bfloat16(valid ? p * (drow[i] * mv - row_d[qi])
-                                          : 0.f);
+        // element (query cq, key row) sits in the dq kernel's thread
+        // 32 (j / 2) + 4 (cq % 8) + (key % 8) / 2, at bit
+        // 4 (key % 64 / 8) + 2 (j % 2) + key % 2
+        const uint32_t word =
+            kDrop ? sm.keep[slot][32 * (j / 2) + 4 * (c_lane + e) + (lane >> 3)]
+                  : 0u;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int idx = 4 * j + 2 * i + e;
+          float p = fast_exp2(fmaf((st[idx] + kb[i]) - rs.x, kLog2e, -ll2));
+          p = valid ? p : 0.f;
+          float dpv = dpt[idx], pd = p;
+          if (kDrop) {
+            const int bit = 4 * (2 * warp + i) + 2 * (j % 2) + ((lane >> 2) & 1);
+            const float mv = (word >> bit) & 1u ? mask.scale : 0.f;
+            dpv *= mv;
+            pd *= mv;
+          }
+          st[idx] = pd;
+          dpt[idx] = p * (dpv - dq_row);
+        }
       }
-      __syncwarp();
-      accumulate_panel(dv_acc, pbuf, gs, c * kC);
-      accumulate_panel(dk_acc, dsbuf, qs, c * kC);
-      __syncwarp();
-    }
-    store_rows(dk + bh, dk_acc, fpan, j0, T, lane);
-    store_rows(dv + bh, dv_acc, fpan, j0, T, lane);
+    uint32_t pf[16], dsf[16];
+    to_operand(pf, st);
+    to_operand(dsf, dpt);
+    wg_fence();
+    tile_pb(dva, pf, sm.g[slot]);
+    tile_pb(dka, dsf, sm.q[slot]);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(pf);
+    fence_regs(dsf);
+    bar_arrive(&sm.empty[slot]);
   }
+  store_rows(dk, dks, b, h, r_lo, T, c_lane, dka);
+  store_rows(dv, dvs, b, h, r_lo, T, c_lane, dva);
+}
+
+Strides strides_of(const long long* s) { return Strides{s[0], s[1], s[2]}; }
+
+template <bool kDrop>
+cudaError_t launch(const CUtensorMap* maps, const void* g, const long long* gs,
+                   const void* out_exact, const long long* os,
+                   const float* bias,
+                   const float2* stats, float* dbuf, uint32_t* keep, void* dq,
+                   const long long* dqs, void* dk, const long long* dks,
+                   void* dv, const long long* dvs, int B, int H, int T,
+                   unsigned seed, unsigned threshold, float scale,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_dq_kernel<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kDqSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_dkdv_kernel<kDrop>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kDkvSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + kTile - 1) / kTile, H, B);
+  attention_dq_kernel<kDrop><<<grid, kThreads, kDqSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3],
+      static_cast<const __nv_bfloat16*>(g), strides_of(gs),
+      static_cast<const __nv_bfloat16*>(out_exact), strides_of(os), bias, stats,
+      dbuf, keep, static_cast<__nv_bfloat16*>(dq), strides_of(dqs), H, T, seed,
+      threshold, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_dkdv_kernel<kDrop><<<grid, kThreads, kDkvSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], bias, stats, dbuf, keep,
+      static_cast<__nv_bfloat16*>(dk), strides_of(dks),
+      static_cast<__nv_bfloat16*>(dv), strides_of(dvs), H, T, seed,
+      threshold, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs; the wrapper refuses shapes above the
-// card's per-block limit before it launches.
-long long attention_bwd_smem_bytes(int T) { return (long long)smem_bytes(T); }
-
-// q, k, v, g, dq, dk, dv: (B, H, T, 64) bf16; bias (B, T) fp32; seed,
-// threshold and scale as for attention_fwd.
+// q, k, v, g, out_exact, dq, dk, dv: (B, H, T, 64) bf16 with element
+// strides (batch, head, row) in the matching *s array (out_exact: the
+// forward's output with p unrounded); bias (B, T) fp32; stats the
+// forward's (B, H, Tp, 2) row statistics; dbuf an fp32 (B, H, Tp) scratch
+// that takes D (Tp = T rounded up to 64); keep a uint32 scratch of
+// B * H * (Tp / 64)^2 * 128 words for the dropout mask (may be null at
+// threshold 0); seed, threshold and scale as for attention_fwd. Launches
+// the dq kernel, then the dk/dv kernel.
 int attention_bwd(const void* q, const void* k, const void* v, const void* g,
-                  const void* bias, void* dq, void* dk, void* dv, int B,
-                  int H, int T, int D, unsigned seed, unsigned threshold,
+                  const void* out_exact, const void* bias,
+                  const void* stats, void* dbuf, void* keep, void* dq,
+                  void* dk, void* dv,
+                  const long long* qs, const long long* ks,
+                  const long long* vs, const long long* gs,
+                  const long long* os, const long long* dqs,
+                  const long long* dks, const long long* dvs, int B, int H,
+                  int T, int D, unsigned seed, unsigned threshold,
                   float scale, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || T > kMaxT || D != kD)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (B <= 0 || H <= 0 || T <= 0 || D != 64) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const void* src[4] = {q, k, v, g};
+  const long long* st[4] = {qs, ks, vs, gs};
+  cudaError_t err = bind_device();
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = make_map(&maps[i], src[i], B, H, T, st[i][0], st[i][1], st[i][2]);
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_kernel<<<dim3(H, B), kWarps * 32, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, T, seed, threshold, scale);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* b = static_cast<const float*>(bias);
+  const auto* sp = static_cast<const float2*>(stats);
+  auto* d = static_cast<float*>(dbuf);
+  auto* kp = static_cast<uint32_t*>(keep);
+  if (threshold != 0u && kp == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)(threshold != 0u
+                   ? launch<true>(maps, g, gs, out_exact, os, b, sp, d, kp, dq,
+                                  dqs, dk, dks, dv, dvs, B, H, T, seed,
+                                  threshold, scale, s)
+                   : launch<false>(maps, g, gs, out_exact, os, b, sp, d, kp, dq,
+                                   dqs, dk, dks, dv, dvs, B, H, T, seed,
+                                   threshold, scale, s));
 }
 
 }  // extern "C"

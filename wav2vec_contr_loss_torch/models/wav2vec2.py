@@ -227,8 +227,11 @@ class SelfAttention(nn.Module):
         k = _linear(self.k_proj, x)
         v = _linear(self.v_proj, x)
 
+        # (B, H, T, hd) views of the (B, T, H, hd) projections: the CUDA
+        # kernels take them by strides and write out in the same layout,
+        # so neither direction copies around the kernel on the card
         def heads(a: torch.Tensor) -> torch.Tensor:
-            return a.view(b, t, h, hd).transpose(1, 2).contiguous()
+            return a.view(b, t, h, hd).transpose(1, 2)
 
         rate = 0.0 if seed is None else self.rate
         out = fused_attention(heads(q), heads(k), heads(v), key_bias,

@@ -3,26 +3,29 @@ backward.
 
 Replaces the Pallas kernels of wav2vec_contr_loss_tpu/ops/attention_pallas.py
 (`fused_attention`, a custom VJP: `_fwd` -> `_fwd_kernel` and `_bwd` ->
-`_bwd_kernel`). The Hopper kernels are CUDA C++:
+`_bwd_kernel`). The Hopper kernels are CUDA C++ on wgmma and TMA, tiled
+by 64 query or key rows, with no bound on T:
 
-  * csrc/attention_fwd.cu: one block per (head, batch element) at the
-    training and serving length, K and V staged once in shared memory,
-    both products on the tensor cores, the fp32 scores and softmax never
-    leaving the SM; dropout multiplies the normalized p by the murmur mask
-    right before its bf16 rounding. At (B=8, H=16, T=249, D=64) it is
-    bound by its 16.3 MB of q/k/v/out traffic (4.9 us on an H100).
-  * csrc/attention_bwd.cu: one block per (head, batch element) that owns
-    all of dq, dk and dv for the pair (no atomics), recomputing p and the
-    mask from q, k, the bias and the seed. At (32, 16, 249, 64) it moves
-    114 MB (34 us).
+  * csrc/attention_fwd.cu: a block per (query tile, head, batch
+    element), K/V tiles streamed by TMA, scores and softmax in registers,
+    p normalized exactly before dropout and its bf16 rounding, as in
+    Pallas. When the inputs need gradients it also writes the backward's
+    residuals: the row statistics (max, log of the sum of exp) and
+    out_exact, the output with p not rounded to bf16.
+  * csrc/attention_bwd.cu: a dq kernel per query tile (which also takes
+    D = rowsum(g * out_exact)) and a dk/dv kernel per key tile, both
+    recomputing p from the row statistics and the mask from the seed; no
+    atomics, so the backward is deterministic.
 
-Both take head dim 64 (both model presets); the forward keeps all keys in
-shared memory up to T = 512, the backward all of q/k/v/g up to T = 256 (a
-5 s clip gives 249).
+Both take head dim 64 (both model presets) and bf16 tensors given by
+strides (the head dim contiguous, the other strides multiples of 8
+elements, 16-byte aligned), so the (B, T, H, 64) view of a projection
+output goes in without a copy; the outputs take the layout of q.
 
 `fused_attention` launches the kernels for CUDA tensors, through
 `FusedAttention` (a `torch.autograd.Function` whose residuals are q, k,
-v, bias and the seed, as at attention_pallas.py:176), and takes
+v, bias, out_exact, the row statistics and the seed;
+attention_pallas.py:176 keeps q, k, v, bias and the seed), and takes
 `fused_attention_plain`, differentiated by autograd, only for tensors on
 the CPU.
 """
@@ -40,13 +43,14 @@ from .dropout import attention_dropout_mask, threshold
 __all__ = ["fused_attention", "fused_attention_plain", "FusedAttention",
            "launches", "bwd_launches"]
 
-# kernel launches through `fused_attention` (forward) and its backward;
-# read and reset by callers
+# kernel launches through `fused_attention` (forward) and its backward
+# (one per backward call, which runs the dq and the dk/dv kernel); read
+# and reset by callers
 launches = 0
 bwd_launches = 0
 
-_MAX_T = 512      # keys the forward keeps in shared memory (kMaxT there)
-_MAX_T_BWD = 256  # rows the backward keeps in shared memory (kMaxT there)
+_TILE = 64        # rows of the kernels' query and key tiles
+_D = 64           # the head dim the kernels take
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,17 +69,19 @@ def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
 
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     from ._build import load
 
     lib = load("attention_fwd")
-    lib.attention_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    lib.attention_fwd.argtypes = ([_P] * 7 + [_P] * 4 + [_I] * 4
                                   + [ctypes.c_uint, ctypes.c_uint,
-                                     ctypes.c_float, ctypes.c_void_p])
-    lib.attention_fwd.restype = ctypes.c_int
-    lib.attention_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.attention_fwd_smem_bytes.restype = ctypes.c_longlong
+                                     ctypes.c_float, _P])
+    lib.attention_fwd.restype = _I
     return lib
 
 
@@ -84,12 +90,10 @@ def _bwd_lib() -> ctypes.CDLL:
     from ._build import load
 
     lib = load("attention_bwd")
-    lib.attention_bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    lib.attention_bwd.argtypes = ([_P] * 12 + [_P] * 8 + [_I] * 4
                                   + [ctypes.c_uint, ctypes.c_uint,
-                                     ctypes.c_float, ctypes.c_void_p])
-    lib.attention_bwd.restype = ctypes.c_int
-    lib.attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.attention_bwd_smem_bytes.restype = ctypes.c_longlong
+                                     ctypes.c_float, _P])
+    lib.attention_bwd.restype = _I
     return lib
 
 
@@ -106,17 +110,32 @@ def _check(q, k, v, bias) -> None:
         raise ValueError(f"q, k, v and bias must be on one device; got {devs}")
 
 
-def _check_cuda(tensors, t: int, d: int, max_t: int) -> None:
+def _tma_ok(x: torch.Tensor) -> bool:
+    """What a TMA tensor map over x takes: the head dim contiguous, the
+    other strides positive multiples of 8 elements (16 bytes) below
+    2^39 elements, a 16-byte aligned base."""
+    sb, sh, st, sd = x.stride()
+    return (sd == 1 and x.data_ptr() % 16 == 0
+            and all(s > 0 and s % 8 == 0 and s < 2 ** 39
+                    for s in (sb, sh, st)))
+
+
+def _check_cuda(tensors, d: int) -> None:
     if any(x.dtype != torch.bfloat16 for x in tensors):
         raise ValueError("the CUDA attention kernels take bfloat16 q, k, v, g")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("the CUDA attention kernels take contiguous tensors")
-    if d != 64 or t > max_t:
-        raise ValueError(f"the CUDA attention kernel takes head dim 64 and "
-                         f"T <= {max_t}; got D={d}, T={t}")
-    if any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError("the CUDA attention kernels take 16-byte aligned "
-                         "tensors")
+    if d != _D:
+        raise ValueError(f"the CUDA attention kernels take head dim {_D}; "
+                         f"got {d}")
+    if not all(_tma_ok(x) for x in tensors):
+        raise ValueError(
+            "the CUDA attention kernels take tensors whose head dim is "
+            "contiguous, whose other strides are positive multiples of 8 "
+            "elements, and whose data is 16-byte aligned; got strides "
+            f"{[x.stride() for x in tensors]}")
+
+
+def _strides(x: torch.Tensor):
+    return (ctypes.c_longlong * 3)(*x.stride()[:3])
 
 
 def _dropout_args(seed: int, rate: float):
@@ -127,45 +146,63 @@ def _dropout_args(seed: int, rate: float):
     return seed & 0xFFFFFFFF, threshold(rate), 1.0 / (1.0 - rate)
 
 
-def _smem_check(smem: int, device, t: int) -> None:
-    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"T={t} needs {smem} B of shared memory per block; "
-                         f"this card allows {limit} B")
+def _padded_rows(t: int) -> int:
+    return -(-t // _TILE) * _TILE
 
 
-def _launch_fwd(q, k, v, bias, seed, rate) -> torch.Tensor:
+def _launch_fwd(q, k, v, bias, seed, rate, with_residuals: bool):
+    """-> (out, out_exact, stats): out in q's layout; with
+    `with_residuals` (else None) what the backward reads: out_exact, the
+    output with p not rounded to bf16 (in bf16, out's layout), and stats,
+    the fp32 (B, H, Tp, 2) row max and log of the row sum of exp."""
     global launches
     b, h, t, d = q.shape
-    _check_cuda((q, k, v), t, d, _MAX_T)
+    _check_cuda((q, k, v), d)
     if not bias.is_contiguous():
         raise ValueError("the CUDA attention kernel takes a contiguous bias")
     lib = _lib()
-    _smem_check(lib.attention_fwd_smem_bytes(t, d), q.device, t)
     out = torch.empty_like(q)
+    out_exact = torch.empty_like(out) if with_residuals else None
+    stats = (torch.empty(b, h, _padded_rows(t), 2, dtype=torch.float32,
+                         device=q.device) if with_residuals else None)
+    ss = [_strides(x) for x in (q, k, v, out)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                bias.data_ptr(), out.data_ptr(), b, h, t, d,
-                                *_dropout_args(seed, rate), stream)
+        err = lib.attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(),
+            None if out_exact is None else out_exact.data_ptr(),
+            None if stats is None else stats.data_ptr(),
+            *(ctypes.addressof(s) for s in ss), b, h, t, d,
+            *_dropout_args(seed, rate), stream)
     check(lib, "attention_fwd", err)
     launches += 1
-    return out
+    return out, out_exact, stats
 
 
-def _launch_bwd(q, k, v, g, bias, seed, rate):
+def _launch_bwd(q, k, v, g, out_exact, bias, stats, seed, rate):
     global bwd_launches
     b, h, t, d = q.shape
-    _check_cuda((q, k, v, g), t, d, _MAX_T_BWD)
+    if not _tma_ok(g):
+        g = g.contiguous()   # e.g. an expanded (stride 0) cotangent
+    _check_cuda((q, k, v, g), d)
     lib = _bwd_lib()
-    _smem_check(lib.attention_bwd_smem_bytes(t), q.device, t)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    tp = _padded_rows(t)
+    dbuf = torch.empty(b, h, tp, dtype=torch.float32, device=q.device)
+    # the dq kernel's dropout mask words for the dk/dv kernel
+    keep = (torch.empty(b * h * (tp // _TILE) ** 2 * 128, dtype=torch.int32,
+                        device=q.device) if rate > 0.0 else None)
+    ss = [_strides(x) for x in (q, k, v, g, out_exact, dq, dk, dv)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                g.data_ptr(), bias.data_ptr(), dq.data_ptr(),
-                                dk.data_ptr(), dv.data_ptr(), b, h, t, d,
-                                *_dropout_args(seed, rate), stream)
+        err = lib.attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            out_exact.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+            dbuf.data_ptr(), None if keep is None else keep.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *(ctypes.addressof(s) for s in ss), b, h, t, d,
+            *_dropout_args(seed, rate), stream)
     check(lib, "attention_bwd", err)
     bwd_launches += 1
     return dq, dk, dv
@@ -173,31 +210,36 @@ def _launch_bwd(q, k, v, g, bias, seed, rate):
 
 class FusedAttention(torch.autograd.Function):
     """Forward and backward through the CUDA kernels; the residuals are
-    q, k, v, bias and the seed, so no probability is stored."""
+    q, k, v, bias, the output with p unrounded, the fp32 row statistics
+    and the seed, so no probability is stored."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed: int, rate: float):
-        ctx.save_for_backward(q, k, v, bias)
+        out, out_exact, stats = _launch_fwd(q, k, v, bias, seed, rate,
+                                            any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, bias, out_exact, stats)
         ctx.seed, ctx.rate = seed, rate
-        return _launch_fwd(q, k, v, bias, seed, rate)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
-        dq, dk, dv = _launch_bwd(q, k, v, g.contiguous(), bias, ctx.seed,
-                                 ctx.rate)
+        q, k, v, bias, out_exact, stats = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, g, out_exact, bias, stats,
+                                 ctx.seed, ctx.rate)
         return dq, dk, dv, None, None, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, seed: int = 0, rate: float = 0.0,
                     heads: int = 1) -> torch.Tensor:
-    """q, k, v: (B, H, T, D); bias: (B, T) fp32 additive key mask (-1e30
-    masked); seed: the dropout seed (a Python int; the mask of (b, h)
-    uses seed + b*H + h); rate: attention-probability dropout.
-    -> (B, H, T, D). q must arrive pre-scaled (1/sqrt(D)). Same contract
-    as the JAX `fused_attention`; `heads` must equal H. Differentiable in
-    q, k and v."""
+    """q, k, v: (B, H, T, D), any strides the kernels take (see
+    `_check_cuda`; e.g. the (B, H, T, D) view of a (B, T, H, D) tensor);
+    bias: (B, T) fp32 additive key mask (-1e30 masked); seed: the dropout
+    seed (a Python int; the mask of (b, h) uses seed + b*H + h); rate:
+    attention-probability dropout. -> (B, H, T, D), in q's layout on the
+    card. q must arrive pre-scaled (1/sqrt(D)). Same contract as the JAX
+    `fused_attention`; `heads` must equal H. Differentiable in q, k and
+    v."""
     _check(q, k, v, bias)
     if heads != q.shape[1]:
         raise ValueError(f"heads={heads} but q has {q.shape[1]} heads")
