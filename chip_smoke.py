@@ -9,10 +9,14 @@
    PyTorch version on the card, at the shapes the serving path gives it
    (forward kernels) and the training step gives it (dropout, backward
    kernels, SupCon), attention also at T = 400 and 999 and on the
-   strided views the model passes, and two attention backward calls bit
-   for bit; times kernel, plain version and the nearest single PyTorch
-   call (timed only; the port never calls it; SDPA on one named backend)
-   as device time under torch.profiler.
+   strided views the model passes, LN+GELU backward at the rows of each
+   of the step's 7 convs and a ragged count, SupCon also at B = 128,
+   129, 1024 and 4096; two calls of the attention backward, the LN+GELU
+   backward and SupCon bit for bit; SupCon and its backward once under
+   torch.cuda.set_sync_debug_mode("error"); times kernel, plain version
+   and the nearest single PyTorch call (timed only; the port never calls
+   it; SDPA on one named backend) as device time: CUDA events around
+   calls queued behind a sleeping kernel.
 3. Serve phase: builds XLS-R-300M (24 layers, 1024 wide, 'layer' norm)
    with a linear head from seeded random numpy weights in the JAX tree
    layout, passed through the port's weight bridge; scores 4 batches of
@@ -44,6 +48,10 @@ import time
 import numpy as np
 import torch
 
+# the card's name and power limit as nvidia-smi gives them, printed
+# beside the timings
+CARD = "not read"
+
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -63,6 +71,9 @@ LOGIT_TOL = 5e-2                 # max |logit_gpu - logit_cpu|
 
 TRAIN_BATCH = 32                 # Stage1Config.batch_size
 TRAIN_STEPS = 8
+# frames after each of XLS-R's 7 convs for a 5 s clip: the LN+GELU rows
+# of a train step are TRAIN_BATCH times each
+TRAIN_CONV_FRAMES = (15999, 7999, 3999, 1999, 999, 499, 249)
 # attention forward/backward: bf16 outputs on both sides (q/k/v/g, p and
 # ds rounded to bf16 at different places: the plain autograd also rounds
 # dp to bf16); the tolerances of tests/test_attention_pallas.py
@@ -73,7 +84,7 @@ ATT_BWD_TOL = dict(atol=5e-2, rtol=5e-2)
 LN_FWD_TOL = dict(atol=2e-2, rtol=2e-2)
 # LN+GELU backward: dx is bf16 on both sides (tests/test_conv_ln_pallas.py's
 # bf16 tolerance); dscale/dbias are fp32 sums over up to 511,968 rows taken
-# in another order (per-program partial sums) than autograd's
+# in another order (per-block partial sums) than autograd's
 LN_DX_TOL = dict(atol=2e-2, rtol=2e-2)
 LN_DPARAM_TOL = dict(atol=5e-2, rtol=1e-3)
 # SupCon: fp32 on both sides; the tolerances of tests/test_supcon_pallas.py
@@ -359,6 +370,15 @@ def kernel_phase(dev):
     return results
 
 
+def ln_bwd_bound(rows: int, c: int):
+    """LN+GELU backward: x and dy read, dx written (bf16), scale and bias
+    read, dscale and dbias written (fp32); ~30 fp32 operations an element
+    (the statistics again, GELU', the two row means, the dx epilogue, two
+    column sums)."""
+    n = rows * c
+    return bound(3 * n * 2 + 4 * c * 4, 30 * n, FP32_FLOP_PER_S)
+
+
 def _bias_with_tails(lengths, t, dev):
     return torch.where(torch.arange(t, device=dev)[None, :]
                        < lengths[:, None], 0.0, -1e30).to(torch.float32)
@@ -513,13 +533,15 @@ def train_kernel_phase(dev, results) -> None:
           f"{ms:.4f} ms, plain autograd {plain_ms:.4f} ms, SDPA backward on "
           f"{sdpa_name} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
 
-    # LN+GELU backward at the first conv's rows and at a ragged count
+    # LN+GELU backward at the rows of each conv of the train step and at
+    # a ragged count, with GELU and without
     c = 512
     scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
     shift = 0.1 * torch.randn(c, generator=gen, device=dev)
-    rows_main = TRAIN_BATCH * 15999
+    rows_main = TRAIN_BATCH * TRAIN_CONV_FRAMES[0]
     dx_err = 0.0
-    for rows in (rows_main, 12347):
+    step_ms, step_bound = [], []
+    for rows in [TRAIN_BATCH * f for f in TRAIN_CONV_FRAMES] + [12347]:
         x = (2.0 * torch.randn(rows, c, generator=gen, device=dev)
              ).to(torch.bfloat16)
         dy = torch.randn(rows, c, generator=gen, device=dev
@@ -550,34 +572,54 @@ def train_kernel_phase(dev, results) -> None:
                       f"max_abs_err={e:.3e} (max |plain| "
                       f"{w.float().abs().max().item():.3e}, tolerance {tol})")
                 torch.testing.assert_close(a.float(), w.float(), **tol)
-            if rows == rows_main and gelu:
-                ms = _grad_ms(out, ins, dy)
+            again = torch.autograd.grad(out, ins, dy, retain_graph=True)
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise RuntimeError(f"ln_gelu_bwd rows={rows} gelu={gelu}: "
+                                   f"two calls differ")
+            if not gelu or rows == 12347:
+                continue
+            # each conv's backward as the train step runs it
+            step_ms.append(_grad_ms(out, ins, dy))
+            step_bound.append(ln_bwd_bound(rows, c)[0])
+            if rows == rows_main:
+                ms = step_ms[-1]
                 plain_ms = _grad_ms(out_p, ins_p, dy)
                 ins_l = [a.detach().requires_grad_() for a in (x, scale, shift)]
                 lib = F.gelu(F.layer_norm(ins_l[0], (c,), ins_l[1].to(
                     torch.bfloat16), ins_l[2].to(torch.bfloat16), 1e-5))
                 lib_ms = _grad_ms(lib, ins_l, dy)
-    nb = rows_main * c
-    # ~30 fp32 operations per element: the statistics again, erf and exp
-    # of GELU', the two row means and the dx epilogue, two column sums
-    bound_ms, bound_by = bound(3 * nb * 2 + 4 * c * 4, 30 * nb,
-                               FP32_FLOP_PER_S)
+    print("ln_gelu_bwd: two calls bitwise equal (dx, dscale, dbias) at every "
+          "row count, gelu on and off")
+    bound_ms, bound_by = ln_bwd_bound(rows_main, c)
     results["ln_gelu_bwd"] = dict(
-        name="ln_gelu_bwd", route="triton",
-        source="wav2vec_contr_loss_torch/ops/conv_ln.py",
+        name="ln_gelu_bwd", route="cuda",
+        source="wav2vec_contr_loss_torch/csrc/ln_gelu_bwd.cu",
         replaces="wav2vec_contr_loss_tpu/ops/conv_ln_pallas.py:69",
         max_abs_err=dx_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=lib_ms)
+        bound_by=bound_by, library_ms=lib_ms,
+        train_step_ms=sum(step_ms), train_step_bound_ms=sum(step_bound))
     print(f"ln_gelu_bwd ({rows_main},{c}) bf16 gelu: kernel {ms:.4f} ms, "
           f"plain autograd {plain_ms:.4f} ms, F.layer_norm+F.gelu backward "
-          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{CARD}]")
+    print(f"ln_gelu_bwd the train step's 7 convs "
+          f"({', '.join(str(TRAIN_BATCH * f) for f in TRAIN_CONV_FRAMES)} "
+          f"rows): " + ", ".join(f"{t:.4f}" for t in step_ms)
+          + f" ms; sum {sum(step_ms):.4f} ms against a bound of "
+          f"{sum(step_bound):.4f} ms [{CARD}]")
 
-    # SupCon at the training shape, and the edge batches
+    # SupCon at the training shape, the edge batches, and batches past
+    # the earlier kernel's cap of 128 up to 4096
     def normed(bz, dz):
         z = torch.randn(bz, dz, generator=gen, device=dev)
         return z / z.norm(dim=1, keepdim=True)
 
+    def imbalanced(bz):
+        """one bonafide (1) in five"""
+        return (torch.arange(bz, device=dev) % 5 == 0).long()
+
     half = torch.tensor([1, 0] * (TRAIN_BATCH // 2), device=dev)
+    geo_uni = SupConConfig(temperature=0.07, similarity="geodesic",
+                           uniformity_weight=0.1)
     cases = [
         ("B=32 cosine", normed(TRAIN_BATCH, 256), half, 1.0, SupConConfig()),
         ("B=32 alpha 0.3 topk 4", normed(TRAIN_BATCH, 256), half, 0.3,
@@ -589,8 +631,15 @@ def train_kernel_phase(dev, results) -> None:
          SupConConfig(uniformity_weight=0.05)),
         ("B <= topk", normed(8, 256), half[:8], 0.7, SupConConfig()),
         ("geodesic + uniformity 0.1", normed(TRAIN_BATCH, 256), half, 0.4,
-         SupConConfig(temperature=0.07, similarity="geodesic",
-                      uniformity_weight=0.1)),
+         geo_uni),
+        ("B=128 balanced", normed(128, 256), torch.arange(128, device=dev) % 2,
+         0.5, SupConConfig()),
+        ("B=129 imbalanced", normed(129, 256), imbalanced(129), 0.5,
+         SupConConfig()),
+        ("B=1024 imbalanced", normed(1024, 256), imbalanced(1024), 1.0,
+         SupConConfig()),
+        ("B=4096 balanced, geodesic + uniformity 0.1", normed(4096, 256),
+         torch.arange(4096, device=dev) % 2, 0.4, geo_uni),
     ]
     err = 0.0
     for name, z, labels, alpha, cfg in cases:
@@ -602,43 +651,83 @@ def train_kernel_phase(dev, results) -> None:
         ap = torch.tensor(alpha, device=dev, requires_grad=True)
         loss_p = supcon_binary_loss(zp, labels, ap, cfg)
         gzp, gap = torch.autograd.grad(loss_p, (zp, ap))
+        # two calls, the same bits
+        zk2 = z.detach().requires_grad_()
+        loss2 = supcon.supcon_binary_loss_fused(zk2, labels, alpha, cfg)
+        gz2, = torch.autograd.grad(loss2, zk2)
         torch.cuda.synchronize()
         e = (gz - gzp).abs().max().item()
         err = max(err, e, abs(loss.item() - loss_p.item()))
         print(f"supcon {name}: loss {loss.item():.6f} vs {loss_p.item():.6f}"
-              f", dz max_abs_err={e:.3e}, dalpha {ga.item():.6f} vs "
+              f", dz max_abs_err={e:.3e} (max |plain| "
+              f"{gzp.abs().max().item():.3e}), dalpha {ga.item():.6f} vs "
               f"{gap.item():.6f} (tolerances: loss {SUPCON_LOSS_TOL}, "
               f"dz and dalpha {SUPCON_GRAD_TOL})")
         torch.testing.assert_close(loss, loss_p, **SUPCON_LOSS_TOL)
         torch.testing.assert_close(gz, gzp, **SUPCON_GRAD_TOL)
         torch.testing.assert_close(ga, gap, **SUPCON_GRAD_TOL)
+        if not (torch.equal(loss, loss2) and torch.equal(gz, gz2)):
+            raise RuntimeError(f"supcon {name}: two calls differ")
+    print("supcon: two calls bitwise equal (loss, dz) in every case")
+
+    # the wrapper and its backward make no host-device synchronisation,
+    # with a Python alpha as the trainer passes it
     z, labels = cases[0][1], cases[0][2]
     cfg = SupConConfig()
+    zk = z.detach().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = supcon.supcon_binary_loss_fused(zk, labels, 1.0, cfg)
+        gz, = torch.autograd.grad(loss, zk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("supcon: forward and backward ran under "
+          "torch.cuda.set_sync_debug_mode('error') with alpha = 1.0")
 
-    def fused():
-        zk = z.detach().requires_grad_()
-        torch.autograd.grad(supcon.supcon_binary_loss_fused(zk, labels, 1.0,
-                                                            cfg), zk)
+    def timings(z, labels):
+        alpha_dev = torch.tensor(1.0, device=dev)
 
-    def plain():
-        zp = z.detach().requires_grad_()
-        torch.autograd.grad(supcon_binary_loss(zp, labels, 1.0, cfg), zp)
+        def fused():
+            zk = z.detach().requires_grad_()
+            torch.autograd.grad(supcon.supcon_binary_loss_fused(
+                zk, labels, 1.0, cfg), zk)
 
-    # both wait on the device inside (the wrapper and the plain loss read
-    # values back), so the time per call is taken with the host's share
-    ms, plain_ms = cuda_ms(fused), cuda_ms(plain)
-    bz, dz = z.shape
-    bound_ms, bound_by = bound(2 * bz * dz * 4 + bz * 4,
-                               3 * 2 * bz * bz * dz, FP32_FLOP_PER_S)
+        def plain():   # alpha on the device: no copy from the host
+            zp = z.detach().requires_grad_()
+            torch.autograd.grad(supcon_binary_loss(zp, labels, alpha_dev,
+                                                   cfg), zp)
+
+        bz, dz = z.shape
+        # the plain version's ~90 operations a call take the host long
+        # enough that 20 of them would outlast the sleeping kernel
+        return (device_ms(fused), device_ms(plain, iters=5),
+                *bound(2 * bz * dz * 4 + bz * 4, 3 * 2 * bz * bz * dz,
+                       FP32_FLOP_PER_S))
+
+    ms, plain_ms, bound_ms, bound_by = timings(z, labels)
+    # the two kernels alone, without the alpha fill and the backward's
+    # scaling
+    alpha_dev = torch.tensor(1.0, device=dev)
+    kernels_ms = device_ms(lambda: supcon._launch(z, labels, alpha_dev, cfg))
+    big = cases[8]
+    ms_1k, plain_1k, bound_1k, by_1k = timings(big[1], big[2])
     results["supcon"] = dict(
         name="supcon", route="cuda",
         source="wav2vec_contr_loss_torch/csrc/supcon.cu",
         replaces="wav2vec_contr_loss_tpu/ops/supcon_pallas.py:44",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None)
-    print(f"supcon (32,256) fp32, loss+dz+dalpha: kernel {ms:.4f} ms, "
-          f"plain autograd {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by}); no single PyTorch call computes it")
+        bound_by=bound_by, library_ms=None, kernels_only_ms=kernels_ms,
+        b1024_ms=ms_1k,
+        b1024_plain_ms=plain_1k, b1024_bound_ms=bound_1k)
+    print(f"supcon (32,256) fp32, loss+dz+dalpha and backward, device time: "
+          f"wrapper and backward {ms:.4f} ms (the two kernels alone "
+          f"{kernels_ms:.4f} ms), plain autograd {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}); no single PyTorch call computes "
+          f"it [{CARD}]")
+    print(f"supcon (1024,256): wrapper and backward {ms_1k:.4f} ms, plain "
+          f"autograd "
+          f"{plain_1k:.4f} ms, bound {bound_1k:.4f} ms ({by_1k}) [{CARD}]")
 
 
 def serve_phase(dev, results) -> None:
@@ -865,8 +954,9 @@ def profile_step(trainer, batch) -> None:
     # the port's own kernels in this step, by their names in the trace
     for tag in ("attention_fwd_kernel", "attention_dq_kernel",
                 "attention_dkdv_kernel",
-                "_ln_gelu_fwd", "_ln_gelu_bwd", "_sum_partials",
-                "supcon_kernel"):
+                "_ln_gelu_fwd", "ln_gelu_bwd_kernel",
+                "ln_gelu_sum_partials", "supcon_rows_kernel",
+                "supcon_dz_kernel"):
         hits = [v for k, v in by_name.items() if tag in k]
         print(f"profile: port kernel {tag}: "
               f"{sum(v[0] for v in hits):.3f} ms in "
@@ -946,7 +1036,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip())          # card name, power limit
+    global CARD
+    CARD = smi.stdout.strip()
+    print(CARD)                        # card name, power limit
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     # fp32 on the card without TF32, for the fp32 parts of the path

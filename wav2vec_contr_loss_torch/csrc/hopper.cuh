@@ -1,6 +1,7 @@
 // Hopper building blocks of the attention kernels: TMA tensor maps and
 // loads, mbarriers, and wgmma on bf16 tiles of 64 rows x 64 columns
-// (128 bytes a row, the width of the 128-byte swizzle).
+// (128 bytes a row, the width of the 128-byte swizzle). The LN+GELU
+// backward uses the mbarriers and the plain bulk copy.
 //
 // Every tile in shared memory is 64 rows of 64 bf16, loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B and aligned to 1024 bytes, so wgmma reads it

@@ -3,22 +3,24 @@ forward and backward.
 
 Replaces the Pallas kernels of wav2vec_contr_loss_tpu/ops/conv_ln_pallas.py
 (`fused_ln_gelu`, a custom VJP: `_fwd` -> `_fwd_kernel` and `_bwd` ->
-`_bwd_kernel`). The Hopper kernels are Triton, row-wise reductions over
-C=512 with elementwise epilogues, fp32 statistics, no tensor-core work:
+`_bwd_kernel`). Row-wise reductions over C=512 with elementwise
+epilogues, fp32 statistics, no tensor-core work, both bound by bytes:
 
-  * forward: one program per block of rows; reads x once and writes y
-    once, so it is bound by bytes: the 7 launches of one serving batch
-    (8 clips of 5 s, 253,944 rows of 512 bf16) move 520 MB, 155 us at
-    3.35 TB/s.
-  * backward: recomputes the row statistics from x, writes dx, and sums
-    dscale/dbias over all rows deterministically in two passes (no
-    atomics): each program adds its rows into its own partial-sum row
-    of a `torch.empty` buffer, then a second small kernel adds the
-    partial rows in a fixed order. The Pallas grid carried that sum
+  * forward, Triton: one program per block of rows; reads x once and
+    writes y once: the 7 launches of one serving batch (8 clips of 5 s,
+    253,944 rows of 512 bf16) move 520 MB, 155 us at 3.35 TB/s.
+  * backward, CUDA C++ (csrc/ln_gelu_bwd.cu): recomputes the row
+    statistics from x, writes dx, and sums dscale/dbias over all rows
+    deterministically in two kernels (no atomics): a persistent grid of
+    blocks, each a fixed range of rows streamed through a ring of bulk
+    copies, one warp a row, the column sums kept in registers and
+    written as one partial row pair a block; then a small kernel adds
+    the partial rows in block order. The Pallas grid carried that sum
     across its sequential steps (conv_ln_pallas.py:74-113); Hopper runs
-    blocks in no order. Its select-before-stats of the tail rows
-    (:83-87) is the row mask. It reads x and dy and writes dx: at the
-    first conv of a training batch (32 x 15999 rows) 1.57 GB, 0.47 ms.
+    blocks in no order. The rows past n are never loaded, which is the
+    Pallas kernel's select-before-stats of the tail rows (:83-87). It
+    reads x and dy and writes dx: at the first conv of a training batch
+    (32 x 15999 rows) 1.57 GB, 0.47 ms.
 
 `fused_ln_gelu` launches the kernels for CUDA tensors, through
 `FusedLnGelu` (a `torch.autograd.Function`), and takes
@@ -28,11 +30,14 @@ the CPU.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 
 import torch
 import torch.nn.functional as F
+
+from ._build import check
 
 __all__ = ["fused_ln_gelu", "fused_ln_gelu_plain", "FusedLnGelu",
            "launches", "bwd_launches"]
@@ -44,7 +49,6 @@ launches = 0
 bwd_launches = 0
 
 _BLOCK_ROWS = 8
-_BWD_ITERS = 32      # row blocks per backward program: 256 rows each
 
 
 def fused_ln_gelu_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -91,68 +95,6 @@ def _ln_gelu_fwd(x_ptr, s_ptr, b_ptr, y_ptr, n_rows, n_cols, eps,
     tl.store(y_ptr + offs, h.to(y_ptr.dtype.element_ty), mask=mask)
 
 
-def _ln_gelu_bwd(x_ptr, dy_ptr, s_ptr, b_ptr, dx_ptr, part_ptr, n_rows,
-                 n_cols, eps, GELU: tl.constexpr, BLOCK_R: tl.constexpr,
-                 BLOCK_C: tl.constexpr, ITERS: tl.constexpr):
-    """One program takes ITERS blocks of BLOCK_R rows: recomputes the
-    statistics, writes dx, and writes its sums of dh*xhat and dh into
-    row 2*pid and 2*pid + 1 of the partial-sum buffer."""
-    pid = tl.program_id(0)
-    cols = tl.arange(0, BLOCK_C)
-    cmask = cols < n_cols
-    s = tl.load(s_ptr + cols, mask=cmask, other=0.0)
-    b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-    acc_s = tl.zeros((BLOCK_C,), tl.float32)
-    acc_b = tl.zeros((BLOCK_C,), tl.float32)
-    for it in range(ITERS):
-        rows = (pid * ITERS + it) * BLOCK_R + tl.arange(0, BLOCK_R)
-        mask = (rows < n_rows)[:, None] & cmask[None, :]
-        offs = rows.to(tl.int64)[:, None] * n_cols + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=1) / n_cols
-        xc = tl.where(mask, x - mean[:, None], 0.0)
-        var = tl.sum(xc * xc, axis=1) / n_cols
-        rstd = 1.0 / tl.sqrt(var + eps)
-        xhat = xc * rstd[:, None]
-        if GELU:
-            h = xhat * s[None, :] + b[None, :]
-            phi = 0.5 * (1.0 + tl.erf(h * 0.7071067811865476))
-            dh = dy * (phi + h * 0.3989422804014327 * tl.exp(-0.5 * h * h))
-        else:
-            dh = dy
-        dh = tl.where(mask, dh, 0.0)
-        dxhat = dh * s[None, :]
-        m1 = tl.sum(dxhat, axis=1) / n_cols
-        m2 = tl.sum(dxhat * xhat, axis=1) / n_cols
-        dx = rstd[:, None] * (dxhat - m1[:, None] - xhat * m2[:, None])
-        tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-        acc_s += tl.sum(dh * xhat, axis=0)
-        acc_b += tl.sum(dh, axis=0)
-    base = part_ptr + pid.to(tl.int64) * 2 * n_cols
-    tl.store(base + cols, acc_s, mask=cmask)
-    tl.store(base + n_cols + cols, acc_b, mask=cmask)
-
-
-def _sum_partials(part_ptr, ds_ptr, db_ptr, n_parts, n_cols,
-                  BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
-    """Adds the partial rows of BLOCK_C columns in a fixed order:
-    dscale from the even rows, dbias from the odd ones."""
-    cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = cols < n_cols
-    acc_s = tl.zeros((BLOCK_C,), tl.float32)
-    acc_b = tl.zeros((BLOCK_C,), tl.float32)
-    for p0 in range(0, n_parts, BLOCK_P):
-        parts = p0 + tl.arange(0, BLOCK_P)
-        mask = (parts < n_parts)[:, None] & cmask[None, :]
-        offs = parts.to(tl.int64)[:, None] * 2 * n_cols + cols[None, :]
-        acc_s += tl.sum(tl.load(part_ptr + offs, mask=mask, other=0.0), 0)
-        acc_b += tl.sum(tl.load(part_ptr + offs + n_cols, mask=mask,
-                                other=0.0), 0)
-    tl.store(ds_ptr + cols, acc_s, mask=cmask)
-    tl.store(db_ptr + cols, acc_b, mask=cmask)
-
-
 @functools.cache
 def _kernels():
     global tl
@@ -163,24 +105,39 @@ def _kernels():
     import triton
     import triton.language as tl
 
-    return (triton, triton.jit(_ln_gelu_fwd), triton.jit(_ln_gelu_bwd),
-            triton.jit(_sum_partials))
+    return triton, triton.jit(_ln_gelu_fwd)
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("ln_gelu_bwd")
+    lib.ln_gelu_bwd_grid.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.ln_gelu_bwd_grid.restype = ctypes.c_int
+    lib.ln_gelu_bwd.argtypes = ([ctypes.c_void_p] * 8
+                                + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p])
+    lib.ln_gelu_bwd.restype = ctypes.c_int
+    return lib
 
 
 def _check_cuda(x, scale, bias) -> None:
     if x.dtype != torch.bfloat16:
-        raise ValueError("the Triton LN+GELU kernel takes bfloat16 x")
+        raise ValueError("the LN+GELU kernels take bfloat16 x")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise ValueError("scale and bias must be float32")
     if not (x.is_contiguous() and scale.is_contiguous()
             and bias.is_contiguous()):
-        raise ValueError("the Triton LN+GELU kernel takes contiguous tensors")
+        raise ValueError("the LN+GELU kernels take contiguous tensors")
 
 
 def _launch(x, scale, bias, eps, gelu) -> torch.Tensor:
     global launches
     _check_cuda(x, scale, bias)
-    triton, kernel, _, _ = _kernels()
+    triton, kernel = _kernels()
     c = x.shape[-1]
     n = x.numel() // c
     y = torch.empty_like(x)
@@ -194,37 +151,51 @@ def _launch(x, scale, bias, eps, gelu) -> torch.Tensor:
     return y
 
 
-def _launch_bwd(x, dy, scale, bias, eps, gelu):
-    global bwd_launches
-    _check_cuda(x, scale, bias)
+def _check_bwd(x, dy) -> None:
+    """What the CUDA backward takes beyond `_check_cuda`: C a multiple of
+    256 up to 1024, dy like x, rows 16-byte aligned for the bulk copies."""
+    c = x.shape[-1]
+    if c % 256 or not 256 <= c <= 1024:
+        raise ValueError(f"the CUDA LN+GELU backward takes C in (256, 512, "
+                         f"768, 1024); got C={c}")
     if dy.dtype != x.dtype or dy.shape != x.shape or not dy.is_contiguous():
         raise ValueError("dy must be a contiguous tensor of x's dtype and "
                          "shape")
-    triton, _, kernel, reduce = _kernels()
+    if x.data_ptr() % 16 or dy.data_ptr() % 16:
+        raise ValueError("x and dy must be 16-byte aligned")
+
+
+def _launch_bwd(x, dy, scale, bias, eps, gelu):
+    global bwd_launches
+    _check_cuda(x, scale, bias)
+    _check_bwd(x, dy)
+    lib = _bwd_lib()
     c = x.shape[-1]
     n = x.numel() // c
     dx = torch.empty_like(x)
     dscale = torch.zeros_like(scale)
     dbias = torch.zeros_like(bias)
     if n:
-        n_parts = triton.cdiv(n, _BLOCK_ROWS * _BWD_ITERS)
-        part = torch.empty(n_parts, 2, c, dtype=torch.float32,
-                           device=x.device)
-        block_c = triton.next_power_of_2(c)
         with torch.cuda.device(x.device):
-            kernel[(n_parts,)](x, dy, scale, bias, dx, part, n, c, eps,
-                               GELU=gelu, BLOCK_R=_BLOCK_ROWS,
-                               BLOCK_C=block_c, ITERS=_BWD_ITERS, num_warps=4)
-            reduce[(triton.cdiv(c, 128),)](part, dscale, dbias, n_parts, c,
-                                           BLOCK_P=32, BLOCK_C=128,
-                                           num_warps=4)
+            grid = ctypes.c_int(0)
+            check(lib, "ln_gelu_bwd_grid",
+                  lib.ln_gelu_bwd_grid(n, c, ctypes.byref(grid)))
+            part = torch.empty(grid.value, 2, c, dtype=torch.float32,
+                               device=x.device)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.ln_gelu_bwd(
+                x.data_ptr(), dy.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                dscale.data_ptr(), dbias.data_ptr(), n, c, eps, int(gelu),
+                grid.value, stream)
+        check(lib, "ln_gelu_bwd", err)
         bwd_launches += 1
     return dx, dscale, dbias
 
 
 class FusedLnGelu(torch.autograd.Function):
-    """Forward and backward through the Triton kernels; the residuals are
-    x, scale and bias (the statistics are recomputed)."""
+    """Forward through the Triton kernel, backward through the CUDA one;
+    the residuals are x, scale and bias (the statistics are recomputed)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps: float, gelu: bool):

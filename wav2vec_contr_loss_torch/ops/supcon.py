@@ -2,15 +2,23 @@
 
 Replaces the Pallas kernel of wav2vec_contr_loss_tpu/ops/supcon_pallas.py
 (`supcon_binary_loss_pallas` -> `_run_kernel` -> `_kernel`, a custom VJP).
-The Hopper kernel is CUDA C++ in csrc/supcon.cu: one block computes the
-Gram matrix, the similarity (cosine, or geodesic with `acosf`), both
-masked log-sum-exps, the iterative top-k, the alpha blend with the
-degenerate rules, the uniformity term, dL/dz and dL/dalpha in one launch.
-At the training shape (B=32, D=256) it moves 64 KB and is bound by its
-own launch latency. It takes B <= 128 (its (B, B) matrices live in shared
-memory); on CUDA tensors the wrapper raises above that.
+The Hopper kernels are CUDA C++ in csrc/supcon.cu, two launches: a row
+kernel (the Gram stripe of a block of anchors, the similarity, cosine or
+geodesic with `acosf`, both masked log-sum-exps, the iterative top-k and
+the per-row terms) and a dz kernel (the loss, the alpha blend with the
+degenerate rules, the uniformity term, dL/dz and dL/dalpha). At the
+training shape (B=32, D=256) they move 64 KB and are bound by their own
+launch latency; their fp32 products bound them from B of about 1,000 on.
+The kernels take B up to `supcon_max_batch()` (4,096, set by the row
+kernel's shared memory) and D up to 1,024 (the wrapper pads D to a
+multiple of 4 with zero columns); on CUDA tensors the wrapper raises
+above that. Scratch (the (B, B) Gram matrix, the row terms, the top-k
+selection as bits) comes from `torch.empty`.
 
-`supcon_binary_loss_fused` launches the kernel for CUDA tensors, through
+The wrapper makes no host-device synchronisation: a Python alpha reaches
+the kernel through `torch.full` on the device, not a blocking copy.
+
+`supcon_binary_loss_fused` launches the kernels for CUDA tensors, through
 `FusedSupCon` (a `torch.autograd.Function` whose backward scales the
 stored dz and dL/dalpha by the cotangent, as at supcon_pallas.py:227-237),
 and takes the plain `losses.supcon.supcon_binary_loss`, differentiated
@@ -30,8 +38,8 @@ from ._build import check
 
 __all__ = ["supcon_binary_loss_fused", "FusedSupCon", "launches"]
 
-# kernel launches through `supcon_binary_loss_fused`; read and reset by
-# callers
+# kernel launches through `supcon_binary_loss_fused` (one per call,
+# counting its two kernels as one); read and reset by callers
 launches = 0
 
 
@@ -40,57 +48,85 @@ def _lib() -> ctypes.CDLL:
     from ._build import load
 
     lib = load("supcon")
-    lib.supcon_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+    lib.supcon_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
                                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_float, ctypes.c_float,
                                   ctypes.c_void_p])
     lib.supcon_fwd.restype = ctypes.c_int
-    lib.supcon_max_batch.argtypes = []
-    lib.supcon_max_batch.restype = ctypes.c_int
+    for name in ("supcon_max_batch", "supcon_max_dim", "supcon_row_terms"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+def _padded(z: torch.Tensor) -> torch.Tensor:
+    """z with zero columns up to a multiple of 4 (they change no dot
+    product or norm), contiguous and 16-byte aligned for float4 loads."""
+    if z.shape[1] % 4:
+        z = torch.nn.functional.pad(z, (0, -z.shape[1] % 4))
+    z = z.contiguous()
+    return z if z.data_ptr() % 16 == 0 else z.clone()
 
 
 def _launch(z, labels, alpha, cfg: SupConConfig):
     global launches
     b, d = z.shape
     lib = _lib()
-    if b > lib.supcon_max_batch():
-        raise ValueError(f"the CUDA SupCon kernel takes B <= "
-                         f"{lib.supcon_max_batch()}; got B={b}")
-    z = z.float().contiguous()
-    labels = labels.to(device=z.device, dtype=torch.int32).contiguous()
-    alpha = alpha.to(device=z.device, dtype=torch.float32).reshape(1)
+    max_b, max_d = lib.supcon_max_batch(), lib.supcon_max_dim()
+    if b > max_b or d > max_d:
+        raise ValueError(f"the CUDA SupCon kernels take B <= {max_b} and D "
+                         f"<= {max_d}; got B={b}, D={d}")
+    z = _padded(z.float())
+    labels = labels.to(device=z.device, dtype=torch.int64).contiguous()
+    alpha = alpha.to(dtype=torch.float32).reshape(1)
     loss = torch.empty((), dtype=torch.float32, device=z.device)
     dalpha = torch.empty((), dtype=torch.float32, device=z.device)
     dz = torch.empty_like(z)
+    gram = torch.empty(b, b, dtype=torch.float32, device=z.device)
+    terms = torch.empty(lib.supcon_row_terms(), b, dtype=torch.float32,
+                        device=z.device)
+    sel = torch.empty(b, -(-b // 32), dtype=torch.int32, device=z.device)
     k = max(1, min(cfg.topk_neg, b - 1))
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = lib.supcon_fwd(
             z.data_ptr(), labels.data_ptr(), alpha.data_ptr(),
-            loss.data_ptr(), dz.data_ptr(), dalpha.data_ptr(), b, d,
+            loss.data_ptr(), dz.data_ptr(), dalpha.data_ptr(),
+            gram.data_ptr(), terms.data_ptr(), sel.data_ptr(), b, z.shape[1],
             1.0 / cfg.temperature, k, int(cfg.similarity == "geodesic"),
             cfg.uniformity_weight, cfg.uniformity_t, stream)
     check(lib, "supcon", err)
     launches += 1
-    return loss, dz, dalpha
+    return loss, dz[:, :d], dalpha
 
 
 class FusedSupCon(torch.autograd.Function):
-    """Forward runs the kernel, which also computes dL/dz and dL/dalpha;
+    """Forward runs the kernels, which also compute dL/dz and dL/dalpha;
     the backward only scales them by the cotangent."""
 
     @staticmethod
     def forward(ctx, z, labels, alpha, cfg: SupConConfig):
         loss, dz, dalpha = _launch(z, labels, alpha, cfg)
         ctx.save_for_backward(dz, dalpha)
-        ctx.z_dtype = z.dtype
+        ctx.z_dtype, ctx.alpha_shape = z.dtype, alpha.shape
         return loss
 
     @staticmethod
     def backward(ctx, g):
         dz, dalpha = ctx.saved_tensors
-        return (g * dz).to(ctx.z_dtype), None, g * dalpha, None
+        want_z, _, want_alpha, _ = ctx.needs_input_grad
+        return ((g * dz).to(ctx.z_dtype) if want_z else None, None,
+                (g * dalpha).reshape(ctx.alpha_shape) if want_alpha else None,
+                None)
+
+
+def _alpha_on(alpha, device: torch.device) -> torch.Tensor:
+    """alpha as a scalar fp32 tensor on `device` without a blocking copy:
+    a Python number is filled in on the device, a tensor is taken as it
+    is (moved only if it lies elsewhere)."""
+    if isinstance(alpha, torch.Tensor):
+        return alpha.to(device=device, dtype=torch.float32)
+    return torch.full((), float(alpha), dtype=torch.float32, device=device)
 
 
 def supcon_binary_loss_fused(z: torch.Tensor, labels: torch.Tensor, alpha,
@@ -106,5 +142,5 @@ def supcon_binary_loss_fused(z: torch.Tensor, labels: torch.Tensor, alpha,
         return supcon_binary_loss(z, labels, alpha, config)
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=z.device)
-    return FusedSupCon.apply(z, labels.reshape(-1), alpha, config)
+    return FusedSupCon.apply(z, labels.reshape(-1), _alpha_on(alpha, z.device),
+                             config)
