@@ -144,6 +144,21 @@ def rank_pick(lg, neg, k):
     return neg & (before.sum(-1) < k)
 
 
+def argmax_pick(lg, neg, k):
+    """The Pallas loop's top-k (supcon_pallas.py:94-102): k rounds, each
+    taking the first-occurrence argmax of the negatives not yet taken."""
+    col = torch.arange(lg.shape[0])
+    cand = torch.where(neg, lg, NEG)
+    sel = torch.zeros_like(neg)
+    for _ in range(k):
+        row_max = cand.amax(1, keepdim=True)
+        arg = torch.where(cand == row_max, col, 2 ** 30).amin(1, keepdim=True)
+        hit = (col == arg) & (row_max > NEG / 2)
+        sel = sel | hit
+        cand = torch.where(hit, NEG, cand)
+    return sel
+
+
 def rows_kernel(z, labels, cfg):
     """-> (gram, row terms dict, selection words (B, ceil(B/32)) int64)"""
     b = z.shape[0]
@@ -326,8 +341,9 @@ def test_selection_is_the_first_occurrence_topk():
 @pytest.mark.parametrize("b", [2, 5, 17, 32])
 def test_rank_pick_is_the_threshold_walk(b):
     """For B <= 32 the kernel ranks each negative against the others in
-    one step; it picks what the walk picks, ties (repeated values) and
-    rows with fewer than k negatives included."""
+    one step; it picks what the walk picks, and both pick what the Pallas
+    loop's first-occurrence argmax picks, ties (repeated values) and rows
+    with fewer than k negatives included."""
     rng = np.random.default_rng(b)
     lg = torch.from_numpy(rng.integers(-3, 4, (b, b)).astype(np.float32))
     lg.fill_diagonal_(NEG)
@@ -335,7 +351,9 @@ def test_rank_pick_is_the_threshold_walk(b):
     neg = (labels[:, None] != labels[None, :])
     for k in sorted({1, 3, max(1, b - 1), 15}):
         k = min(k, max(1, b - 1))
-        assert torch.equal(rank_pick(lg, neg, k), walk_pick(lg, neg, k))
+        walked = walk_pick(lg, neg, k)
+        assert torch.equal(rank_pick(lg, neg, k), walked)
+        assert torch.equal(argmax_pick(lg, neg, k), walked)
 
 
 @pytest.mark.parametrize("b", [1, 2, 32, 33, 64, 1024, 4096])

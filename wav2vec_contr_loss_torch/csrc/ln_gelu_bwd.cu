@@ -323,19 +323,22 @@ ln_gelu_sum_partials(const float* __restrict__ part, float* __restrict__ ds,
 
 template <int NCH>
 cudaError_t occupancy(int* blocks_per_sm) {
-  // the shared-memory attribute is set once per process, with the count
-  static int cached = 0;
-  static cudaError_t err = cudaSuccess;
-  if (!cached && err == cudaSuccess) {
-    err = cudaFuncSetAttribute(ln_gelu_bwd_kernel<NCH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Shape<NCH>::kSmem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &cached, ln_gelu_bwd_kernel<NCH>, kThreads, Shape<NCH>::kSmem);
-    if (err == cudaSuccess && cached < 1) err = cudaErrorInvalidConfiguration;
-  }
-  *blocks_per_sm = cached;
+  // the shared-memory attribute is set once per process and device, with
+  // the count
+  static OncePerDevice once;
+  static int per_sm[OncePerDevice::kMaxDevices];
+  int dev = 0;
+  const cudaError_t err = once([](int d) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ln_gelu_bwd_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Shape<NCH>::kSmem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm[d], ln_gelu_bwd_kernel<NCH>, kThreads, Shape<NCH>::kSmem);
+    if (e == cudaSuccess && per_sm[d] < 1) e = cudaErrorInvalidConfiguration;
+    return e;
+  }, &dev);
+  *blocks_per_sm = per_sm[dev];
   return err;
 }
 

@@ -14,12 +14,12 @@
 //     dL/dalpha = L_mined - L_full,
 //   (the gradient math of supcon_pallas.py:15-23).
 //
-// Bound: three B x B x D products, 6 B^2 D fp32 operations (at B = 1024,
-// D = 256: 1.6 GFLOP, 24 us at 67 TFLOP/s), against 2 B D x 4 bytes of
-// z and dz. At the training shape (B = 32) both are tens of nanoseconds
-// and two launches' latency is the floor. The products run on the fp32
-// pipes, not TF32: dz is held to rtol 5e-4, and 1/tau up to 14 would
-// carry TF32's rounding past that.
+// Bound: two B x B x D products, the Gram and A z, 4 B^2 D fp32
+// operations (at B = 1024, D = 256: 1.07 GFLOP, 16 us at 67 TFLOP/s),
+// against 2 B D x 4 bytes of z and dz. At the training shape (B = 32)
+// both are tens of nanoseconds and two launches' latency is the floor.
+// The products run on the fp32 pipes, not TF32: dz is held to rtol
+// 5e-4, and 1/tau up to 14 would carry TF32's rounding past that.
 //
 // Design: two kernels, no atomics, every output written once, so two
 // calls give the same bits.
@@ -300,7 +300,8 @@ supcon_rows_kernel(const float* __restrict__ z, const long long* __restrict__ la
   if (B <= 32) {
     // one column a lane: a negative is picked iff fewer than k negatives
     // come before it in that order, so the pick of rank k - 1 is the
-    // threshold, with no serial rounds
+    // threshold, with no serial rounds (at B = 32, k = 15 this takes the
+    // two kernels from 0.0145 to 0.0128 ms on an H100)
     const uint32_t negs = negw[0];
     const bool neg = (negs >> lane) & 1u;
     const float v = lane < B ? row[lane] : kNeg;
@@ -575,10 +576,11 @@ supcon_dz_kernel(const float* __restrict__ z, const long long* __restrict__ labe
   }
 }
 
-// The shared-memory attributes, set once per process for the largest
-// batch and width the kernels take.
+// The shared-memory attributes, set once per process and device for the
+// largest batch and width the kernels take.
 cudaError_t set_attributes() {
-  static const cudaError_t err = [] {
+  static OncePerDevice once;
+  return once([](int) {
     cudaError_t e = cudaFuncSetAttribute(
         supcon_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)rows_smem(kMaxB, kMaxD));
@@ -587,8 +589,7 @@ cudaError_t set_attributes() {
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)dz_smem());
     return e;
-  }();
-  return err;
+  });
 }
 
 }  // namespace

@@ -112,7 +112,10 @@ def _kernels():
 def _bwd_lib() -> ctypes.CDLL:
     from ._build import load
 
-    lib = load("ln_gelu_bwd")
+    return _bind_bwd(load("ln_gelu_bwd"))
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ln_gelu_bwd_grid.argtypes = [ctypes.c_int, ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)]
     lib.ln_gelu_bwd_grid.restype = ctypes.c_int
