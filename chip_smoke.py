@@ -32,7 +32,23 @@
    launch counts; times the steps and breaks one down with
    torch.profiler. Then one step at 2 layers, B=4, dropout and
    SpecAugment off, on the card in bf16 against the CPU in fp32.
-5. Prints one JSON line with every kernel's numbers, then the result
+5. RawBoost phase: device RawBoost (ops/rawboost.py, plain PyTorch) on
+   (32, 80,000) clips with zero-padded tails, its draws made on the
+   card: 'direct' and 'fft' held against the CPU on the same draws and
+   against each other, the pad mask and prob = 0 checked, once under
+   set_sync_debug_mode("error"), device time and device operations
+   beside a byte bound. Then the finetune step with RawBoost on (the
+   Stage1Config default) and off in turns, the one with RawBoost once
+   under set_sync_debug_mode("error"), and its device operations.
+6. Fit phase, in a process of its own (`--fit`, with
+   CUBLAS_WORKSPACE_CONFIG=:4096:8 and deterministic algorithms): writes
+   a synthetic ASVspoof-2019-style corpus (64 train, 32 dev clips of
+   5 s) to a temporary directory, runs `fit` for 2 epochs at XLS-R-300M
+   width with device RawBoost and a dev pipe (launch counters reset just
+   before and read just after), then the same run preempted at epoch 2,
+   batch 1 and resumed from 'latest' through from_checkpoint, which must
+   end on the same bits; times a save and a restore of the full state.
+7. Prints one JSON line with every kernel's numbers, then the result
    line. Any failure exits non-zero before the result line.
 
 Needs torch with CUDA, triton and nvcc; imports nothing of JAX.
@@ -40,13 +56,17 @@ Needs torch with CUDA, triton and nvcc; imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from wav2vec_contr_loss_torch.bridge import random_jax_trees
 
 # the card's name and power limit as nvidia-smi gives them, printed
 # beside the timings
@@ -112,6 +132,10 @@ STEP_ENC_GRADS = ("encoder.encoder.layers.0.attention.q_proj.weight",
                   "encoder.feature_extractor.conv_layers.0.layer_norm.weight")
 STEP_ENC_COS = 0.993             # cosine(gpu, cpu) of each
 STEP_ENC_NORM = 0.01             # |norm ratio - 1|
+# device RawBoost, card against CPU on the same draws, max |d| / peak:
+# the bounds its CPU tests hold it to against the JAX function (fp32 on
+# both sides; 5e-4 is the JAX file's own fft-vs-direct bound)
+RB_TOL = {"direct": 1e-4, "fft": 5e-4}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -183,72 +207,6 @@ def bound(nbytes: float, flops: float, flop_rate: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
-
-
-def random_jax_trees(cfg, comp_dim: int = 256, head_type: str = "linear",
-                     head_hidden: int = 128, seed: int = 0):
-    """Seeded numpy (encoder, compression, head) trees in the JAX
-    package's layout: flax names, Dense kernels (in, out), conv kernels
-    (k, in/groups, out), transformer leaves stacked on a leading layer
-    axis. Kernels have std 1/sqrt(fan_in) (flax's lecun scale); the head
-    has unit scale so logits are O(1)."""
-    rng = np.random.default_rng(seed)
-
-    def normal(shape, std):
-        return (rng.standard_normal(shape, dtype=np.float32)
-                * np.float32(std))
-
-    def dense(n_in, n_out, lead=(), std=None):
-        return {"kernel": normal(lead + (n_in, n_out),
-                                 std or n_in ** -0.5),
-                "bias": normal(lead + (n_out,), 0.02)}
-
-    def norm(n, lead=()):
-        return {"scale": 1.0 + normal(lead + (n,), 0.02),
-                "bias": normal(lead + (n,), 0.02)}
-
-    fe = {}
-    cin = 1
-    for i, (dim, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
-        fe[f"conv{i}"] = {"kernel": normal((k, cin, dim), (k * cin) ** -0.5)}
-        if cfg.conv_bias:
-            fe[f"conv{i}"]["bias"] = normal((dim,), 0.02)
-        if cfg.feat_extract_norm == "layer":
-            fe[f"norm{i}"] = {"LayerNorm_0": norm(dim)}
-        cin = dim
-    if cfg.feat_extract_norm == "group":
-        fe["group_norm"] = norm(cfg.conv_dim[0])
-
-    d, L = cfg.hidden_size, (cfg.num_layers,)
-    k, g = cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups
-    enc = {
-        "feature_extractor": fe,
-        "feature_projection": {"layer_norm": norm(cfg.conv_dim[-1]),
-                               "projection": dense(cfg.conv_dim[-1], d)},
-        "pos_conv_embed": {"conv": {
-            "kernel": normal((k, d // g, d), (k * d // g) ** -0.5),
-            "bias": normal((d,), 0.02)}},
-        "encoder_layer_norm": norm(d),
-        "layers": {"layer": {
-            "attention": {n: dense(d, d, L) for n in
-                          ("q_proj", "k_proj", "v_proj", "out_proj")},
-            "feed_forward": {
-                "intermediate_dense": dense(d, cfg.intermediate_size, L),
-                "output_dense": dense(cfg.intermediate_size, d, L)},
-            "layer_norm": norm(d, L),
-            "final_layer_norm": norm(d, L),
-        }},
-    }
-    if cfg.apply_spec_augment:
-        enc["masked_spec_embed"] = rng.uniform(
-            0, 1, (d,)).astype(np.float32)
-    comp = {"proj": dense(d, comp_dim)}
-    if head_type == "linear":
-        head = {"fc": dense(comp_dim, 1, std=1.0)}
-    else:
-        head = {"fc1": dense(comp_dim, head_hidden),
-                "fc2": dense(head_hidden, 1, std=1.0)}
-    return enc, comp, head
 
 
 def serving_waves(rng, n_batches: int):
@@ -736,14 +694,23 @@ def train_kernel_phase(dev, results) -> None:
           f"{plain_1k:.4f} ms, bound {bound_1k:.4f} ms ({by_1k}) [{CARD}]")
 
 
+@functools.cache
+def xlsr_weights():
+    """XLS-R-300M state dicts (encoder, compression, linear head) from
+    the seed-0 random trees, built once a process."""
+    from wav2vec_contr_loss_torch import XLSR_300M, jax_params_to_torch
+
+    return jax_params_to_torch(XLSR_300M,
+                               *random_jax_trees(XLSR_300M, seed=0))
+
+
 def serve_phase(dev, results) -> None:
-    from wav2vec_contr_loss_torch import (XLSR_300M, SpoofScorer,
-                                          Stage2Config, jax_params_to_torch)
+    from wav2vec_contr_loss_torch import XLSR_300M, SpoofScorer, Stage2Config
     from wav2vec_contr_loss_torch.ops import attention, conv_ln
 
     cfg = XLSR_300M
     t0 = time.perf_counter()
-    weights = jax_params_to_torch(cfg, *random_jax_trees(cfg, seed=0))
+    weights = xlsr_weights()
     scorer = SpoofScorer(cfg, weights, Stage2Config(), device=dev)
     n_params = sum(p.numel() for p in scorer.encoder.parameters())
     print(f"serve: XLS-R-300M encoder, {n_params} params, bf16 compute, "
@@ -881,14 +848,13 @@ def _reset_counters() -> None:
     supcon.launches = 0
 
 
-def train_phase(dev, results) -> None:
-    from wav2vec_contr_loss_torch import (XLSR_300M, Stage1Config,
-                                          Stage1Trainer, jax_params_to_torch)
+def train_phase(dev, results):
+    from wav2vec_contr_loss_torch import XLSR_300M, Stage1Config, Stage1Trainer
 
     cfg = XLSR_300M
     scfg = Stage1Config(finetune_encoder=True, use_rawboost=False)
     t0 = time.perf_counter()
-    weights = jax_params_to_torch(cfg, *random_jax_trees(cfg, seed=0))
+    weights = xlsr_weights()
     trainer = Stage1Trainer(scfg, cfg, weights, device=dev)
     print(f"train: XLS-R-300M finetune, B={scfg.batch_size} x 5 s, "
           f"{scfg.compute_dtype}, remat_encoder={scfg.remat_encoder}, "
@@ -930,11 +896,12 @@ def train_phase(dev, results) -> None:
           f"clock to the loss on the host; step 1 {1e3 * times[0]:.1f} ms), "
           f"{1e3 * scfg.batch_size / ms:.1f} clips/s, peak device memory "
           f"{peak:.2f} GiB")
-    profile_step(trainer, batch)
+    return profile_step(trainer, batch)
 
 
-def profile_step(trainer, batch) -> None:
-    """Device time by kernel over one train step under torch.profiler."""
+def profile_step(trainer, batch):
+    """Device time by kernel over one train step under torch.profiler.
+    -> (device busy ms, device operations) of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -950,11 +917,12 @@ def profile_step(trainer, batch) -> None:
             ms_n[1] += 1
     if not by_name:
         print("profile: the profiler recorded no device activity")
-        return
+        return None, None
     busy = sum(v[0] for v in by_name.values())
+    n_ops = sum(v[1] for v in by_name.values())
     print(f"profile: one train step, wall {wall_ms:.1f} ms (profiler on), "
           f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f} %), "
-          f"{sum(v[1] for v in by_name.values())} device ops")
+          f"{n_ops} device ops [{CARD}]")
     for name, (ms_b, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
         print(f"profile:   {ms_b:8.2f} ms  x{n:<5d} {name[:90]}")
     # the port's own kernels in this step, by their names in the trace
@@ -967,6 +935,7 @@ def profile_step(trainer, batch) -> None:
         print(f"profile: port kernel {tag}: "
               f"{sum(v[0] for v in hits):.3f} ms in "
               f"{sum(v[1] for v in hits)} launches")
+    return busy, n_ops
 
 
 def step_vs_cpu(dev) -> None:
@@ -1031,6 +1000,347 @@ def step_vs_cpu(dev) -> None:
                            f"fp32 step: {failed}")
 
 
+def write_corpus(root: str, n: int, seed: int, seconds: float = 5.0,
+                 sr: int = 16000) -> str:
+    """n 16-bit WAV clips under root, half bonafide (tones) and half
+    spoof (noise), clip 3 a quarter second short (a zero-padded tail),
+    and their ASVspoof-2019-LA protocol. -> the protocol's path."""
+    from wav2vec_contr_loss_torch.data.audio import write_wav
+
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n):
+        name = f"clip_{i:04d}.wav"
+        bona = i % 2 == 0
+        t = int(seconds * sr) - (sr // 4 if i == 3 else 0)
+        x = (0.4 * np.sin(2 * np.pi * (220 + 30 * (i % 4)) * np.arange(t)
+                          / sr) if bona else 0.2 * rng.standard_normal(t))
+        write_wav(os.path.join(root, name), x.astype(np.float32), sr)
+        label = "bonafide" if bona else "spoof"
+        attack = "-" if bona else f"A{(i % 3) + 1:02d}"
+        lines.append(f"x/{name} {attack} {label} - SPK{i % 4}")
+    path = os.path.join(root, "protocol.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def device_ops(fn):
+    """(device operations, their summed device ms) of one fn() call,
+    from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def rawboost_phase(dev) -> None:
+    """Device RawBoost (plain PyTorch, no Pallas kernel behind it) on the
+    card against the CPU on the same draws, at the train step's
+    (32, 80,000) with zero-padded tails; cuDNN's TF32 left at PyTorch's
+    default (on), which the module must turn off for its convolutions."""
+    from wav2vec_contr_loss_torch.data.rawboost import RawBoostParams
+    from wav2vec_contr_loss_torch.ops.rawboost import (rawboost_batch,
+                                                       rawboost_draws)
+
+    b, t = TRAIN_BATCH, SAMPLES
+    x_cpu = torch.from_numpy(train_batch(np.random.default_rng(6), b, t)[
+        "waveforms"])
+    x = x_cpu.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    draws = rawboost_draws(gen, b, t, RawBoostParams())
+    draws_cpu = draws.to("cpu")
+    out, prev_tf32 = {}, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for impl in ("direct", "fft"):
+            p = RawBoostParams(fir_impl=impl)
+            got = rawboost_batch(x, draws, 1.0, p)
+            t0 = time.perf_counter()
+            want = rawboost_batch(x_cpu, draws_cpu, 1.0, p)
+            cpu_s = time.perf_counter() - t0
+            err = ((got.cpu() - want).abs().max()
+                   / want.abs().max()).item()
+            print(f"rawboost {impl}: card vs CPU on the same draws, max "
+                  f"|d| / peak {err:.3e} (tolerance {RB_TOL[impl]}; CPU "
+                  f"{cpu_s:.1f} s)")
+            if not err <= RB_TOL[impl]:
+                raise RuntimeError(f"device RawBoost '{impl}' disagrees "
+                                   f"with the CPU")
+            if (got[x == 0.0] != 0.0).any():
+                raise RuntimeError("RawBoost wrote into a zero pad")
+            if not torch.equal(rawboost_batch(x, draws, 0.0, p), x):
+                raise RuntimeError("RawBoost at prob 0 is not the identity")
+            out[impl] = got
+        fd = ((out["fft"] - out["direct"]).abs().max()
+              / out["direct"].abs().max()).item()
+        print(f"rawboost: fft vs direct on the card, max |d| / peak "
+              f"{fd:.3e} (tolerance {RB_TOL['fft']}); pad mask kept, "
+              f"prob 0 the identity")
+        if not fd <= RB_TOL["fft"]:
+            raise RuntimeError("RawBoost 'fft' disagrees with 'direct'")
+
+        p = RawBoostParams(fir_impl="fft")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rawboost_batch(x, rawboost_draws(gen, b, t, p), 0.7, p)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print("rawboost: draws and batch ran under "
+              "torch.cuda.set_sync_debug_mode('error')")
+
+        # 6 filter passes reading and writing (B, T) fp32, the 4 (B, T)
+        # draws read, the batch read and written; 'direct' also does
+        # 6 B T CHAIN multiply-adds in fp32
+        nbytes = (2 * 6 + 4 + 2) * b * t * 4
+        for impl in ("direct", "fft"):
+            p = RawBoostParams(fir_impl=impl)
+            ms = device_ms(lambda: rawboost_batch(x, draws, 1.0, p), iters=5)
+            n_ops, _ = device_ops(lambda: rawboost_batch(x, draws, 1.0, p))
+            flops = 6 * b * t * 512 * 2 if impl == "direct" else 0
+            bound_ms, by = bound(nbytes, flops, FP32_FLOP_PER_S)
+            print(f"rawboost {impl} (32, 80000) fp32: device time {ms:.3f} "
+                  f"ms in {n_ops} device ops; bound {bound_ms:.4f} ms "
+                  f"({by}; bytes alone {1e3 * nbytes / HBM_BYTES_PER_S:.4f} "
+                  f"ms) [{CARD}]")
+        ms = device_ms(lambda: rawboost_draws(gen, b, t, p), iters=5)
+        n_ops, _ = device_ops(lambda: rawboost_draws(gen, b, t, p))
+        print(f"rawboost draws (32, 80000): device time {ms:.3f} ms in "
+              f"{n_ops} device ops [{CARD}]")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+
+
+def rawboost_step_phase(dev, off_profile) -> None:
+    """The XLS-R-300M finetune step at B = 32 with device RawBoost on (the
+    Stage1Config default, 'fft' and 'exact') against the train phase's
+    config with it off, in turns on one batch; the RawBoost step once
+    under torch.cuda.set_sync_debug_mode('error')."""
+    from wav2vec_contr_loss_torch import XLSR_300M, Stage1Config, Stage1Trainer
+
+    on = Stage1Trainer(Stage1Config(finetune_encoder=True), XLSR_300M,
+                       xlsr_weights(), device=dev)
+    off = Stage1Trainer(Stage1Config(finetune_encoder=True,
+                                     use_rawboost=False), XLSR_300M,
+                        xlsr_weights(), device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             train_batch(np.random.default_rng(2), TRAIN_BATCH).items()}
+    for tr in (on, off):
+        tr.train_step(batch, 1.0)["loss"].item()          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = on.train_step(batch, 1.0)["loss"]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"train step with device RawBoost ran under "
+          f"torch.cuda.set_sync_debug_mode('error'), loss {loss.item():.5f}")
+    times = {"on": [], "off": []}
+    for _ in range(6):
+        for name, tr in (("on", on), ("off", off)):
+            t0 = time.perf_counter()
+            loss = tr.train_step(batch, 1.0)["loss"].item()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            if not np.isfinite(loss):
+                raise RuntimeError(f"non-finite loss, RawBoost {name}")
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"train step B=32 x 5 s, RawBoost on (device, fft, exact) vs off, "
+          f"in turns: median of 6 {med['on']:.1f} vs {med['off']:.1f} ms "
+          f"(on {[round(x, 1) for x in times['on']]}, off "
+          f"{[round(x, 1) for x in times['off']]}) [{CARD}]")
+    busy, n_ops = profile_step(on, batch)
+    if n_ops is not None and off_profile[1] is not None:
+        print(f"train step device ops: {n_ops} with RawBoost, "
+              f"{off_profile[1]} without (+{n_ops - off_profile[1]}); device "
+              f"busy {busy:.1f} vs {off_profile[0]:.1f} ms [{CARD}]")
+
+
+class StepCountGuard:
+    """Requests a stop at the k-th poll; fit polls once a step."""
+
+    def __init__(self, k: int):
+        self.k, self.calls = k, 0
+
+    def requested(self, step=None):
+        self.calls += 1
+        return self.calls >= self.k
+
+
+def _differences(a, b, path="") -> list:
+    """Names of the leaves of two state trees that are not the same bits."""
+    if isinstance(a, torch.Tensor):
+        b = b.to(a.device)
+        return [] if a.dtype == b.dtype and torch.equal(a, b) else [path]
+    if isinstance(a, dict):
+        return [d for k in a for d in _differences(a[k], b[k],
+                                                   f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _differences(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def fit_phase(dev) -> dict:
+    """`fit` at XLS-R-300M width, B = 32 x 5 s, with device RawBoost, on a
+    synthetic ASVspoof-2019-style corpus written from a seed (64 train and
+    32 dev clips: 2 train steps and 1 dev batch an epoch), 2 epochs: once
+    through; once preempted at epoch 2, batch 1 and resumed from 'latest'
+    through from_checkpoint and resume_cursor. Deterministic algorithms
+    on; the resumed run must give the same bits."""
+    import shutil
+    import tempfile
+
+    from wav2vec_contr_loss_torch import XLSR_300M, Stage1Config, Stage1Trainer
+    from wav2vec_contr_loss_torch.data import (AudioConfig, BatchPipeline,
+                                               parse_asvspoof2019)
+    from wav2vec_contr_loss_torch.train import checkpoint as ckpt
+
+    cfg = XLSR_300M
+    scfg = Stage1Config(finetune_encoder=True, epochs=2)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        protos = {}
+        for part, n, seed in (("train", 64, 21), ("dev", 32, 22)):
+            os.makedirs(os.path.join(tmp, part))
+            protos[part] = write_corpus(os.path.join(tmp, part), n, seed)
+
+        def pipes():
+            ds = {k: parse_asvspoof2019(v, os.path.dirname(v),
+                                        audio=AudioConfig(16000, 5))
+                  for k, v in protos.items()}
+            return (BatchPipeline(ds["train"], scfg.batch_size,
+                                  seed=scfg.seed, num_workers=8),
+                    BatchPipeline(ds["dev"], scfg.batch_size,
+                                  seed=scfg.seed + 1, num_workers=8))
+
+        def log(tag):
+            return lambda msg: print(f"fit {tag}: {msg}")
+
+        torch.use_deterministic_algorithms(True)
+        a = Stage1Trainer(scfg, cfg, xlsr_weights(), device=dev)
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        hist_a = a.fit(*pipes(), log_fn=log("A (through)"))
+        fit_s = time.perf_counter() - t0
+        counts = _counters()
+        step = expected_train_launches(scfg, cfg)
+        evals = {"attention_fwd": cfg.num_layers, "attention_bwd": 0,
+                 "ln_gelu_fwd": len(cfg.conv_dim), "ln_gelu_bwd": 0,
+                 "supcon": 1}
+        want = {k: 4 * step[k] + 2 * evals[k] for k in step}
+        print(f"fit A: launches over 4 train steps and 2 dev batches "
+              f"{counts}, expected {want}")
+        if counts != want:
+            raise RuntimeError("fit launch counts differ from the config")
+        if not (np.isfinite(hist_a["train_loss"]).all()
+                and np.isfinite(hist_a["dev_loss"]).all()):
+            raise RuntimeError("non-finite fit losses")
+        a_state = ckpt.snapshot_for_save(a.state_dict())
+        a_step = a.step
+        del a
+        torch.cuda.empty_cache()
+
+        save = os.path.join(tmp, "ckpt")
+        b = Stage1Trainer(scfg, cfg, xlsr_weights(), device=dev)
+        hist_b = b.fit(*pipes(), save_dir=save,
+                       preemption=StepCountGuard(3), log_fn=log("B"))
+        m = ckpt.load_sidecar(save, "latest")["metrics"]
+        if not (hist_b.get("preempted") and m["preempted"]
+                and (m["epoch"], m["batches_done"]) == (2, 1)):
+            raise RuntimeError(f"preemption not saved at epoch 2, batch 1: "
+                               f"{m}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = ckpt.snapshot_for_save(b.state_dict())
+        snap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(save, "probe", None, host_state=snap)
+        save_s = time.perf_counter() - t0
+        nbytes = ckpt.checkpoint_bytes(save, "probe")
+        for suffix in (".pt", ".config.json"):
+            os.remove(os.path.join(save, "probe" + suffix))
+        del b, snap
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        c = Stage1Trainer.from_checkpoint(save, "latest", device=dev)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c.restore(save, "latest")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        start, skip = ckpt.resume_cursor(m)
+        hist_c = c.fit(*pipes(), save_dir=save, start_epoch=start,
+                       skip_steps=skip, best_dev=m["best_dev"],
+                       log_fn=log("C (resumed)"))
+        diff = _differences(a_state, c.state_dict())
+        print(f"fit: resumed vs through: step {c.step} vs {a_step}, epoch-2 "
+              f"dev loss {hist_c['dev_loss']} vs {hist_a['dev_loss'][1:]}, "
+              f"{len(diff)} state leaves differ {diff[:5]}")
+        if diff or c.step != a_step or hist_c["dev_loss"] != \
+                hist_a["dev_loss"][1:]:
+            raise RuntimeError("the resumed run is not bit-identical to the "
+                               "uninterrupted one")
+        print(f"fit: save of the full state {nbytes} bytes "
+              f"({nbytes / 2 ** 30:.2f} GiB): host snapshot {snap_s:.2f} s, "
+              f"file write {save_s:.2f} s; restore into a trainer "
+              f"{restore_s:.2f} s, rebuild by from_checkpoint "
+              f"{rebuild_s:.2f} s [{CARD}]")
+        print(f"fit: run A (2 epochs, 4 steps, 2 dev batches) {fit_s:.1f} s; "
+              f"train losses {hist_a['train_loss']}, dev losses "
+              f"{hist_a['dev_loss']}; phase {time.perf_counter() - t_phase:.1f}"
+              f" s [{CARD}]")
+        return {"fit_launches": counts}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def read_card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def fit_main() -> int:
+    """The fit phase alone, in a process of its own (`--fit`): it needs
+    CUBLAS_WORKSPACE_CONFIG set before CUDA starts, which the other
+    phases' timings should not carry."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    global CARD
+    CARD = read_card()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps({"fit": fit_phase(torch.device("cuda", 0))}))
+    return 0
+
+
+def run_fit_child() -> dict:
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--fit"], env=env, capture_output=True,
+                           text=True, timeout=700)
+    lines = child.stdout.splitlines()
+    print("\n".join(lines[:-1]))
+    if child.returncode != 0:
+        print(child.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError(f"the fit phase exited {child.returncode}")
+    return json.loads(lines[-1])["fit"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1038,12 +1348,8 @@ def main() -> int:
         return 1
     from wav2vec_contr_loss_torch.ops import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
     global CARD
-    CARD = smi.stdout.strip()
+    CARD = read_card()
     print(CARD)                        # card name, power limit
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
@@ -1067,9 +1373,19 @@ def main() -> int:
     serve_phase(dev, results)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    train_phase(dev, results)
+    off_profile = train_phase(dev, results)
     step_vs_cpu(dev)
     print(f"train phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rawboost_phase(dev)
+    rawboost_step_phase(dev, off_profile)
+    torch.cuda.empty_cache()
+    print(f"rawboost phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fit = run_fit_child()
+    for name, n in fit["fit_launches"].items():
+        results[name]["fit_launches"] = n
+    print(f"fit phase (own process): {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -1079,4 +1395,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(fit_main() if sys.argv[1:] == ["--fit"] else main())

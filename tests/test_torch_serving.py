@@ -110,8 +110,14 @@ def test_port_imports_no_jax():
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'wav2vec_contr_loss_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 22   # every submodule was walked
+    walked = set(out.stdout.split())
+    assert len(walked) >= 36   # every submodule was walked
+    # the stage-1 pipeline, device RawBoost, checkpoints and the CLI
+    assert {f"wav2vec_contr_loss_torch.{m}" for m in (
+        "data.audio", "data.pipeline", "data.protocols", "data.rawboost",
+        "data.sampler", "ops.rawboost", "train.checkpoint",
+        "utils.preemption", "cli.common", "cli.train_stage1")} <= walked

@@ -181,11 +181,22 @@ def test_freeze_feature_extractor_keeps_conv_params():
 def test_trainer_refuses_what_it_does_not_run():
     w = _weights(JaxTrainer(JaxStage1Config(**KW), enc_config=TINY)
                  .init_state(jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Stage1Trainer(Stage1Config(**{**KW, "use_rawboost": True}),
-                      port_config(TINY), w, device="cpu")
+    # device RawBoost is ported: the JAX default builds
+    Stage1Trainer(Stage1Config(**{**KW, "use_rawboost": True}),
+                  port_config(TINY), w, device="cpu")
     with pytest.raises(ValueError, match="grad_dtype"):
         Stage1Trainer(Stage1Config(**{**KW, "grad_dtype": "bfloat16"}),
+                      port_config(TINY), w, device="cpu")
+    # fp32 weight gradients under bf16 compute: not computed, refused
+    with pytest.raises(ValueError, match="grad_dtype='float32'"):
+        Stage1Trainer(Stage1Config(**{**KW, "compute_dtype": "bfloat16"}),
+                      port_config(TINY), w, device="cpu")
+    for gd in ("auto", "bfloat16"):
+        Stage1Trainer(Stage1Config(**{**KW, "compute_dtype": "bfloat16",
+                                      "grad_dtype": gd}),
+                      port_config(TINY), w, device="cpu")
+    with pytest.raises(ValueError, match="rawboost_mode"):
+        Stage1Trainer(Stage1Config(**{**KW, "rawboost_mode": "gpu"}),
                       port_config(TINY), w, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

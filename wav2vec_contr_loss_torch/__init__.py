@@ -1,8 +1,11 @@
 """PyTorch / CUDA port of wav2vec_contr_loss_tpu for an NVIDIA H100.
 
-It serves (`SpoofScorer`) and takes stage-1 SupCon finetune steps
-(`Stage1Trainer`). It imports torch and numpy (and triton, inside the
-Triton kernels' launch functions), never JAX or the JAX package. Entry points run on the GPU
+It serves (`SpoofScorer`) and runs the stage-1 SupCon recipe
+(`Stage1Trainer`: the train step with device RawBoost, `fit` with
+checkpoints and resume, fed by the host data pipeline in `data/`; the
+CLI `python -m wav2vec_contr_loss_torch.cli.train_stage1`). It imports
+torch, numpy and scipy (and triton, inside the Triton kernels' launch
+functions), never JAX or the JAX package. Entry points run on the GPU
 unless the caller passes device="cpu"; on CPU tensors every kernel
 wrapper takes its plain PyTorch version.
 """

@@ -16,6 +16,7 @@ JAX:
     the materialized kernel; the port has no weight norm).
 
 Compression `proj` and the stage-2 head Dense layers map the same way.
+`random_jax_trees` makes seeded random trees in that layout.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from .config import Wav2Vec2Config
 
-__all__ = ["jax_params_to_torch"]
+__all__ = ["jax_params_to_torch", "random_jax_trees"]
 
 Tree = Mapping[str, object]
 
@@ -104,6 +105,74 @@ def encoder_state_dict(cfg: Wav2Vec2Config, p: Tree) -> Dict[str, torch.Tensor]:
         _norm(sd, f"{pre}.layer_norm", li["layer_norm"])
         _norm(sd, f"{pre}.final_layer_norm", li["final_layer_norm"])
     return sd
+
+
+def random_jax_trees(cfg: Wav2Vec2Config, comp_dim: int = 256,
+                     head_type: str = "linear", head_hidden: int = 128,
+                     seed: int = 0):
+    """Seeded numpy (encoder, compression, head) trees in the JAX
+    package's layout: flax names, Dense kernels (in, out), conv kernels
+    (k, in/groups, out), transformer leaves stacked on a leading layer
+    axis. Kernels have std 1/sqrt(fan_in) (flax's lecun scale); the head
+    has unit scale so logits are O(1). A random init for the CLI and the
+    smoke run, without JAX."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(std))
+
+    def dense(n_in, n_out, lead=(), std=None):
+        return {"kernel": normal(lead + (n_in, n_out),
+                                 std or n_in ** -0.5),
+                "bias": normal(lead + (n_out,), 0.02)}
+
+    def norm(n, lead=()):
+        return {"scale": 1.0 + normal(lead + (n,), 0.02),
+                "bias": normal(lead + (n,), 0.02)}
+
+    fe = {}
+    cin = 1
+    for i, (dim, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
+        fe[f"conv{i}"] = {"kernel": normal((k, cin, dim), (k * cin) ** -0.5)}
+        if cfg.conv_bias:
+            fe[f"conv{i}"]["bias"] = normal((dim,), 0.02)
+        if cfg.feat_extract_norm == "layer":
+            fe[f"norm{i}"] = {"LayerNorm_0": norm(dim)}
+        cin = dim
+    if cfg.feat_extract_norm == "group":
+        fe["group_norm"] = norm(cfg.conv_dim[0])
+
+    d, L = cfg.hidden_size, (cfg.num_layers,)
+    k, g = cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups
+    enc = {
+        "feature_extractor": fe,
+        "feature_projection": {"layer_norm": norm(cfg.conv_dim[-1]),
+                               "projection": dense(cfg.conv_dim[-1], d)},
+        "pos_conv_embed": {"conv": {
+            "kernel": normal((k, d // g, d), (k * d // g) ** -0.5),
+            "bias": normal((d,), 0.02)}},
+        "encoder_layer_norm": norm(d),
+        "layers": {"layer": {
+            "attention": {n: dense(d, d, L) for n in
+                          ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "feed_forward": {
+                "intermediate_dense": dense(d, cfg.intermediate_size, L),
+                "output_dense": dense(cfg.intermediate_size, d, L)},
+            "layer_norm": norm(d, L),
+            "final_layer_norm": norm(d, L),
+        }},
+    }
+    if cfg.apply_spec_augment:
+        enc["masked_spec_embed"] = rng.uniform(
+            0, 1, (d,)).astype(np.float32)
+    comp = {"proj": dense(d, comp_dim)}
+    if head_type == "linear":
+        head = {"fc": dense(comp_dim, 1, std=1.0)}
+    else:
+        head = {"fc1": dense(comp_dim, head_hidden),
+                "fc2": dense(head_hidden, 1, std=1.0)}
+    return enc, comp, head
 
 
 def jax_params_to_torch(cfg: Wav2Vec2Config, enc_params: Tree,

@@ -1,0 +1,84 @@
+"""Shared CLI plumbing: path flags, encoder bootstrapping, dataset
+builders. The port's copy of the parts of wav2vec_contr_loss_tpu/cli/
+common.py that stage-1 training needs."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Dict, Tuple
+
+import torch
+
+from ..config import (LARGE_960H, XLSR_300M, Wav2Vec2Config,
+                      config_from_dict, run_tag)
+from ..data import AudioConfig, parse_asvspoof2019
+
+__all__ = ["TINY_TEST", "KNOWN_ARCHS", "add_asv_paths", "add_encoder_args",
+           "load_encoder_init", "save_dir_for", "asv_dataset"]
+
+# tiny architecture for smoke tests (random init only)
+TINY_TEST = Wav2Vec2Config(
+    hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+    conv_dim=(16, 16, 16, 16, 16), conv_kernel=(10, 3, 3, 3, 3),
+    conv_stride=(5, 2, 2, 2, 2), num_conv_pos_embeddings=16,
+    num_conv_pos_embedding_groups=4, dtype="float32",
+    apply_spec_augment=False,
+)
+
+KNOWN_ARCHS = {
+    "facebook/wav2vec2-xls-r-300m": XLSR_300M,
+    "facebook/wav2vec2-large-960h": LARGE_960H,
+    "test/tiny-wav2vec2": TINY_TEST,
+}
+
+
+def add_asv_paths(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--train_root", type=str, default="")
+    p.add_argument("--train_protocol", type=str, default="")
+    p.add_argument("--dev_root", type=str, default="")
+    p.add_argument("--dev_protocol", type=str, default="")
+
+
+def add_encoder_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--model_name", type=str, default="facebook/wav2vec2-xls-r-300m",
+        help="the encoder architecture (an HF id of KNOWN_ARCHS)")
+    p.add_argument(
+        "--encoder_init", type=str, default="pretrained",
+        help="'random' = seeded random weights; a path = the encoder of a "
+             "port stage-1 checkpoint (<dir>/<name>.pt beside its "
+             "<name>.config.json); 'pretrained' is refused: the port "
+             "downloads nothing")
+
+
+def load_encoder_init(encoder_init: str, model_name: str
+                      ) -> Tuple[Wav2Vec2Config, Dict[str, torch.Tensor]]:
+    """-> (architecture, encoder state dict or {} for a random init)."""
+    if encoder_init == "pretrained":
+        raise ValueError(
+            "--encoder_init pretrained needs the HuggingFace checkpoint, "
+            "and the port neither downloads nor converts one; pass "
+            "--encoder_init random, or the .pt of a port stage-1 "
+            "checkpoint")
+    if encoder_init == "random":
+        return KNOWN_ARCHS.get(model_name, XLSR_300M), {}
+    base = encoder_init[:-3] if encoder_init.endswith(".pt") else encoder_init
+    with open(base + ".config.json") as f:
+        enc_config = config_from_dict(json.load(f)["extra"]["enc_config"])
+    state = torch.load(base + ".pt", map_location="cpu", weights_only=True)
+    return enc_config, state["encoder"]
+
+
+def save_dir_for(base: str, model_name: str) -> str:
+    """<save_dir>/<run_tag> subdirectory convention."""
+    return os.path.join(base, run_tag(model_name))
+
+
+def asv_dataset(root: str, protocol: str, num_samples=None, subset="all",
+                seconds: int = 5, sr: int = 16000):
+    return parse_asvspoof2019(
+        protocol, root, subset=subset, num_samples=num_samples,
+        audio=AudioConfig(sr, seconds),
+    )

@@ -1,0 +1,157 @@
+"""Stage-1 SupCon training CLI of the port.
+
+    python -m wav2vec_contr_loss_torch.cli.train_stage1 \\
+        --train_root DIR --train_protocol FILE [--dev_root DIR \\
+        --dev_protocol FILE] --encoder_init random [--device cpu]
+
+The JAX CLI's (wav2vec_contr_loss_tpu/cli/train_stage1.py) flags for the
+config, the data, `--resume` and `--num_workers`, plus `--device` and
+`--compute_dtype`. SIGTERM saves the full state mid-epoch and exits 75
+(EX_TEMPFAIL); rerunning with `--resume` continues past the saved batch
+cursor. The encoder starts from seeded random weights or from a port
+checkpoint; nothing is downloaded.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from ..bridge import jax_params_to_torch, random_jax_trees
+from ..config import Stage1Config
+from ..data import BatchPipeline
+from ..train import Stage1Trainer
+from ..train.checkpoint import checkpoint_exists, resume_cursor
+from ..utils.preemption import PreemptionGuard
+from .common import (add_asv_paths, add_encoder_args, asv_dataset,
+                     load_encoder_init, save_dir_for)
+
+# config fields taken as they are, and those given as 0/1
+_VALUE_FIELDS = ("supcon_similarity", "temperature", "uniformity_weight",
+                 "uniformity_t", "epochs", "batch_size", "head_lr", "enc_lr",
+                 "weight_decay", "seed", "topk_neg", "warmup_epochs",
+                 "alpha_end", "alpha_ramp_epochs", "rawboost_prob",
+                 "rawboost_mode", "rawboost_fir_impl", "rawboost_isd_mode",
+                 "max_duration_seconds", "hidden_dim", "input_dim",
+                 "wire_dtype", "grad_dtype", "compute_dtype")
+_FLAG_FIELDS = ("use_rawboost", "finetune_encoder", "remat_encoder",
+                "freeze_feature_extractor")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_encoder_args(p)
+    add_asv_paths(p)
+    p.add_argument("--save_dir", type=str, default="checkpoints_stage1/run")
+    p.add_argument("--supcon_similarity", type=str, default=None,
+                   choices=["cosine", "geodesic"])
+    for f in ("temperature", "uniformity_weight", "uniformity_t", "head_lr",
+              "enc_lr", "weight_decay", "alpha_end", "rawboost_prob"):
+        p.add_argument(f"--{f}", type=float, default=None)
+    for f in ("epochs", "batch_size", "seed", "topk_neg", "warmup_epochs",
+              "alpha_ramp_epochs", "max_duration_seconds", "hidden_dim",
+              "input_dim"):
+        p.add_argument(f"--{f}", type=int, default=None)
+    p.add_argument("--num_samples", type=str, default=None)
+    for f in _FLAG_FIELDS:
+        p.add_argument(f"--{f}", type=int, default=None, choices=[0, 1])
+    p.add_argument("--rawboost_mode", type=str, default=None,
+                   choices=["device", "host", "off"])
+    p.add_argument("--rawboost_fir_impl", type=str, default=None,
+                   choices=["direct", "fft"])
+    p.add_argument("--rawboost_isd_mode", type=str, default=None,
+                   choices=["exact", "bernoulli"])
+    p.add_argument("--wire_dtype", type=str, default=None,
+                   choices=["float32", "int16"])
+    p.add_argument("--grad_dtype", type=str, default=None,
+                   choices=["auto", "float32", "bfloat16"])
+    p.add_argument("--compute_dtype", type=str, default=None,
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default) or 'cpu'")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the 'latest' checkpoint in save_dir "
+                        "(full train state incl. optimizer and generator)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of train steps 2-5 "
+                        "into this directory")
+    return p
+
+
+def config_from_args(args) -> Stage1Config:
+    overrides = {f: getattr(args, f) for f in _VALUE_FIELDS
+                 if getattr(args, f) is not None}
+    overrides.update({f: bool(getattr(args, f)) for f in _FLAG_FIELDS
+                      if getattr(args, f) is not None})
+    if args.num_samples is not None:
+        ns = args.num_samples.strip().lower()
+        # the reference accepts the literal string "None"
+        overrides["num_samples"] = None if ns in ("none", "null") else int(ns)
+    overrides["model_name"] = args.model_name
+    return Stage1Config().replace(**overrides)
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    save_dir = save_dir_for(args.save_dir, cfg.model_name)
+    enc_config, encoder = load_encoder_init(args.encoder_init,
+                                            cfg.model_name)
+    if args.input_dim is None and cfg.input_dim != enc_config.hidden_size:
+        # the compression input follows the encoder width
+        cfg = cfg.replace(input_dim=enc_config.hidden_size)
+    print("=== CONFIG ===")
+    for k, v in dataclasses.asdict(cfg).items():
+        print(f"{k.upper()}={v}")
+
+    weights = jax_params_to_torch(enc_config, *random_jax_trees(
+        enc_config, comp_dim=cfg.hidden_dim, seed=cfg.seed))
+    if encoder:
+        weights["encoder"] = encoder
+    trainer = Stage1Trainer(cfg, enc_config, weights, device=args.device)
+    start_epoch, skip_steps, best_dev = 1, 0, float("inf")
+    if args.resume:
+        if checkpoint_exists(save_dir, "latest"):
+            m = trainer.restore(save_dir, "latest")["metrics"]
+            best_dev = float(m.get("best_dev", float("inf")))
+            start_epoch, skip_steps = resume_cursor(m)
+            print(f"[RESUME] continuing from epoch {start_epoch}"
+                  + (f" batch {skip_steps}" if skip_steps else ""))
+        else:
+            print("[RESUME] no 'latest' checkpoint found; starting fresh")
+
+    rawboost = (cfg.rawboost_params()
+                if cfg.use_rawboost and cfg.rawboost_mode == "host" else None)
+    train_ds = asv_dataset(args.train_root, args.train_protocol,
+                           cfg.num_samples, seconds=cfg.max_duration_seconds,
+                           sr=cfg.target_sample_rate)
+    train_pipe = BatchPipeline(
+        train_ds, cfg.batch_size, seed=cfg.seed, num_workers=args.num_workers,
+        rawboost=rawboost, rawboost_prob=cfg.rawboost_prob)
+    dev_pipe = None
+    if args.dev_protocol:
+        dev_ds = asv_dataset(args.dev_root, args.dev_protocol,
+                             cfg.num_samples, seconds=cfg.max_duration_seconds,
+                             sr=cfg.target_sample_rate)
+        # the dev sampler is seeded seed + 1, as the reference's
+        dev_pipe = BatchPipeline(dev_ds, cfg.batch_size, seed=cfg.seed + 1,
+                                 num_workers=args.num_workers)
+
+    # SIGTERM (a scheduler's preemption) saves mid-epoch instead of losing
+    # the run since the last epoch boundary
+    with PreemptionGuard() as guard:
+        history = trainer.fit(train_pipe, dev_pipe, save_dir=save_dir,
+                              start_epoch=start_epoch, skip_steps=skip_steps,
+                              best_dev=best_dev, preemption=guard,
+                              profile_dir=args.profile_dir)
+    if history.get("preempted"):
+        print(f"==> Stage-1 training PREEMPTED; state saved in {save_dir} "
+              f"(rerun with --resume)")
+        # EX_TEMPFAIL: callers must not go on as if training had finished
+        raise SystemExit(75)
+    print(f"==> Stage-1 training complete. Checkpoints in {save_dir}")
+
+
+if __name__ == "__main__":
+    main()

@@ -14,13 +14,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 __all__ = ["Wav2Vec2Config", "Stage1Config", "Stage2Config", "SupConConfig",
            "XLSR_300M", "LARGE_960H", "feature_frame_length",
-           "config_from_dict"]
+           "config_from_dict", "run_tag"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -72,10 +72,18 @@ class Stage2Config:
     dropout: float = 0.2
 
 
+def run_tag(model_name: str) -> str:
+    """HF model id -> filesystem-safe run tag."""
+    return model_name.replace("/", "__")
+
+
 @dataclass(frozen=True)
 class Stage1Config:
     """Stage-1 SupCon finetuning: the fields of the JAX package's
-    `Stage1Config` that change values.
+    `Stage1Config` that change values. The train step reads the model,
+    loss, optimizer and RawBoost fields; `fit`, the data pipeline and the
+    CLI read the clip length, `epochs`, `batch_size`, `num_samples`, the
+    alpha ramp and `wire_dtype`; checkpoints record `model_name`.
 
     Left out, because they only pick an XLA path or a TPU schedule:
     `attention_impl`, `conv_ln_impl`, `supcon_impl` (the port always runs
@@ -83,21 +91,18 @@ class Stage1Config:
     `softmax_dtype` (the attention kernels keep fp32 scores),
     `dropout_impl` (always the murmur hashes), `scan_unroll`,
     `attention_layout`, `remat_policy`, `fused_qkv`, `layer_mean_dtype`,
-    `param_sharding`, `pipeline_microbatches` and `sequence_parallel`.
-    Also left out: `epochs`, `num_samples` and `model_name`, which only
-    `fit` and checkpoints read. Kept for the next slice, which reads them
-    (`fit`, the data pipeline, device RawBoost), and unread by the train
-    step: the clip length, `batch_size`, the alpha ramp, `wire_dtype`
-    and the RawBoost fields other than `use_rawboost` and
-    `rawboost_mode`."""
+    `param_sharding`, `pipeline_microbatches` and `sequence_parallel`."""
 
+    model_name: str = "facebook/wav2vec2-xls-r-300m"
     target_sample_rate: int = 16000
     max_duration_seconds: int = 5
     input_dim: int = 1024
     hidden_dim: int = 256
     dropout: float = 0.1
 
+    epochs: int = 100
     batch_size: int = 32
+    num_samples: Optional[int] = None
     head_lr: float = 5e-3
     enc_lr: float = 1e-5
     weight_decay: float = 3e-3
@@ -131,6 +136,41 @@ class Stage1Config:
 
     def replace(self, **kw) -> "Stage1Config":
         return dataclasses.replace(self, **kw)
+
+    def ckpt_config(self) -> Dict:
+        """The reference's UPPERCASE reload dict, as the JAX package
+        writes it into checkpoint sidecars."""
+        return {
+            "MODEL_NAME": self.model_name,
+            "RUN_TAG": run_tag(self.model_name),
+            "INPUT_DIM": self.input_dim,
+            "HIDDEN_DIM": self.hidden_dim,
+            "DROPOUT": self.dropout,
+            "BATCH_SIZE": self.batch_size,
+            "HEAD_LR": self.head_lr,
+            "ENC_LR": self.enc_lr,
+            "WEIGHT_DECAY": self.weight_decay,
+            "TEMPERATURE": self.temperature,
+            "TOPK_NEG": self.topk_neg,
+            "WARMUP_EPOCHS": self.warmup_epochs,
+            "ALPHA_END": self.alpha_end,
+            "ALPHA_RAMP_EPOCHS": self.alpha_ramp_epochs,
+            "USE_RAWBOOST": self.use_rawboost,
+            "RAWBOOST_PROB": self.rawboost_prob,
+            "UNIFORMITY_WEIGHT": self.uniformity_weight,
+            "UNIFORMITY_T": self.uniformity_t,
+            "SUPCON_SIMILARITY": self.supcon_similarity,
+            "FINETUNE_ENCODER": self.finetune_encoder,
+        }
+
+    def rawboost_params(self):
+        """The RawBoostParams of this config (host and device forms)."""
+        from .data.rawboost import RawBoostParams
+
+        return RawBoostParams(
+            sample_rate=self.target_sample_rate, prob=self.rawboost_prob,
+            fir_impl=self.rawboost_fir_impl,
+            isd_mode=self.rawboost_isd_mode)
 
 
 @dataclass(frozen=True)

@@ -388,7 +388,9 @@ class Wav2Vec2Encoder(nn.Module):
 
         hidden = self.feature_projection(features, glob)
         if spans is not None:
-            eps, u = (a.to(features.device) for a in spans)
+            # non-blocking: a train step makes no host-device sync
+            eps, u = (a.to(features.device, non_blocking=True)
+                      for a in spans)
             span = time_mask_spans(lengths, t_frames, cfg, eps, u) & frame_mask
             hidden = torch.where(span[:, :, None],
                                  self.masked_spec_embed.to(hidden.dtype),

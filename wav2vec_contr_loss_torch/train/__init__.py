@@ -1,5 +1,5 @@
-"""Stage-1 training: the SupCon finetune step, its optimizer and the
-alpha schedule."""
+"""Stage-1 training: the SupCon finetune step and epoch loop, its
+optimizer, the alpha schedule and checkpoints."""
 
 from .optim import build_optimizer, resolve_grad_bf16
 from .schedule import alpha_for_epoch

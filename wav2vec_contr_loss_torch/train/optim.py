@@ -33,7 +33,9 @@ def resolve_grad_bf16(cfg) -> bool:
     bf16 weight gradients exactly when compute_dtype is 'bfloat16'. Under
     bf16 compute the port's transformer weight gradients come out of bf16
     matrix products, which is what this asks for; the optimizer takes
-    them into fp32 math either way."""
+    them into fp32 math either way. The trainer refuses the two settings
+    the port does not compute: 'bfloat16' with fp32 compute, and
+    'float32' with bf16 compute (the JAX trainer's fp32 dW there)."""
     gd = getattr(cfg, "grad_dtype", "auto")
     if gd not in ("auto", "float32", "bfloat16"):
         raise ValueError(f"grad_dtype must be 'auto', 'float32' or "
@@ -97,6 +99,36 @@ class GroupedAdamW:
     def step(self) -> None:
         for grp in self.groups.values():
             grp.step()
+
+    def state_dict(self) -> Dict[str, Dict]:
+        """Each group's stored moments (in their storage dtype) and step
+        count; the tensors are the live buffers, not copies."""
+        return {name: {"mu": list(grp.mu), "nu": list(grp.nu),
+                       "count": grp.count}
+                for name, grp in self.groups.items()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Dict]) -> None:
+        if set(state) != set(self.groups):
+            raise ValueError(f"optimizer groups {sorted(state)} do not "
+                             f"match {sorted(self.groups)}")
+        pairs = []   # every check before the first copy
+        for name, grp in self.groups.items():
+            s = state[name]
+            if len(s["mu"]) != len(grp.mu) or len(s["nu"]) != len(grp.nu):
+                raise ValueError(f"group {name!r}: {len(s['mu'])} moments "
+                                 f"for {len(grp.mu)} parameters")
+            for dst, src in zip(grp.mu + grp.nu, list(s["mu"]) + list(s["nu"])):
+                if src.shape != dst.shape or src.dtype != dst.dtype:
+                    raise ValueError(
+                        f"group {name!r}: a stored moment of {src.dtype} "
+                        f"{tuple(src.shape)} for {dst.dtype} "
+                        f"{tuple(dst.shape)} (another adam_*_dtype?)")
+                pairs.append((dst, src))
+        for dst, src in pairs:
+            dst.copy_(src)
+        for name, grp in self.groups.items():
+            grp.count = int(state[name]["count"])
 
 
 def build_optimizer(cfg, head: List[torch.nn.Parameter],

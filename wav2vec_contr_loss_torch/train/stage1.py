@@ -1,41 +1,76 @@
-"""Stage-1 training step: SupCon finetuning of the encoder.
+"""Stage-1 training: SupCon finetuning of the encoder.
 
 The port of `Stage1Trainer` of wav2vec_contr_loss_tpu/train/stage1.py:
-`train_step` (:355-404), `eval_step` (:406-410) and `embed_step`, whose
-shared body is `_embed` (:296-320). One step runs, on one device:
+`train_step` (:355-404), `eval_step` (:406-410), `embed_step` with their
+shared `_embed` (:296-320), the epoch loop `fit` (:453-616) and the
+checkpoint reload `restore` / `from_checkpoint` (:727-768). One step
+runs, on one device:
 
-  waveforms -> Wav2Vec2 encoder (train mode: dropout, SpecAugment; its
-  LayerNorm+GELU and attention kernels forward and backward) ->
-  compression (dropout) -> time-mean + L2 -> fused SupCon kernel (loss,
-  dL/dz, dL/dalpha) -> backward -> grouped AdamW (train/optim.py).
+  waveforms -> device RawBoost (ops/rawboost.py, when
+  rawboost_mode='device') -> Wav2Vec2 encoder (train mode: dropout,
+  SpecAugment; its LayerNorm+GELU and attention kernels forward and
+  backward) -> compression (dropout) -> time-mean + L2 -> fused SupCon
+  kernel (loss, dL/dz, dL/dalpha) -> backward -> grouped AdamW
+  (train/optim.py).
 
 With `finetune_encoder=False` the encoder runs in eval mode without
 gradients, outside the differentiated part, as the JAX step hoists it.
-Every random number (dropout seeds, SpecAugment uniforms) comes from one
-CPU `torch.Generator` seeded with `cfg.seed`, so a CPU run and a GPU run
-of the same config draw the same seeds.
+Every random number (dropout seeds, SpecAugment uniforms, each step's
+RawBoost seed) comes from one CPU `torch.Generator` seeded with
+`cfg.seed`; RawBoost's own numbers are drawn on the trainer's device from
+a generator seeded with that step's seed. The trainer holds its state
+(parameters, optimizer, step, generator) and `state_dict` /
+`load_state_dict` move all of it, so a resumed run continues bit for bit.
 
-Not ported yet: device RawBoost (`use_rawboost=True` with
-`rawboost_mode='device'` raises), `fit`, checkpoints, the data pipeline,
-the multiclass loss mode and `from_features`.
+Not ported: the multiclass loss mode, `from_features` with
+`fit_from_features`, and `embed_dataset`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import dataclasses
+import os
+import time
+from typing import Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 
-from ..config import Stage1Config, SupConConfig, Wav2Vec2Config
+from ..config import (Stage1Config, SupConConfig, Wav2Vec2Config,
+                      config_from_dict)
+from ..data.pipeline import Batch, BatchPipeline, prefetch_to_device
 from ..device import resolve_device
 from ..models.compression import CompressionModule, clip_embedding
 from ..models.wav2vec2 import Wav2Vec2Encoder
+from ..ops.rawboost import rawboost_batch, rawboost_draws
 from ..ops.supcon import supcon_binary_loss_fused
-from ..ops.wire import dequantize_wire
+from ..ops.wire import dequantize_wire, quantize_wire
+from . import checkpoint as ckpt
 from .optim import build_optimizer, resolve_grad_bf16
+from .schedule import alpha_for_epoch
 
 __all__ = ["Stage1Trainer"]
+
+
+def _check(cfg: Stage1Config) -> None:
+    """Refuse the settings the port does not compute."""
+    if resolve_grad_bf16(cfg) and cfg.compute_dtype != "bfloat16":
+        raise ValueError(
+            "grad_dtype='bfloat16' requires compute_dtype='bfloat16' "
+            "(with fp32 compute, bf16 weight gradients would change "
+            "what the step computes)")
+    if cfg.grad_dtype == "float32" and cfg.compute_dtype == "bfloat16":
+        raise ValueError(
+            "grad_dtype='float32' with compute_dtype='bfloat16' is not "
+            "ported: the port's bf16 linears give bf16-rounded weight "
+            "gradients, where the JAX trainer differentiates its fp32 "
+            "kernels. Pass grad_dtype='auto' or compute_dtype='float32'.")
+    if cfg.rawboost_mode not in ("device", "host", "off"):
+        raise ValueError(f"rawboost_mode must be 'device', 'host' or "
+                         f"'off'; got {cfg.rawboost_mode!r}")
+    if cfg.wire_dtype not in ("float32", "int16"):
+        raise ValueError(f"wire_dtype must be 'float32' or 'int16'; got "
+                         f"{cfg.wire_dtype!r}")
 
 
 class Stage1Trainer:
@@ -46,16 +81,7 @@ class Stage1Trainer:
     def __init__(self, cfg: Stage1Config, enc_config: Wav2Vec2Config,
                  weights: Mapping[str, Mapping[str, torch.Tensor]],
                  device="cuda"):
-        if cfg.use_rawboost and cfg.rawboost_mode == "device":
-            raise NotImplementedError(
-                "device RawBoost (rawboost_mode='device') is not ported "
-                "yet: it comes with the next slice of the port, with `fit` "
-                "and checkpoints. Pass use_rawboost=False.")
-        if resolve_grad_bf16(cfg) and cfg.compute_dtype != "bfloat16":
-            raise ValueError(
-                "grad_dtype='bfloat16' requires compute_dtype='bfloat16' "
-                "(with fp32 compute, bf16 weight gradients would change "
-                "what the step computes)")
+        _check(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.enc_config = enc_config.with_(dtype=cfg.compute_dtype)
@@ -88,12 +114,19 @@ class Stage1Trainer:
             temperature=cfg.temperature, similarity=cfg.supcon_similarity,
             topk_neg=cfg.topk_neg, uniformity_weight=cfg.uniformity_weight,
             uniformity_t=cfg.uniformity_t)
+        self.rawboost_params = cfg.rawboost_params()
         self.gen = torch.Generator().manual_seed(cfg.seed)
+        # RawBoost's numbers, drawn on the device; reseeded every step
+        self._rawboost_gen = (
+            torch.Generator(device=self.device)
+            if cfg.use_rawboost and cfg.rawboost_mode == "device" else None)
+        self.step = 0
 
     # ------------------------------------------------------------ helpers
     def _batch(self, batch: Mapping) -> Dict[str, torch.Tensor]:
-        """Host or device arrays -> tensors on the trainer's device; int16
-        wire waveforms are dequantized there (dewire)."""
+        """Host or device arrays -> tensors on the trainer's device (a
+        non-blocking copy from pinned host memory); int16 wire waveforms
+        are dequantized there (dewire)."""
         out = {}
         for key in ("waveforms", "labels"):
             if key in batch:
@@ -103,6 +136,16 @@ class Stage1Trainer:
                 out[key] = x.to(self.device, non_blocking=True)
         out["waveforms"] = dequantize_wire(out["waveforms"])
         return out
+
+    def _rawboost(self, waves: torch.Tensor) -> torch.Tensor:
+        """In-step device RawBoost: a seed from the trainer's generator
+        seeds the device generator, which draws the batch's numbers."""
+        seed = int(torch.randint(0, 2 ** 62, (), generator=self.gen))
+        self._rawboost_gen.manual_seed(seed)
+        draws = rawboost_draws(self._rawboost_gen, *waves.shape,
+                               self.rawboost_params)
+        return rawboost_batch(waves, draws, self.cfg.rawboost_prob,
+                              self.rawboost_params)
 
     def _embed(self, waves: torch.Tensor, train: bool) -> torch.Tensor:
         """waveforms -> (B, D) L2-normalized clip embeddings. The encoder
@@ -123,17 +166,22 @@ class Stage1Trainer:
         int16 wire, 'labels': (B,) ints}) at mining weight `alpha`.
         -> {'loss': scalar tensor on the device} (no host sync)."""
         b = self._batch(batch)
-        z = self._embed(b["waveforms"], train=True)
+        waves = b["waveforms"]
+        if self._rawboost_gen is not None:
+            waves = self._rawboost(waves)
+        z = self._embed(waves, train=True)
         loss = supcon_binary_loss_fused(z, b["labels"], alpha,
                                         self.supcon_cfg)
         self.optimizer.zero_grad()
         loss.backward()
         self.optimizer.step()
+        self.step += 1
         return {"loss": loss.detach()}
 
     @torch.no_grad()
     def eval_step(self, batch: Mapping) -> torch.Tensor:
-        """Dev loss: eval mode, alpha = 0 (as the JAX eval step)."""
+        """Dev loss: eval mode, no RawBoost, alpha = 0 (as the JAX eval
+        step)."""
         b = self._batch(batch)
         z = self._embed(b["waveforms"], train=False)
         return supcon_binary_loss_fused(z, b["labels"], 0.0, self.supcon_cfg)
@@ -142,3 +190,201 @@ class Stage1Trainer:
     def embed_step(self, batch: Mapping) -> torch.Tensor:
         """(B, D) clip embeddings in eval mode."""
         return self._embed(self._batch(batch)["waveforms"], train=False)
+
+    # -------------------------------------------------------------- state
+    def state_dict(self) -> Dict:
+        """The full train state; its tensors are the live ones."""
+        return {"encoder": self.encoder.state_dict(),
+                "compression": self.compression.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "gen": self.gen.get_state()}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])   # checks first
+        self.encoder.load_state_dict(state["encoder"], strict=True)
+        self.compression.load_state_dict(state["compression"], strict=True)
+        self.step = int(state["step"])
+        self.gen.set_state(state["gen"])
+
+    # --------------------------------------------------------------- data
+    def _device_batches(self, batches: Iterator[Batch]) -> Iterator[Dict]:
+        """Prefetch two batches ahead: the producer thread decodes and, on
+        the card, pins the host arrays; `train_step` copies them with
+        non_blocking=True from this thread, on the stream it computes on."""
+        wire16 = self.cfg.wire_dtype == "int16"
+        pin = self.device.type == "cuda"
+
+        def put(b: Batch) -> Dict[str, torch.Tensor]:
+            out = {"waveforms": torch.from_numpy(
+                       quantize_wire(b.waveforms) if wire16 else b.waveforms),
+                   "labels": torch.from_numpy(b.labels.astype(np.int64))}
+            return {k: v.pin_memory() for k, v in out.items()} if pin else out
+
+        return prefetch_to_device(batches, put, depth=2)
+
+    # ---------------------------------------------------------------- fit
+    def fit(self, train_pipe: BatchPipeline,
+            dev_pipe: Optional[BatchPipeline] = None,
+            save_dir: Optional[str] = None, start_epoch: int = 1,
+            log_fn=print, metrics_logger=None, preemption=None,
+            skip_steps: int = 0, best_dev: float = float("inf"),
+            profile_dir: Optional[str] = None) -> Dict:
+        """Epoch loop with the alpha ramp and best-by-dev-loss checkpoints.
+        -> history {'train_loss', 'dev_loss', 'alpha', 'clips_per_sec'}
+        (one entry an epoch), plus 'preempted': True after a stop.
+
+        The step losses stay on the device and are read once an epoch.
+        `metrics_logger` (anything with `.log(epoch, dict)`) receives the
+        epoch's scalars. `preemption` (utils/preemption.PreemptionGuard or
+        anything with `requested(step)`) is polled after every step; on a
+        request the full state is saved to 'latest' with a `batches_done`
+        cursor and fit returns. `skip_steps` resumes the first epoch past
+        that cursor (the pipeline replays the batch and host-RawBoost
+        stream), and `best_dev` carries the best dev loss across resumes.
+        A NaN dev loss is never best; without a dev pipe 'best' is an
+        alias of 'latest'. `profile_dir` receives a torch.profiler trace
+        (`train_steps_2-5.json`) of the first epoch's steps 2-5 of this
+        call."""
+        cfg = self.cfg
+        if dev_pipe is not None and dev_pipe.rawboost is not None:
+            raise ValueError("dev pipeline must not apply RawBoost")
+        history = {"train_loss": [], "dev_loss": [], "alpha": [],
+                   "clips_per_sec": []}
+        prof = None
+        for epoch in range(start_epoch, cfg.epochs + 1):
+            alpha = alpha_for_epoch(epoch, cfg.warmup_epochs,
+                                    cfg.alpha_ramp_epochs, cfg.alpha_end)
+            t_epoch = time.perf_counter()
+            losses = []
+            skip = skip_steps if epoch == start_epoch else 0
+            n_steps = skip   # absolute batch cursor within the epoch
+            preempted = False
+            for batch in self._device_batches(
+                    train_pipe.train_epoch(epoch, skip=skip)):
+                if profile_dir and n_steps == skip + 1 and prof is None:
+                    losses[-1].item()   # step 1 stays out of the trace
+                    prof = _start_profile(self.device)
+                losses.append(self.train_step(batch, alpha)["loss"])
+                n_steps += 1
+                if prof is not None and n_steps >= skip + 5:
+                    log_fn(_stop_profile(prof, losses[-1], profile_dir))
+                    prof, profile_dir = None, None
+                if preemption is not None and preemption.requested(n_steps):
+                    preempted = True
+                    break
+            if prof is not None:   # the epoch ended inside the window
+                log_fn(_stop_profile(prof, losses[-1], profile_dir))
+                prof, profile_dir = None, None
+            if preempted:
+                if save_dir is not None:
+                    # blocking: the process is about to stop
+                    ckpt.save_checkpoint(
+                        save_dir, "latest", self.state_dict(),
+                        cfg.ckpt_config(),
+                        {"epoch": epoch, "batches_done": n_steps,
+                         "preempted": True, "best_dev": best_dev},
+                        self._sidecar_extra())
+                log_fn(f"[PREEMPTED] "
+                       f"{'saved mid-epoch state at' if save_dir else 'stopping (no save_dir) at'} "
+                       f"epoch {epoch} batch {n_steps}"
+                       + ("; resume with --resume" if save_dir else ""))
+                history["preempted"] = True
+                return history
+            values = torch.stack(losses).tolist() if losses else []
+            epoch_s = time.perf_counter() - t_epoch
+            train_loss = float(np.mean(values)) if values else 0.0
+
+            dev_loss = float("nan")
+            if dev_pipe is not None:
+                dev = [self.eval_step(b) for b in
+                       self._device_batches(dev_pipe.train_epoch(epoch))]
+                if dev:
+                    dev_loss = float(np.mean(torch.stack(dev).tolist()))
+
+            n_run = n_steps - skip   # steps run in this call
+            cps = (n_run * cfg.batch_size / epoch_s
+                   if n_run and epoch_s > 0 else 0.0)
+            history["train_loss"].append(train_loss)
+            history["dev_loss"].append(dev_loss)
+            history["alpha"].append(alpha)
+            history["clips_per_sec"].append(cps)
+            log_fn(f"[epoch {epoch:03d}] train_loss={train_loss:.4f} | "
+                   f"dev_loss={dev_loss:.4f} | alpha={alpha:.3f} | "
+                   f"clips/s={cps:.1f}")
+            if metrics_logger is not None:
+                metrics_logger.log(epoch, {
+                    "train_loss": train_loss, "dev_loss": dev_loss,
+                    "alpha": alpha, "clips_per_sec": cps})
+
+            is_new_best = dev_loss < best_dev   # NaN is never best
+            if is_new_best:
+                best_dev = dev_loss
+            if save_dir is not None:
+                metrics = {"epoch": epoch, "train_loss": train_loss,
+                           "dev_loss": dev_loss, "best_dev": best_dev}
+                extra = self._sidecar_extra()
+                # one host copy of the state serves 'latest' and 'best';
+                # the writer thread hides the file writes behind the next
+                # epoch
+                host = ckpt.snapshot_for_save(self.state_dict())
+                ckpt.save_checkpoint(save_dir, "latest", None,
+                                     cfg.ckpt_config(), metrics, extra,
+                                     block=False, host_state=host)
+                if dev_pipe is None:
+                    ckpt.alias_checkpoint(save_dir, "best", "latest")
+                elif is_new_best:
+                    ckpt.save_checkpoint(save_dir, "best", None,
+                                         cfg.ckpt_config(), metrics, extra,
+                                         block=False, host_state=host)
+                    log_fn(f"[epoch {epoch:03d}] new best "
+                           f"dev_loss={dev_loss:.4f}")
+        if save_dir is not None:
+            ckpt.wait_for_saves()
+        return history
+
+    # ------------------------------------------------------------ restore
+    def _sidecar_extra(self) -> Dict:
+        return {"enc_config": dataclasses.asdict(self.enc_config),
+                "stage1_config": dataclasses.asdict(self.cfg),
+                "loss_mode": "binary", "from_features": False}
+
+    def restore(self, save_dir: str, name: str = "best") -> Dict:
+        """Load the full train state of <save_dir>/<name> into this
+        trainer. -> the checkpoint's sidecar."""
+        state, sidecar = ckpt.restore_checkpoint(save_dir, name)
+        self.load_state_dict(state)
+        return sidecar
+
+    @classmethod
+    def from_checkpoint(cls, save_dir: str, name: str = "best",
+                        device="cuda") -> "Stage1Trainer":
+        """Rebuild the trainer and its state from a checkpoint directory
+        alone: the configs from the sidecar, the rest from the state."""
+        state, sidecar = ckpt.restore_checkpoint(save_dir, name)
+        extra = sidecar["extra"]
+        cfg = Stage1Config(**extra["stage1_config"])
+        trainer = cls(cfg, config_from_dict(extra["enc_config"]),
+                      {"encoder": state["encoder"],
+                       "compression": state["compression"]}, device=device)
+        trainer.load_state_dict(state)
+        return trainer
+
+
+def _start_profile(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, last_loss: torch.Tensor, profile_dir: str) -> str:
+    last_loss.item()   # the profiled steps have run
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "train_steps_2-5.json")
+    prof.export_chrome_trace(path)
+    return f"[PROFILE] trace of train steps 2-5 written to {path}"
