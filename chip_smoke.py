@@ -48,7 +48,16 @@
    before and read just after), then the same run preempted at epoch 2,
    batch 1 and resumed from 'latest' through from_checkpoint, which must
    end on the same bits; times a save and a restore of the full state.
-7. Prints one JSON line with every kernel's numbers, then the result
+7. Pipeline phase, in the same process, from that run's full-width
+   'best' checkpoint: a 32-clip eval split, `extract_embeddings` through
+   `Stage1Trainer.from_checkpoint(...).embed_dataset` for train, dev and
+   eval at batch 32 (launch counters reset just before and read just
+   after: 24 attention and 7 LN+GELU forwards a batch, nothing else),
+   extraction clips/s and device ms a batch, `train_stage2` on the card,
+   `generate_scores` -> score_cm_eval.txt -> EER, and
+   `SpoofScorer.from_checkpoints` against the score file and, on 4 clips,
+   against an fp32 CPU scorer from the same checkpoints.
+8. Prints one JSON line with every kernel's numbers, then the result
    line. Any failure exits non-zero before the result line.
 
 Needs torch with CUDA, triton and nvcc; imports nothing of JAX.
@@ -90,6 +99,8 @@ Z_TOL = 5e-2                     # max |z_gpu - z_cpu|
 LOGIT_TOL = 5e-2                 # max |logit_gpu - logit_cpu|
 
 TRAIN_BATCH = 32                 # Stage1Config.batch_size
+PIPE_BATCH = 32                  # extraction batch of the pipeline phase
+EVAL_CLIPS = 32                  # its eval split
 TRAIN_STEPS = 8
 # frames after each of XLS-R's 7 convs for a 5 s clip: the LN+GELU rows
 # of a train step are TRAIN_BATCH times each
@@ -1186,16 +1197,14 @@ def _differences(a, b, path="") -> list:
     return [] if a == b else [path]
 
 
-def fit_phase(dev) -> dict:
+def fit_phase(dev, tmp: str) -> dict:
     """`fit` at XLS-R-300M width, B = 32 x 5 s, with device RawBoost, on a
-    synthetic ASVspoof-2019-style corpus written from a seed (64 train and
-    32 dev clips: 2 train steps and 1 dev batch an epoch), 2 epochs: once
-    through; once preempted at epoch 2, batch 1 and resumed from 'latest'
-    through from_checkpoint and resume_cursor. Deterministic algorithms
-    on; the resumed run must give the same bits."""
-    import shutil
-    import tempfile
-
+    synthetic ASVspoof-2019-style corpus written from a seed under `tmp`
+    (64 train and 32 dev clips: 2 train steps and 1 dev batch an epoch),
+    2 epochs: once through; once preempted at epoch 2, batch 1 and resumed
+    from 'latest' through from_checkpoint and resume_cursor, into
+    `tmp`/ckpt. Deterministic algorithms on; the resumed run must give the
+    same bits."""
     from wav2vec_contr_loss_torch import XLSR_300M, Stage1Config, Stage1Trainer
     from wav2vec_contr_loss_torch.data import (AudioConfig, BatchPipeline,
                                                parse_asvspoof2019)
@@ -1204,7 +1213,6 @@ def fit_phase(dev) -> dict:
     cfg = XLSR_300M
     scfg = Stage1Config(finetune_encoder=True, epochs=2)
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
     try:
         protos = {}
         for part, n, seed in (("train", 64, 21), ("dev", 32, 22)):
@@ -1302,7 +1310,153 @@ def fit_phase(dev) -> dict:
         return {"fit_launches": counts}
     finally:
         torch.use_deterministic_algorithms(False)
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def expected_extract_launches(cfg, n_batches: int) -> dict:
+    """Kernel launches of `n_batches` extraction batches: the eval-mode
+    forward runs each layer's attention and each conv's LN+GELU once, and
+    no backward or loss kernel."""
+    return {"attention_fwd": cfg.num_layers * n_batches,
+            "attention_bwd": 0,
+            "ln_gelu_fwd": len(cfg.conv_dim) * n_batches,
+            "ln_gelu_bwd": 0, "supcon": 0}
+
+
+def pipeline_phase(dev, tmp: str) -> dict:
+    """The inference half of the main path from the fit phase's
+    full-width 'best' checkpoint in `tmp`/ckpt: a third split (eval, 32
+    clips of 5 s, its own seed), `extract_embeddings` through
+    `Stage1Trainer.from_checkpoint(...).embed_dataset` for train (64),
+    dev (32) and eval at batch PIPE_BATCH with the launch counters reset
+    just before and read just after (exact per-batch counts), then
+    `train_stage2` on the card (linear head, lr 5e-2, 40 epochs),
+    `generate_scores` -> score_cm_eval.txt -> its EER, and
+    `SpoofScorer.from_checkpoints` on the same two checkpoints: its
+    dataset scores against the score file's logits, and on 4 clips the
+    card in bf16 against an fp32 CPU scorer."""
+    from wav2vec_contr_loss_torch import XLSR_300M, SpoofScorer, Stage1Trainer
+    from wav2vec_contr_loss_torch.cli import generate_scores
+    from wav2vec_contr_loss_torch.config import Stage2Config
+    from wav2vec_contr_loss_torch.data import (AudioConfig, BatchPipeline,
+                                               parse_asvspoof2019)
+    from wav2vec_contr_loss_torch.data.pipeline import _start_fetch
+    from wav2vec_contr_loss_torch.eval.extract import (extract_embeddings,
+                                                       load_embeddings)
+    from wav2vec_contr_loss_torch.eval.metrics import calculate_eer_from_file
+    from wav2vec_contr_loss_torch.eval.score import read_score_file
+    from wav2vec_contr_loss_torch.train.stage2 import train_stage2
+
+    t_phase = time.perf_counter()
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    protos = {part: os.path.join(tmp, part, "protocol.txt")
+              for part in ("train", "dev")}
+    os.makedirs(os.path.join(tmp, "eval"))
+    protos["eval"] = write_corpus(os.path.join(tmp, "eval"), EVAL_CLIPS,
+                                  seed=23)
+    pipes = {k: BatchPipeline(parse_asvspoof2019(
+                 v, os.path.dirname(v), audio=AudioConfig(16000, 5)),
+                 PIPE_BATCH, num_workers=8) for k, v in protos.items()}
+    if not _start_fetch(torch.zeros(4, device=dev))[1][0].is_pinned():
+        raise RuntimeError("the copy back of stream_through_device does not "
+                           "land in pinned memory")
+
+    t0 = time.perf_counter()
+    trainer = Stage1Trainer.from_checkpoint(ckpt_dir, "best", device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    emb_dir = os.path.join(tmp, "embeddings")
+    n_clips = sum(len(p.dataset) for p in pipes.values())
+    n_batches = sum(-(-len(p.dataset) // PIPE_BATCH) for p in pipes.values())
+    _reset_counters()
+    t0 = time.perf_counter()
+    for split, pipe in pipes.items():
+        extract_embeddings(trainer.embed_dataset, pipe, emb_dir, split,
+                           log_fn=lambda m: print(f"pipeline: {m}"))
+    extract_s = time.perf_counter() - t0
+    counts = _counters()
+    want = expected_extract_launches(XLSR_300M, n_batches)
+    print(f"pipeline: extraction launches over {n_batches} batches {counts}, "
+          f"expected {want}")
+    if counts != want:
+        raise RuntimeError("extraction launch counts differ from the model")
+    # a second, warm pass for the throughput; then one batch's device time
+    t0 = time.perf_counter()
+    for pipe in pipes.values():
+        trainer.embed_dataset(pipe)
+    warm_s = time.perf_counter() - t0
+    waves = torch.from_numpy(next(iter(pipes["eval"].sequential())).waveforms
+                             ).to(dev)
+    # device busy time from the profiler: the host queues one batch's
+    # ~1,000 operations about as fast as the card runs them, so events
+    # behind a sleeping kernel would time the host
+    n_ops, batch_ms = device_ops(
+        lambda: trainer.embed_step({"waveforms": waves}))
+    print(f"pipeline: extraction of {n_clips} clips of 5 s in {n_batches} "
+          f"batches of {PIPE_BATCH}: first pass {extract_s:.2f} s "
+          f"({n_clips / extract_s:.1f} clips/s, files written), warm pass "
+          f"{warm_s:.2f} s ({n_clips / warm_s:.1f} clips/s); device busy "
+          f"{batch_ms:.2f} ms in {n_ops} device ops per batch of "
+          f"{PIPE_BATCH} (embed_step, bf16, torch.profiler); checkpoint "
+          f"load {load_s:.1f} s [{CARD}]")
+    del trainer
+    torch.cuda.empty_cache()
+
+    stage2_dir = os.path.join(tmp, "stage2")
+    tr_x, tr_y = load_embeddings(emb_dir, "train")
+    dv_x, dv_y = load_embeddings(emb_dir, "dev")
+    cfg2 = Stage2Config(in_dim=tr_x.shape[1], lr=5e-2, epochs=40)
+    t0 = time.perf_counter()
+    _, hist = train_stage2(cfg2, tr_x, tr_y, dv_x, dv_y, save_dir=stage2_dir,
+                           log_fn=lambda m: None, device=dev)
+    stage2_s = time.perf_counter() - t0
+    if not np.isfinite(hist["train_loss"] + hist["dev_loss"]).all():
+        raise RuntimeError("non-finite stage-2 losses")
+    print(f"pipeline: stage 2 (linear head, lr 5e-2, up to 40 epochs) ran "
+          f"{len(hist['train_loss'])} epochs in {stage2_s:.2f} s; last "
+          f"train loss {hist['train_loss'][-1]:.4f}, dev EER "
+          f"{hist['dev_eer'][-1]} [{CARD}]")
+
+    scores_dir = os.path.join(tmp, "scores")
+    generate_scores.main(["--emb_dir", emb_dir, "--stage2_dir", stage2_dir,
+                          "--scores_dir", scores_dir, "--splits", "eval",
+                          "--device", str(dev)])
+    score_file = os.path.join(scores_dir, "score_cm_eval.txt")
+    eer = calculate_eer_from_file(score_file)
+    rec = read_score_file(score_file)
+    print(f"pipeline: {score_file}: {len(rec)} trials, EER = {eer:.3f}% "
+          f"(random-init encoder after 4 steps: no target, must be finite)")
+    if len(rec) != EVAL_CLIPS or not np.isfinite([eer, *rec.scores]).all():
+        raise RuntimeError("the eval score file is not whole and finite")
+
+    scorer = SpoofScorer.from_checkpoints(ckpt_dir, stage2_dir, device=dev)
+    logits, labels = scorer.score_dataset(pipes["eval"])
+    err = float(np.abs(logits - rec.scores).max())
+    print(f"pipeline: SpoofScorer.from_checkpoints score_dataset vs the "
+          f"score file: max |d logit| {err:.3e} (tol {LOGIT_TOL})")
+    if not (err <= LOGIT_TOL and
+            ((labels == 1) == (rec.keys == "bonafide")).all()):
+        raise RuntimeError("the scorer disagrees with the score file")
+    cpu = SpoofScorer.from_checkpoints(ckpt_dir, stage2_dir, device="cpu",
+                                       compute_dtype="float32")
+    w4 = torch.from_numpy(next(iter(pipes["eval"].sequential())).waveforms[:4])
+    t0 = time.perf_counter()
+    z_cpu, l_cpu = cpu.run(w4)
+    cpu_s = time.perf_counter() - t0
+    z_gpu, l_gpu = scorer.run(w4)
+    z_err = (z_gpu.cpu() - z_cpu).abs().max().item()
+    l_err = (l_gpu.cpu() - l_cpu).abs().max().item()
+    print(f"pipeline: 4 clips, card bf16 vs CPU fp32 ({cpu_s:.1f} s on the "
+          f"CPU) from the same checkpoints: z max_abs_err {z_err:.3e} (tol "
+          f"{Z_TOL}), logit max_abs_err {l_err:.3e} (tol {LOGIT_TOL}) "
+          f"[{CARD}]")
+    if not (z_err <= Z_TOL and l_err <= LOGIT_TOL):
+        raise RuntimeError("the card's scorer disagrees with the CPU fp32 one")
+    phase_s = time.perf_counter() - t_phase
+    print(f"pipeline phase: {phase_s:.1f} s [{CARD}]")
+    return {"pipeline_launches": counts,
+            "extract_clips_per_s": n_clips / warm_s,
+            "extract_batch_ms": batch_ms, "stage2_s": stage2_s,
+            "eer": eer, "phase_s": phase_s}
 
 
 def read_card() -> str:
@@ -1313,18 +1467,29 @@ def read_card() -> str:
 
 
 def fit_main() -> int:
-    """The fit phase alone, in a process of its own (`--fit`): it needs
+    """The fit phase, then the pipeline phase from its checkpoint, in a
+    process of its own (`--fit`): the fit phase needs
     CUBLAS_WORKSPACE_CONFIG set before CUDA starts, which the other
     phases' timings should not carry."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 1
+    import shutil
+    import tempfile
+
     global CARD
     CARD = read_card()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(json.dumps({"fit": fit_phase(torch.device("cuda", 0))}))
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        fit = fit_phase(dev, tmp)
+        fit.update(pipeline_phase(dev, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"fit": fit}))
     return 0
 
 
@@ -1383,9 +1548,11 @@ def main() -> int:
     print(f"rawboost phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fit = run_fit_child()
-    for name, n in fit["fit_launches"].items():
-        results[name]["fit_launches"] = n
-    print(f"fit phase (own process): {time.perf_counter() - t0:.1f} s")
+    for key in ("fit_launches", "pipeline_launches"):
+        for name, n in fit[key].items():
+            results[name][key] = n
+    print(f"fit and pipeline phases (own process): "
+          f"{time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,10 @@ from wav2vec_contr_loss_torch.models.wav2vec2 import SelfAttention
 from wav2vec_contr_loss_torch.ops import attention
 from wav2vec_contr_loss_torch.ops.dropout import attention_dropout_mask
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 FWD_TOL = dict(atol=2e-3, rtol=2e-2)
 GRAD_TOL = dict(atol=5e-2, rtol=5e-2)
 TILE = 64

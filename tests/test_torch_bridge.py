@@ -8,6 +8,8 @@ holds only if every port tensor is exactly its transposed source.
 Also holds the helpers the other test_torch_* files share.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -29,6 +31,16 @@ from wav2vec_contr_loss_torch import (LARGE_960H, XLSR_300M,
                                       jax_params_to_torch)
 from wav2vec_contr_loss_torch.models import (CompressionModule,
                                              Wav2Vec2Encoder, build_head)
+
+def cap_torch_threads() -> None:
+    """Share the machine's cores among the pytest-xdist workers: torch
+    takes one intra-op thread per core in each worker, which oversubscribes
+    the machine by the worker count."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+cap_torch_threads()
 
 # the widths of tests/test_wav2vec2_parity.py SMALL_KW, as a JAX config
 SMALL = dict(hidden_size=32, num_layers=3, num_heads=4, intermediate_size=64,

@@ -8,13 +8,20 @@ import pytest
 
 import jax
 
-from chip_smoke import (expected_train_launches, random_jax_trees,
-                        serving_waves, train_batch)
+from chip_smoke import (expected_extract_launches, expected_train_launches,
+                        random_jax_trees, serving_waves, train_batch,
+                        write_corpus)
 from tests.test_torch_bridge import jax_config, jax_trees, port_config
 from wav2vec_contr_loss_torch import (XLSR_300M, SpoofScorer, Stage1Config,
                                       Stage1Trainer, Stage2Config,
                                       jax_params_to_torch)
+from wav2vec_contr_loss_torch.data import (AudioConfig, BatchPipeline,
+                                           parse_asvspoof2019)
 from wav2vec_contr_loss_torch.ops import attention, conv_ln, supcon
+
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _shapes(tree):
@@ -67,3 +74,23 @@ def test_train_phase_model_steps_on_cpu():
     assert expected_train_launches(scfg, cfg) == {
         "attention_fwd": 4, "attention_bwd": 2, "ln_gelu_fwd": 7,
         "ln_gelu_bwd": 7, "supcon": 1}
+
+
+def test_pipeline_phase_extraction_on_cpu(tmp_path):
+    """The pipeline phase's extraction: `embed_dataset` of a full-width
+    trainer (1 layer, fp32, 1 s clips) over 5 clips at batch 4 (a padded
+    last batch), and the per-batch launch counts it expects on the card."""
+    cfg = XLSR_300M.with_(num_layers=1)
+    scfg = Stage1Config(compute_dtype="float32", max_duration_seconds=1)
+    trainer = Stage1Trainer(scfg, cfg, jax_params_to_torch(
+        cfg, *random_jax_trees(cfg)), device="cpu")
+    proto = write_corpus(str(tmp_path), 5, seed=1, seconds=1.0)
+    pipe = BatchPipeline(parse_asvspoof2019(proto, str(tmp_path),
+                                            audio=AudioConfig(16000, 1)),
+                         4, num_workers=2)
+    z, y = trainer.embed_dataset(pipe)
+    assert z.shape == (5, 256) and np.isfinite(z).all()
+    np.testing.assert_array_equal(y, [1, 0, 1, 0, 1])
+    assert expected_extract_launches(XLSR_300M, 4) == {
+        "attention_fwd": 96, "attention_bwd": 0, "ln_gelu_fwd": 28,
+        "ln_gelu_bwd": 0, "supcon": 0}

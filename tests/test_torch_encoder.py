@@ -15,6 +15,10 @@ from tests.test_torch_bridge import jax_config, jax_trees, port_config
 from wav2vec_contr_loss_torch import jax_params_to_torch
 from wav2vec_contr_loss_torch.models import Wav2Vec2Encoder
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 
 def _wave():
     rng = np.random.default_rng(11)

@@ -36,6 +36,10 @@ from wav2vec_contr_loss_torch.data import (AudioConfig, BatchPipeline,
 from wav2vec_contr_loss_torch.data.rawboost import RawBoostParams
 from wav2vec_contr_loss_torch.train import checkpoint as ckpt
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 SR = 16000
 TINY = JaxConfig(
     hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,

@@ -32,6 +32,10 @@ from wav2vec_contr_loss_tpu.ops.conv_ln_pallas import \
 
 from wav2vec_contr_loss_torch.ops import conv_ln
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 WARPS = 8
 ROWS_PER_WARP = {256: 4, 512: 2, 768: 1, 1024: 1}
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),

@@ -18,6 +18,10 @@ from wav2vec_contr_loss_tpu.ops.conv_ln_pallas import \
 
 from wav2vec_contr_loss_torch.ops import attention, conv_ln, wire
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 
 def _bf16_valued(rng, shape):
     """Normal samples rounded to bf16, as numpy float32."""

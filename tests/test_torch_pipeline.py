@@ -1,8 +1,9 @@
 """The port's host data pipeline against the JAX package's, on a synthetic
 32-clip ASVspoof-2019-style corpus of 1 s WAV files: sampler, parsers,
 decoding, balanced epochs with host RawBoost and sequential batches bit
-for bit; the skip replay, the prefetcher's clean abandonment, the resume
-cursor and the preemption guard."""
+for bit; the skip replay, the prefetcher's clean abandonment,
+stream_through_device's order and results, the resume cursor and the
+preemption guard."""
 
 import os
 import signal
@@ -26,11 +27,16 @@ from wav2vec_contr_loss_torch.data import (AudioConfig, BalancedBatchSampler,
                                            BatchPipeline, load_waveform,
                                            parse_asvspoof2019,
                                            parse_in_the_wild,
-                                           prefetch_to_device)
+                                           prefetch_to_device,
+                                           stream_through_device)
 from wav2vec_contr_loss_torch.data.audio import write_wav
 from wav2vec_contr_loss_torch.data.rawboost import RawBoostParams
 from wav2vec_contr_loss_torch.train.checkpoint import resume_cursor
 from wav2vec_contr_loss_torch.utils.preemption import PreemptionGuard
+
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
 
 SR = 16000
 
@@ -153,6 +159,40 @@ def test_prefetch_surfaces_producer_errors():
 
     with pytest.raises(RuntimeError, match="decode failed"):
         list(prefetch_to_device(boom(), lambda x: x))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_stream_through_device_keeps_order_and_result_shape(depth):
+    """Results come back in order as numpy, tuples as tuples, whatever
+    the depth; `put` runs in the prefetch thread; a failing producer
+    surfaces in the consumer."""
+    import torch
+
+    main = threading.get_ident()
+    put_threads = set()
+
+    def put(i):
+        put_threads.add(threading.get_ident())
+        return torch.full((2,), float(i))
+
+    out = list(stream_through_device(iter(range(7)), put,
+                                     lambda x: (x * 2, x[:1] + 1),
+                                     depth=depth))
+    assert [b for _, b in out] == list(range(7))
+    for (twice, first), i in out:
+        assert isinstance(twice, np.ndarray)
+        np.testing.assert_array_equal(twice, [2 * i, 2 * i])
+        np.testing.assert_array_equal(first, [i + 1])
+    assert put_threads and main not in put_threads
+    single = list(stream_through_device(iter(range(3)), put, lambda x: x))
+    assert [float(r[0]) for r, _ in single] == [0.0, 1.0, 2.0]
+
+    def bad():
+        yield 0
+        raise OSError("decode failed")
+
+    with pytest.raises(OSError, match="decode failed"):
+        list(stream_through_device(bad(), put, lambda x: x, depth=depth))
 
 
 def test_resume_cursor_semantics():

@@ -16,6 +16,10 @@ from wav2vec_contr_loss_tpu.ops import rawboost as jax_dev
 from wav2vec_contr_loss_torch.data import rawboost as host
 from wav2vec_contr_loss_torch.ops import rawboost as dev
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 B, T = 3, 16000
 FS = 16000.0
 

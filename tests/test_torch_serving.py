@@ -23,6 +23,10 @@ from tests.test_torch_bridge import perturbed, port_config
 from wav2vec_contr_loss_torch import (SpoofScorer, Stage2Config,
                                       jax_params_to_torch)
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 SR = 16000
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -115,9 +119,15 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     walked = set(out.stdout.split())
-    assert len(walked) >= 36   # every submodule was walked
-    # the stage-1 pipeline, device RawBoost, checkpoints and the CLI
+    assert len(walked) >= 49   # every submodule was walked
+    # the stage-1 pipeline, device RawBoost, checkpoints and the CLI; the
+    # inference half (metrics, score files, BCE, stage 2, extraction,
+    # plots) and its CLIs
     assert {f"wav2vec_contr_loss_torch.{m}" for m in (
         "data.audio", "data.pipeline", "data.protocols", "data.rawboost",
         "data.sampler", "ops.rawboost", "train.checkpoint",
-        "utils.preemption", "cli.common", "cli.train_stage1")} <= walked
+        "utils.preemption", "cli.common", "cli.train_stage1",
+        "eval.metrics", "eval.score", "eval.extract", "losses.bce",
+        "train.stage2", "viz", "viz.umap_plots", "cli.extract_embeddings",
+        "cli.train_stage2", "cli.generate_scores", "cli.eval_scores",
+        "cli.plot_umap", "cli.run_pipeline")} <= walked

@@ -27,6 +27,10 @@ from wav2vec_contr_loss_torch.ops import supcon
 from wav2vec_contr_loss_torch.train import alpha_for_epoch
 from wav2vec_contr_loss_torch.train.optim import AdamWGroup
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 
 @pytest.mark.parametrize("b,d,lk,tau,sim,topk,alpha,lam", CASES)
 def test_supcon_matches_pallas_and_xla(b, d, lk, tau, sim, topk, alpha, lam):

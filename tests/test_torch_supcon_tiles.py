@@ -41,6 +41,10 @@ from tests.test_supcon_pallas import CASES, make_labels, normed
 from wav2vec_contr_loss_torch.config import SupConConfig
 from wav2vec_contr_loss_torch.ops import supcon
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 THREADS = 256
 NEG = -1e30
 LOSS_TOL = dict(rel=2e-5, abs=2e-5)

@@ -22,6 +22,10 @@ from wav2vec_contr_loss_torch import (Stage1Config, Stage1Trainer,
                                       jax_params_to_torch)
 from wav2vec_contr_loss_torch.ops import attention, conv_ln, supcon
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 TINY = JaxConfig(
     hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
     conv_dim=(16, 16), conv_kernel=(10, 3), conv_stride=(5, 2),

@@ -27,6 +27,10 @@ from wav2vec_contr_loss_torch.models.wav2vec2 import (max_mask_spans,
                                                       time_mask_spans)
 from wav2vec_contr_loss_torch.ops import attention, conv_ln, dropout
 
+from tests.test_torch_bridge import cap_torch_threads
+
+cap_torch_threads()
+
 
 @pytest.mark.parametrize("shape,seed", [
     ((3, 1, 5, 7), 2 ** 31 - 2), ((1, 4), 0), ((2, 3, 1), 12345),

@@ -1,9 +1,13 @@
 """PyTorch / CUDA port of wav2vec_contr_loss_tpu for an NVIDIA H100.
 
-It serves (`SpoofScorer`) and runs the stage-1 SupCon recipe
-(`Stage1Trainer`: the train step with device RawBoost, `fit` with
-checkpoints and resume, fed by the host data pipeline in `data/`; the
-CLI `python -m wav2vec_contr_loss_torch.cli.train_stage1`). It imports
+It serves (`SpoofScorer`, also from a stage-1 and a stage-2
+checkpoint), runs the stage-1 SupCon recipe (`Stage1Trainer`: the train
+step with device RawBoost, `fit` with checkpoints and resume, fed by the
+host data pipeline in `data/`) and the inference half of the main path
+(`Stage1Trainer.embed_dataset` and `eval/extract.py`, the stage-2 head
+trainer in `train/stage2.py`, score files and EER in `eval/`), with the
+CLIs under `cli/` up to `python -m
+wav2vec_contr_loss_torch.cli.run_pipeline`. It imports
 torch, numpy and scipy (and triton, inside the Triton kernels' launch
 functions), never JAX or the JAX package. Entry points run on the GPU
 unless the caller passes device="cpu"; on CPU tensors every kernel

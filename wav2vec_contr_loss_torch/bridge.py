@@ -28,7 +28,7 @@ import torch
 
 from .config import Wav2Vec2Config
 
-__all__ = ["jax_params_to_torch", "random_jax_trees"]
+__all__ = ["jax_params_to_torch", "head_state_dict", "random_jax_trees"]
 
 Tree = Mapping[str, object]
 
@@ -175,6 +175,15 @@ def random_jax_trees(cfg: Wav2Vec2Config, comp_dim: int = 256,
     return enc, comp, head
 
 
+def head_state_dict(head_params: Tree) -> Dict[str, torch.Tensor]:
+    """A stage-2 head tree ('fc', or 'fc1' and 'fc2') -> the port head's
+    state dict."""
+    head: Dict[str, torch.Tensor] = {}
+    for name, tree in head_params.items():
+        _dense(head, name, tree)
+    return head
+
+
 def jax_params_to_torch(cfg: Wav2Vec2Config, enc_params: Tree,
                         comp_params: Tree, head_params: Tree
                         ) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -183,8 +192,5 @@ def jax_params_to_torch(cfg: Wav2Vec2Config, enc_params: Tree,
     'head'} state dicts for the port's modules, fp32 on the CPU."""
     comp: Dict[str, torch.Tensor] = {}
     _dense(comp, "proj", comp_params["proj"])
-    head: Dict[str, torch.Tensor] = {}
-    for name, tree in head_params.items():
-        _dense(head, name, tree)
     return {"encoder": encoder_state_dict(cfg, enc_params),
-            "compression": comp, "head": head}
+            "compression": comp, "head": head_state_dict(head_params)}

@@ -1,6 +1,6 @@
 """Shared CLI plumbing: path flags, encoder bootstrapping, dataset
 builders. The port's copy of the parts of wav2vec_contr_loss_tpu/cli/
-common.py that stage-1 training needs."""
+common.py that stage-1 training, extraction and run_pipeline need."""
 
 from __future__ import annotations
 
@@ -13,10 +13,11 @@ import torch
 
 from ..config import (LARGE_960H, XLSR_300M, Wav2Vec2Config,
                       config_from_dict, run_tag)
-from ..data import AudioConfig, parse_asvspoof2019
+from ..data import AudioConfig, parse_asvspoof2019, parse_in_the_wild
 
 __all__ = ["TINY_TEST", "KNOWN_ARCHS", "add_asv_paths", "add_encoder_args",
-           "load_encoder_init", "save_dir_for", "asv_dataset"]
+           "load_encoder_init", "save_dir_for", "asv_dataset", "itw_dataset",
+           "parse_num_samples"]
 
 # tiny architecture for smoke tests (random init only)
 TINY_TEST = Wav2Vec2Config(
@@ -34,11 +35,19 @@ KNOWN_ARCHS = {
 }
 
 
-def add_asv_paths(p: argparse.ArgumentParser) -> None:
+def add_asv_paths(p: argparse.ArgumentParser, dev: bool = True,
+                  eval_: bool = False, itw: bool = False) -> None:
     p.add_argument("--train_root", type=str, default="")
     p.add_argument("--train_protocol", type=str, default="")
-    p.add_argument("--dev_root", type=str, default="")
-    p.add_argument("--dev_protocol", type=str, default="")
+    if dev:
+        p.add_argument("--dev_root", type=str, default="")
+        p.add_argument("--dev_protocol", type=str, default="")
+    if eval_:
+        p.add_argument("--eval_root", type=str, default="")
+        p.add_argument("--eval_protocol", type=str, default="")
+    if itw:
+        p.add_argument("--itw_root", type=str, default="")
+        p.add_argument("--itw_protocol", type=str, default="")
 
 
 def add_encoder_args(p: argparse.ArgumentParser) -> None:
@@ -82,3 +91,20 @@ def asv_dataset(root: str, protocol: str, num_samples=None, subset="all",
         protocol, root, subset=subset, num_samples=num_samples,
         audio=AudioConfig(sr, seconds),
     )
+
+
+def itw_dataset(root: str, protocol: str, num_samples=None,
+                seconds: int = 5, sr: int = 16000):
+    return parse_in_the_wild(
+        protocol, root, num_samples=num_samples,
+        audio=AudioConfig(sr, seconds),
+    )
+
+
+def parse_num_samples(value):
+    """--num_samples: an int, or None for the literal 'None'/'null' (the
+    reference's convention) or an absent flag."""
+    if value is None:
+        return None
+    ns = value.strip().lower()
+    return None if ns in ("none", "null") else int(ns)

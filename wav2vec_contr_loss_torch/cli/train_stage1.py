@@ -5,8 +5,9 @@
         --dev_protocol FILE] --encoder_init random [--device cpu]
 
 The JAX CLI's (wav2vec_contr_loss_tpu/cli/train_stage1.py) flags for the
-config, the data, `--resume` and `--num_workers`, plus `--device` and
-`--compute_dtype`. SIGTERM saves the full state mid-epoch and exits 75
+config (with `--preset`, one of the published sweep's EXPERIMENT_PRESETS,
+under the other flags), the data, `--resume` and `--num_workers`, plus
+`--device` and `--compute_dtype`. SIGTERM saves the full state mid-epoch and exits 75
 (EX_TEMPFAIL); rerunning with `--resume` continues past the saved batch
 cursor. The encoder starts from seeded random weights or from a port
 checkpoint; nothing is downloaded.
@@ -18,13 +19,13 @@ import argparse
 import dataclasses
 
 from ..bridge import jax_params_to_torch, random_jax_trees
-from ..config import Stage1Config
+from ..config import EXPERIMENT_PRESETS, Stage1Config, preset
 from ..data import BatchPipeline
 from ..train import Stage1Trainer
 from ..train.checkpoint import checkpoint_exists, resume_cursor
 from ..utils.preemption import PreemptionGuard
 from .common import (add_asv_paths, add_encoder_args, asv_dataset,
-                     load_encoder_init, save_dir_for)
+                     load_encoder_init, parse_num_samples, save_dir_for)
 
 # config fields taken as they are, and those given as 0/1
 _VALUE_FIELDS = ("supcon_similarity", "temperature", "uniformity_weight",
@@ -43,6 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
     add_encoder_args(p)
     add_asv_paths(p)
     p.add_argument("--save_dir", type=str, default="checkpoints_stage1/run")
+    p.add_argument("--preset", type=str, default=None,
+                   choices=sorted(EXPERIMENT_PRESETS))
     p.add_argument("--supcon_similarity", type=str, default=None,
                    choices=["cosine", "geodesic"])
     for f in ("temperature", "uniformity_weight", "uniformity_t", "head_lr",
@@ -80,16 +83,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args) -> Stage1Config:
+    cfg = preset(args.preset) if args.preset else Stage1Config()
     overrides = {f: getattr(args, f) for f in _VALUE_FIELDS
                  if getattr(args, f) is not None}
     overrides.update({f: bool(getattr(args, f)) for f in _FLAG_FIELDS
                       if getattr(args, f) is not None})
     if args.num_samples is not None:
-        ns = args.num_samples.strip().lower()
-        # the reference accepts the literal string "None"
-        overrides["num_samples"] = None if ns in ("none", "null") else int(ns)
+        overrides["num_samples"] = parse_num_samples(args.num_samples)
     overrides["model_name"] = args.model_name
-    return Stage1Config().replace(**overrides)
+    return cfg.replace(**overrides)
 
 
 def main(argv=None) -> None:

@@ -2,7 +2,7 @@
 
 The port keeps its own copy of the architecture fields of the JAX
 package's `Wav2Vec2Config` (wav2vec_contr_loss_tpu/models/wav2vec2.py),
-of the head fields of its `Stage2Config`, of its `Stage1Config`
+of its `Stage2Config`, `Stage1Config` and `EXPERIMENT_PRESETS`
 (wav2vec_contr_loss_tpu/config.py) and of its `SupConConfig`
 (wav2vec_contr_loss_tpu/losses/supcon.py), so that it never imports the
 JAX package. TPU execution knobs (scan/pipeline/sequence parallelism,
@@ -19,8 +19,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["Wav2Vec2Config", "Stage1Config", "Stage2Config", "SupConConfig",
-           "XLSR_300M", "LARGE_960H", "feature_frame_length",
-           "config_from_dict", "run_tag"]
+           "XLSR_300M", "LARGE_960H", "EXPERIMENT_PRESETS", "preset",
+           "feature_frame_length", "config_from_dict", "run_tag"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -64,12 +64,35 @@ class Wav2Vec2Config:
 
 @dataclass(frozen=True)
 class Stage2Config:
-    """The head fields of the JAX package's stage-2 config."""
+    """Stage-2 classifier over extracted embeddings: the fields of the
+    JAX package's `Stage2Config`."""
 
     head_type: str = "linear"   # 'linear' | 'mlp'
     in_dim: int = 256           # = the compression module's output width
     hidden_dim: int = 128
     dropout: float = 0.2
+    lr: float = 1e-4
+    weight_decay: float = 1e-4
+    epochs: int = 200
+    batch_size: int = 64
+    patience: int = 15
+    seed: int = 1337
+
+    def replace(self, **kw) -> "Stage2Config":
+        return dataclasses.replace(self, **kw)
+
+    def ckpt_config(self) -> Dict:
+        """The reference's UPPERCASE reload dict of a stage-2 head."""
+        return {
+            "HEAD_TYPE": self.head_type,
+            "IN_DIM": self.in_dim,
+            "HIDDEN_DIM": self.hidden_dim,
+            "DROPOUT": self.dropout,
+            "LR": self.lr,
+            "WEIGHT_DECAY": self.weight_decay,
+            "BATCH_SIZE": self.batch_size,
+            "PATIENCE": self.patience,
+        }
 
 
 def run_tag(model_name: str) -> str:
@@ -186,6 +209,51 @@ class SupConConfig:
     def __post_init__(self):
         if self.similarity not in ("cosine", "geodesic"):
             raise ValueError(f"Unknown similarity: {self.similarity}")
+
+
+# The published sweep (finetune, bs=32, 100 epochs, warmup 100 => alpha
+# == 0), a copy of the JAX package's EXPERIMENT_PRESETS.
+_SWEEP = dict(finetune_encoder=True, batch_size=32, epochs=100,
+              warmup_epochs=100)
+
+EXPERIMENT_PRESETS: Dict[str, Stage1Config] = {
+    "supcon": Stage1Config(**_SWEEP),
+    "supcon_temp_0.05": Stage1Config(temperature=0.05, **_SWEEP),
+    "supcon_temp_0.07": Stage1Config(temperature=0.07, **_SWEEP),
+    "supcon_temp_0.07_batch_64": Stage1Config(
+        temperature=0.07, finetune_encoder=True, batch_size=64, epochs=100,
+        warmup_epochs=100,
+    ),
+    "supcon_temp_0.1": Stage1Config(temperature=0.1, **_SWEEP),
+    "supcon_temp_0.6": Stage1Config(temperature=0.6, **_SWEEP),
+    "supcon_geodesic": Stage1Config(supcon_similarity="geodesic", **_SWEEP),
+    "supcon_geodesic_temp_0.05": Stage1Config(
+        supcon_similarity="geodesic", temperature=0.05, **_SWEEP),
+    "supcon_geodesic_temp_0.07": Stage1Config(
+        supcon_similarity="geodesic", temperature=0.07, **_SWEEP),
+    "supcon_geodesic_temp_0.1": Stage1Config(
+        supcon_similarity="geodesic", temperature=0.1, **_SWEEP),
+    "supcon_geodesic_temp_0.6": Stage1Config(
+        supcon_similarity="geodesic", temperature=0.6, **_SWEEP),
+    "supcon_uniformity": Stage1Config(uniformity_weight=0.2, **_SWEEP),
+    "supcon_uniformity_weight_0.01": Stage1Config(uniformity_weight=0.01,
+                                                  **_SWEEP),
+    "supcon_uniformity_weight_0.05": Stage1Config(uniformity_weight=0.05,
+                                                  **_SWEEP),
+    "supcon_uniformity_weight_0.1": Stage1Config(uniformity_weight=0.1,
+                                                 **_SWEEP),
+    "supcon_uniformity_weight_0.6": Stage1Config(uniformity_weight=0.6,
+                                                 **_SWEEP),
+}
+
+
+def preset(name: str) -> Stage1Config:
+    if name not in EXPERIMENT_PRESETS:
+        raise KeyError(
+            f"unknown experiment preset {name!r}; "
+            f"known: {sorted(EXPERIMENT_PRESETS)}"
+        )
+    return EXPERIMENT_PRESETS[name]
 
 
 # facebook/wav2vec2-xls-r-300m

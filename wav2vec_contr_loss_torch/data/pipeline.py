@@ -1,17 +1,21 @@
 """Host input pipeline: threaded decode, fixed-shape batch assembly and a
 prefetching producer thread.
 
-The port's copy of `Batch`, `BatchPipeline` and `prefetch_to_device` of
-wav2vec_contr_loss_tpu/data/pipeline.py. A thread pool decodes and pads
-clips into numpy batches of static shape (B, samples), with an optional
-host RawBoost pass (rawboost_mode='host'); `prefetch_to_device` runs the
-caller's put function `depth` batches ahead in a background thread. The
-trainer's put pins the host arrays there; its train step issues the
-non-blocking copy to the card from the main thread, on the stream that
-consumes the batch, so no copy races the step that reads it.
+The port's copy of `Batch`, `BatchPipeline`, `prefetch_to_device` and
+`stream_through_device` of wav2vec_contr_loss_tpu/data/pipeline.py. A
+thread pool decodes and pads clips into numpy batches of static shape
+(B, samples), with an optional host RawBoost pass (rawboost_mode='host');
+`prefetch_to_device` runs the caller's put function `depth` batches
+ahead in a background thread. The trainer's put pins the host arrays
+there; its train step makes the non-blocking copy to the card from the
+main thread, on the stream that consumes the batch, so no copy races the
+step that reads it.
 
 Eval iterates sequentially and pads the final partial batch with zero
 clips plus a `valid` mask, keeping every shape identical.
+`stream_through_device` maps a device function over such batches with
+the host decode, the device compute and the copy of results back
+overlapped (extraction and dataset scoring).
 """
 
 from __future__ import annotations
@@ -23,12 +27,14 @@ from dataclasses import dataclass
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from .protocols import SpoofDataset
 from .rawboost import RawBoostParams, apply_rawboost_batch
 from .sampler import BalancedBatchSampler
 
-__all__ = ["Batch", "BatchPipeline", "prefetch_to_device"]
+__all__ = ["Batch", "BatchPipeline", "prefetch_to_device",
+           "stream_through_device"]
 
 
 @dataclass
@@ -201,3 +207,54 @@ def prefetch_to_device(
                 q.get(timeout=0.1)
             except queue.Empty:
                 pass
+
+
+def _start_fetch(out):
+    """Queue the copy of a result (a tensor or a tuple/list of them) to
+    the host. On the card: a non-blocking copy into pinned memory (from
+    PyTorch's caching host allocator) and an event behind it."""
+    parts = list(out) if isinstance(out, (tuple, list)) else [out]
+    if all(p.device.type == "cpu" for p in parts):
+        return out, parts, None
+    host = [p.to("cpu", non_blocking=True) for p in parts]
+    event = torch.cuda.Event()
+    event.record()
+    return out, host, event
+
+
+def _finish_fetch(pending):
+    """Wait for a queued copy; -> numpy arrays in the result's shape."""
+    out, host, event = pending
+    if event is not None:
+        event.synchronize()
+    arrays = [h.numpy() for h in host]
+    if isinstance(out, (tuple, list)):
+        return type(out)(arrays)
+    return arrays[0]
+
+
+def stream_through_device(batches: Iterator, put_fn, apply_fn,
+                          depth: int = 2) -> Iterator:
+    """Map `apply_fn` over `batches` with three stages overlapped:
+
+      * `put_fn(batch)` runs in a background thread `depth` batches ahead
+        (prefetch_to_device): decoding, the int16 wire, pinning;
+      * `apply_fn(put_result)` queues the compute on the device and
+        returns a tensor, or a tuple/list of tensors, without waiting;
+      * each result's copy to the host is queued right behind its compute
+        and waited for only after the next batch's compute is queued, so
+        the copy of batch i-1 overlaps the compute of batch i.
+
+    Yields `(host_result, batch)` pairs in order, the result as numpy."""
+    from collections import deque
+
+    pending: "deque" = deque()
+    for dev, batch in prefetch_to_device(
+            batches, lambda b: (put_fn(b), b), depth=depth):
+        pending.append((_start_fetch(apply_fn(dev)), batch))
+        if len(pending) >= max(depth, 1):
+            fetch, b = pending.popleft()
+            yield _finish_fetch(fetch), b
+    while pending:
+        fetch, b = pending.popleft()
+        yield _finish_fetch(fetch), b

@@ -4,22 +4,28 @@ The port of wav2vec_contr_loss_tpu/eval/serving.py. `SpoofScorer` runs
 the encoder (compute dtype from its config, bf16 on the card), the
 compression module, the clip pooling and the stage-2 head (fp32) on one
 device, and returns one raw logit per clip (higher == more
-bonafide-like). Artifact export and checkpoint loading are not ported.
+bonafide-like). `from_checkpoints` builds it from a port stage-1 and
+stage-2 checkpoint pair; `score_dataset` scores a pipeline's dataset
+with decode, compute and the copy back overlapped. Artifact export is
+not ported.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import Stage2Config, Wav2Vec2Config
+from ..config import Stage2Config, Wav2Vec2Config, config_from_dict
+from ..data.pipeline import BatchPipeline, stream_through_device
 from ..device import resolve_device
 from ..models.compression import CompressionModule, clip_embedding
 from ..models.heads import build_head
 from ..models.wav2vec2 import Wav2Vec2Encoder
 from ..ops.wire import dequantize_wire, quantize_wire
+from ..train import checkpoint as ckpt
+from ..train.stage2 import STAGE2_BEST, load_stage2_head
 
 __all__ = ["SpoofScorer", "window_waveform"]
 
@@ -75,7 +81,7 @@ class SpoofScorer:
                 "compression": CompressionModule(enc_config.hidden_size,
                                                  stage2_cfg.in_dim),
                 "head": build_head(stage2_cfg.head_type, stage2_cfg.in_dim,
-                                   stage2_cfg.hidden_dim),
+                                   stage2_cfg.hidden_dim, stage2_cfg.dropout),
             }
         for name, mod in modules.items():
             mod.load_state_dict(weights[name], strict=True, assign=True)
@@ -84,11 +90,36 @@ class SpoofScorer:
         self.compression = modules["compression"]
         self.head = modules["head"]
 
+    @classmethod
+    def from_checkpoints(cls, stage1_dir: str, stage2_dir: str,
+                         stage1_name: str = "best",
+                         stage2_name: str = STAGE2_BEST, device="cuda",
+                         compute_dtype: Optional[str] = None
+                         ) -> "SpoofScorer":
+        """A scorer from a port stage-1 checkpoint (<name>.pt beside its
+        .config.json, as `Stage1Trainer.fit` writes it) and a stage-2 head
+        checkpoint. Only the encoder and compression weights of the
+        stage-1 state are read, not its optimizer moments. The encoder
+        computes in the checkpoint's dtype unless `compute_dtype`
+        ('bfloat16' | 'float32') is given."""
+        extra = ckpt.load_sidecar(stage1_dir, stage1_name)["extra"]
+        enc_config = config_from_dict(extra["enc_config"])
+        if compute_dtype is not None:
+            enc_config = enc_config.with_(dtype=compute_dtype)
+        s1 = extra["stage1_config"]
+        weights = ckpt.restore_parts(stage1_dir, stage1_name,
+                                     ("encoder", "compression"))
+        cfg2, weights["head"] = load_stage2_head(stage2_dir, stage2_name)
+        return cls(enc_config, weights, cfg2,
+                   sample_rate=s1["target_sample_rate"],
+                   max_duration_seconds=s1["max_duration_seconds"],
+                   device=device)
+
     @torch.inference_mode()
     def run(self, waves: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, T) float32 or int16-wire waveforms -> ((B, H) clip
         embeddings, (B,) logits), both fp32 on the scorer's device."""
-        waves = dequantize_wire(waves.to(self.device))
+        waves = dequantize_wire(waves.to(self.device, non_blocking=True))
         enc_out = self.encoder(waves, waves != 0.0)
         z = clip_embedding(self.compression(enc_out["layer_mean"]))
         return z, self.head(z)
@@ -131,3 +162,20 @@ class SpoofScorer:
             off += w.shape[0]
         return out
 
+    def score_dataset(self, pipe: BatchPipeline
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (logits, labels) of the valid rows of `pipe`'s dataset in
+        order, float32 waveforms; decode, compute and the copy back
+        overlap (stream_through_device)."""
+        pin = self.device.type == "cuda"
+
+        def put(b):
+            w = torch.from_numpy(np.asarray(b.waveforms, np.float32))
+            return w.pin_memory() if pin else w
+
+        logits, labels = [], []
+        for lg, b in stream_through_device(pipe.sequential(), put,
+                                           lambda w: self.run(w)[1]):
+            logits.append(lg[b.valid])
+            labels.append(b.labels[b.valid])
+        return np.concatenate(logits), np.concatenate(labels)

@@ -1,4 +1,4 @@
-"""Encoder, compression module and stage-2 heads, in eval mode."""
+"""Encoder, compression module and stage-2 heads."""
 
 from .compression import CompressionModule, clip_embedding
 from .heads import LinearBinaryHead, SmallMLPBinaryHead, build_head

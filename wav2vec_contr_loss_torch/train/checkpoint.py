@@ -40,7 +40,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "load_sidecar",
+__all__ = ["save_checkpoint", "restore_checkpoint", "restore_parts",
+           "load_sidecar",
            "checkpoint_exists", "alias_checkpoint", "wait_for_saves",
            "resume_cursor", "snapshot_for_save", "checkpoint_bytes"]
 
@@ -228,6 +229,20 @@ def restore_checkpoint(directory: str, name: str
         sidecar = json.load(f)
     state = torch.load(state_path, map_location="cpu", weights_only=True)
     return state, sidecar
+
+
+def restore_parts(directory: str, name: str, parts) -> Dict[str, Any]:
+    """-> {part: state[part]} for the named top-level parts of a state,
+    as CPU tensors mapped from the file: the bytes of the other parts
+    (an optimizer's moments, say) are never read."""
+    wait_for_saves()
+    found = _resolve(_base(directory, name))
+    if found is None:
+        raise FileNotFoundError(f"no checkpoint at "
+                                f"{_base(directory, name)}{_STATE}")
+    state = torch.load(found[0], map_location="cpu", weights_only=True,
+                       mmap=True)
+    return {p: state[p] for p in parts}
 
 
 def load_sidecar(directory: str, name: str) -> Dict:

@@ -2,9 +2,9 @@
 
 The port of `Stage1Trainer` of wav2vec_contr_loss_tpu/train/stage1.py:
 `train_step` (:355-404), `eval_step` (:406-410), `embed_step` with their
-shared `_embed` (:296-320), the epoch loop `fit` (:453-616) and the
-checkpoint reload `restore` / `from_checkpoint` (:727-768). One step
-runs, on one device:
+shared `_embed` (:296-320), the epoch loop `fit` (:453-616), the
+extraction pass `embed_dataset` (:703-724) and the checkpoint reload
+`restore` / `from_checkpoint` (:727-768). One step runs, on one device:
 
   waveforms -> device RawBoost (ops/rawboost.py, when
   rawboost_mode='device') -> Wav2Vec2 encoder (train mode: dropout,
@@ -22,8 +22,8 @@ a generator seeded with that step's seed. The trainer holds its state
 (parameters, optimizer, step, generator) and `state_dict` /
 `load_state_dict` move all of it, so a resumed run continues bit for bit.
 
-Not ported: the multiclass loss mode, `from_features` with
-`fit_from_features`, and `embed_dataset`.
+Not ported: the multiclass loss mode and `from_features` with
+`fit_from_features`.
 """
 
 from __future__ import annotations
@@ -31,14 +31,15 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, Iterator, Mapping, Optional
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import (Stage1Config, SupConConfig, Wav2Vec2Config,
                       config_from_dict)
-from ..data.pipeline import Batch, BatchPipeline, prefetch_to_device
+from ..data.pipeline import (Batch, BatchPipeline, prefetch_to_device,
+                             stream_through_device)
 from ..device import resolve_device
 from ..models.compression import CompressionModule, clip_embedding
 from ..models.wav2vec2 import Wav2Vec2Encoder
@@ -207,20 +208,36 @@ class Stage1Trainer:
         self.gen.set_state(state["gen"])
 
     # --------------------------------------------------------------- data
+    def _put(self, b: Batch) -> Dict[str, torch.Tensor]:
+        """A host batch as tensors in the wire dtype, pinned on the card
+        (run in the prefetch thread)."""
+        out = {"waveforms": torch.from_numpy(
+                   quantize_wire(b.waveforms)
+                   if self.cfg.wire_dtype == "int16" else b.waveforms),
+               "labels": torch.from_numpy(b.labels.astype(np.int64))}
+        if self.device.type == "cuda":
+            return {k: v.pin_memory() for k, v in out.items()}
+        return out
+
     def _device_batches(self, batches: Iterator[Batch]) -> Iterator[Dict]:
         """Prefetch two batches ahead: the producer thread decodes and, on
         the card, pins the host arrays; `train_step` copies them with
         non_blocking=True from this thread, on the stream it computes on."""
-        wire16 = self.cfg.wire_dtype == "int16"
-        pin = self.device.type == "cuda"
+        return prefetch_to_device(batches, self._put, depth=2)
 
-        def put(b: Batch) -> Dict[str, torch.Tensor]:
-            out = {"waveforms": torch.from_numpy(
-                       quantize_wire(b.waveforms) if wire16 else b.waveforms),
-                   "labels": torch.from_numpy(b.labels.astype(np.int64))}
-            return {k: v.pin_memory() for k, v in out.items()} if pin else out
-
-        return prefetch_to_device(batches, put, depth=2)
+    # --------------------------------------------------------- extraction
+    def embed_dataset(self, pipe: BatchPipeline
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Eval-mode forward over `pipe`'s dataset in order -> ((N, D)
+        float32 embeddings, (N,) labels) of its valid rows. The batches
+        ride the int16 wire when cfg.wire_dtype says so; decode, compute
+        and the copy back overlap (stream_through_device)."""
+        zs, ys = [], []
+        for z, b in stream_through_device(pipe.sequential(), self._put,
+                                          self.embed_step):
+            zs.append(z[b.valid])
+            ys.append(b.labels[b.valid])
+        return np.concatenate(zs), np.concatenate(ys)
 
     # ---------------------------------------------------------------- fit
     def fit(self, train_pipe: BatchPipeline,
