@@ -57,7 +57,24 @@
    `generate_scores` -> score_cm_eval.txt -> EER, and
    `SpoofScorer.from_checkpoints` against the score file and, on 4 clips,
    against an fp32 CPU scorer from the same checkpoints.
-8. Prints one JSON line with every kernel's numbers, then the result
+8. Front-door phase, after the serve phase: with the port's own
+   writers, a finetuned reference stage-1 .pt (encoder under
+   `module.model.`, positional conv as weight_g/weight_v), a frozen one,
+   a linear stage-2 .pt and an HF snapshot (config.json +
+   model.safetensors) at XLS-R-300M width from the seed-0 weights;
+   converted back by convert_hf_checkpoint and
+   convert_reference_checkpoint (the frozen one through --encoder_init)
+   and held to the originals; a corpus of 64 clips of 3-7 s, half FLAC
+   (tests/flac_writer.py) and half WAV, plus a missing path, served by
+   ScoringServer on 127.0.0.1 (batch 8, max_wait 5 ms) from the converted
+   checkpoints to 16 client threads, bare and tagged lines, with the
+   launch counters reset just before the server starts and read after
+   it stops (24 attention and 7 LN+GELU forwards a batch, nothing else);
+   every reply against SpoofScorer.score_waveforms on the same decoded
+   clip, exactly one failed decode; requests/s, latency and occupancy;
+   then `python -m wav2vec_contr_loss_torch serve --list` and `--windowed
+   mean` and `doctor` as processes of their own.
+9. Prints one JSON line with every kernel's numbers, then the result
    line. Any failure exits non-zero before the result line.
 
 Needs torch with CUDA, triton and nvcc; imports nothing of JAX.
@@ -1459,6 +1476,447 @@ def pipeline_phase(dev, tmp: str) -> dict:
             "eer": eer, "phase_s": phase_s}
 
 
+# ---------------------------------------------------------- front door
+FRONT_CLIPS = 64                 # the served corpus: half FLAC, half WAV
+FRONT_CLIENTS = 16
+FRONT_BATCH = 8
+FRONT_WAIT_MS = 5.0
+# the server against SpoofScorer.score_waveforms on the same decoded clip:
+# both bf16 on the card, same batch shape, other batch neighbours
+FRONT_LOGIT_TOL = 1e-2
+# `serve --windowed` against score_long_waveforms on the same 8 windows
+# in one batch: the logits are printed with 6 decimals
+WINDOWED_TOL = 1e-5
+POS_CONV_KEY = "encoder.pos_conv_embed.conv.weight"
+
+
+def load_flac_writer():
+    """tests/flac_writer.py, loaded by path (it needs only numpy)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "flac_writer.py")
+    spec = importlib.util.spec_from_file_location("flac_writer", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_front_door_corpus(root: str, n: int, seed: int,
+                            seconds=(3.0, 7.0), sr: int = 16000) -> list:
+    """n clips of seeded length in `seconds`, tones and noise, 16-bit:
+    the even ones FLAC (tests/flac_writer.py, verbatim and fixed-order
+    subframes in turn), the odd ones WAV. -> their paths."""
+    from wav2vec_contr_loss_torch.data.audio import write_wav
+
+    flac = load_flac_writer()
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        t = int(rng.uniform(*seconds) * sr)
+        x = (0.4 * np.sin(2 * np.pi * (200 + 40 * (i % 5)) * np.arange(t)
+                          / sr) if i % 4 < 2 else 0.2 * rng.standard_normal(t))
+        x = np.clip(x, -1.0, 1.0).astype(np.float32)
+        if i % 2 == 0:
+            path = os.path.join(root, f"clip_{i:03d}.flac")
+            flac.write_flac(path, (x * 32767.0).astype(np.int16), sr,
+                            subframe_mode=("verbatim", "fixed1")[i // 2 % 2])
+        else:
+            path = os.path.join(root, f"clip_{i:03d}.wav")
+            write_wav(path, x, sr)
+        paths.append(path)
+    return paths
+
+
+def write_reference_files(tmp: str, cfg, weights, model_name: str) -> dict:
+    """With the port's own writers: a finetuned reference stage-1 .pt (the
+    encoder under `module.model.`, its positional conv as
+    weight_g/weight_v), the same run frozen (no encoder), a linear
+    stage-2 .pt and an HF snapshot of the encoder. -> their paths."""
+    from wav2vec_contr_loss_torch.models.export_hf import save_hf_checkpoint
+    from wav2vec_contr_loss_torch.models.ref_convert import \
+        reference_encoder_state_dict
+
+    comp, head = weights["compression"], weights["head"]
+    config = {"MODEL_NAME": model_name, "INPUT_DIM": cfg.hidden_size,
+              "HIDDEN_DIM": comp["proj.weight"].shape[0],
+              "FINETUNE_ENCODER": True}
+    comp_sd = {"mlp3.weight": comp["proj.weight"],
+               "mlp3.bias": comp["proj.bias"]}
+    out = {k: os.path.join(tmp, f) for k, f in (
+        ("stage1", "stage1_finetuned.pt"), ("stage1_frozen",
+                                            "stage1_frozen.pt"),
+        ("stage2", "stage2_binary_head_best.pt"), ("hf", "hf_snapshot"))}
+    torch.save({"epoch": 7, "compression_state_dict": comp_sd,
+                "encoder_state_dict": reference_encoder_state_dict(
+                    cfg, weights["encoder"], prefix="module.model."),
+                "train_loss": 0.5, "dev_loss": 0.6, "config": config},
+               out["stage1"])
+    torch.save({"epoch": 7, "compression_state_dict": comp_sd,
+                "train_loss": 0.5, "dev_loss": 0.6,
+                "config": dict(config, FINETUNE_ENCODER=False)},
+               out["stage1_frozen"])
+    torch.save({"epoch": 3, "model_state_dict": {
+                    "fc.weight": head["fc.weight"], "fc.bias": head["fc.bias"]},
+                "dev_eer": 0.1, "config": {
+                    "HEAD_TYPE": "linear",
+                    "IN_DIM": comp["proj.weight"].shape[0]}},
+               out["stage2"])
+    save_hf_checkpoint(out["hf"], cfg, weights["encoder"])
+    return out
+
+
+def convert_front_door(tmp: str, files: dict, hf_config=None) -> dict:
+    """The four files back through the two convert CLIs; the frozen
+    stage 1 through --encoder_init. -> the output directories."""
+    from wav2vec_contr_loss_torch.cli import (convert_hf_checkpoint,
+                                              convert_reference_checkpoint)
+
+    dirs = {k: os.path.join(tmp, k) for k in (
+        "encoder_init", "stage1", "stage1_frozen", "stage2")}
+    arch = [] if hf_config is None else ["--hf_config", hf_config]
+    convert_hf_checkpoint.main(["--src", files["hf"],
+                                "--out", dirs["encoder_init"]])
+    convert_reference_checkpoint.main(["--src", files["stage1"],
+                                       "--out", dirs["stage1"], *arch])
+    convert_reference_checkpoint.main([
+        "--src", files["stage1_frozen"], "--out", dirs["stage1_frozen"],
+        "--encoder_init", dirs["encoder_init"]])
+    convert_reference_checkpoint.main(["--src", files["stage2"],
+                                       "--out", dirs["stage2"]])
+    return dirs
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance in units in the last place of two float32
+    tensors of one sign pattern."""
+    return (a.contiguous().view(torch.int32).long()
+            - b.contiguous().view(torch.int32).long()).abs()
+
+
+def compare_converted(weights, dirs: dict) -> dict:
+    """Every converted tensor against the original: bit for bit, except
+    the positional conv kernel, which went through the weight-norm pair
+    (g·v/||v|| in fp32 is no identity) and is held to one ulp. Raises on
+    a difference. -> {'tensors', 'bit_equal', 'pos_conv_off',
+    'pos_conv_elems'}."""
+    from wav2vec_contr_loss_torch.models.hf_convert import load_encoder_init
+    from wav2vec_contr_loss_torch.train import checkpoint as ckpt
+
+    got = {}
+    for name in ("encoder_init", "stage1", "stage1_frozen"):
+        cfg_name = "encoder" if name == "encoder_init" else "best"
+        parts = ckpt.restore_parts(dirs[name], cfg_name,
+                                   ("encoder",) if name == "encoder_init"
+                                   else ("encoder", "compression"))
+        for part, sd in parts.items():
+            got[f"{name}.{part}"] = (weights[part], sd)
+    got["stage2.head"] = (weights["head"],
+                          ckpt.restore_checkpoint(dirs["stage2"],
+                                                  "stage2_binary_head_best")[0])
+    load_encoder_init(dirs["encoder_init"])   # the --encoder_init reader
+    n = equal = off = elems = 0
+    bad = []
+    for where, (want, have) in got.items():
+        if set(want) != set(have):
+            bad.append(f"{where}: keys differ")
+            continue
+        for k, w in want.items():
+            h = have[k]
+            n += 1
+            if h.dtype == w.dtype and torch.equal(h, w):
+                equal += 1
+            elif k == POS_CONV_KEY and h.dtype == w.dtype:
+                d = ulps(h, w)
+                off += int((d > 0).sum())
+                elems += d.numel()
+                if int(d.max()) > 1:
+                    bad.append(f"{where}.{k}: {int(d.max())} ulps")
+            else:
+                bad.append(f"{where}.{k}")
+    if bad:
+        raise RuntimeError(f"converted weights differ: {bad[:8]}")
+    return {"tensors": n, "bit_equal": equal, "pos_conv_off": off,
+            "pos_conv_elems": elems}
+
+
+def client_requests(paths: list, clients: int) -> list:
+    """Each client's request lines: the paths dealt round-robin, every
+    other line tagged `<id>\\t<path>`, the others bare."""
+    out = [[] for _ in range(clients)]
+    for i, p in enumerate(paths):
+        out[i % clients].append(p if i % 2 == 0 else f"id{i:03d}\t{p}")
+    return out
+
+
+def run_clients(address, requests: list) -> tuple:
+    """One thread and one connection a client; each sends a line, waits
+    for its reply, then sends the next. -> ({line: reply logit}, request
+    latencies in seconds, wall seconds). Raises unless every request is
+    answered exactly once, in order, with its tag."""
+    import socket
+    import threading
+
+    replies, latencies, errors = {}, [], []
+    lock = threading.Lock()
+
+    def client(lines):
+        try:
+            with socket.create_connection(address, timeout=120) as s:
+                f = s.makefile("rw", encoding="utf-8", newline="\n")
+                got = []
+                for line in lines:
+                    t0 = time.perf_counter()
+                    f.write(line + "\n")
+                    f.flush()
+                    reply = f.readline()
+                    dt = time.perf_counter() - t0
+                    tag, _, value = reply.rstrip("\n").partition("\t")
+                    want = line.partition("\t")[0]
+                    if tag != want:
+                        raise RuntimeError(f"reply {reply!r} to {line!r}")
+                    got.append((line, float(value), dt))
+                s.shutdown(socket.SHUT_WR)
+                if f.readline():
+                    raise RuntimeError("a reply beyond the requests")
+            with lock:
+                for line, value, dt in got:
+                    replies[line] = value
+                    latencies.append(dt)
+        except Exception as e:  # reported after the join
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(lines,))
+               for lines in requests]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    n = sum(len(r) for r in requests)
+    if errors or any(t.is_alive() for t in threads) or len(replies) != n:
+        raise RuntimeError(f"clients: {len(replies)} of {n} answered; "
+                           f"{errors[:3]}")
+    return replies, latencies, wall
+
+
+def reference_logits(scorer, paths: list, batch: int) -> np.ndarray:
+    """SpoofScorer.score_waveforms on each path's decoded and padded clip,
+    in batches of `batch` zero-padded at the end."""
+    from wav2vec_contr_loss_torch.data import AudioConfig, AudioLoader
+
+    loader = AudioLoader(AudioConfig(16000, 5))
+    waves = np.stack([loader.load(p) for p in paths])
+    pad = -len(paths) % batch
+    waves = np.concatenate([waves, np.zeros((pad, waves.shape[1]),
+                                            np.float32)])
+    return np.concatenate([scorer.score_waveforms(waves[i:i + batch])
+                           for i in range(0, len(waves), batch)])[:len(paths)]
+
+
+def run_clis(commands: dict, timeout: int = 300) -> dict:
+    """`python -m wav2vec_contr_loss_torch <args>` for each named argument
+    list, all started together from the repo's root. -> {name: stdout}.
+    Raises if one exits non-zero; kills any still running on the way
+    out."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "wav2vec_contr_loss_torch", *args], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in commands.items()}
+    out, failed = {}, []
+    try:
+        for name, proc in procs.items():
+            out[name], err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                print(out[name][-3000:])
+                print(err[-3000:], file=sys.stderr)
+                failed.append(f"{name} exited {proc.returncode}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError(f"front-door processes failed: {failed}")
+    return out
+
+
+def front_door_phase(dev, results) -> dict:
+    """Reference .pt files and an HF snapshot at XLS-R-300M width, written
+    by the port's writers from the seed-0 weights, converted back by the
+    CLIs and held to the originals; a 64-clip FLAC and WAV corpus plus a
+    missing path served by ScoringServer (batch 8, max_wait 5 ms) to 16
+    concurrent clients from the converted checkpoints, each reply against
+    SpoofScorer.score_waveforms, with the launch counters reset just
+    before the server starts and read after it stops; then `serve --list`
+    and `serve --windowed mean` and `doctor` as subprocesses."""
+    import shutil
+    import tempfile
+    import threading
+
+    from wav2vec_contr_loss_torch import XLSR_300M, SpoofScorer
+    from wav2vec_contr_loss_torch.data import AudioConfig, AudioLoader
+    from wav2vec_contr_loss_torch.data.audio import native_decoder, write_wav
+    from wav2vec_contr_loss_torch.data.pipeline import _finish_fetch
+    from wav2vec_contr_loss_torch.eval.server import ScoringServer
+
+    t_phase = time.perf_counter()
+    native_decoder()   # built at set-up, not inside the first request
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_front_")
+    try:
+        t0 = time.perf_counter()
+        files = write_reference_files(tmp, XLSR_300M, xlsr_weights(),
+                                      "facebook/wav2vec2-xls-r-300m")
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dirs = convert_front_door(tmp, files)
+        convert_s = time.perf_counter() - t0
+        cmp = compare_converted(xlsr_weights(), dirs)
+        print(f"front door: wrote a finetuned and a frozen reference "
+              f"stage-1 .pt, a stage-2 .pt and an HF snapshot in "
+              f"{write_s:.1f} s; converted them with the CLIs in "
+              f"{convert_s:.1f} s; {cmp['bit_equal']} of {cmp['tensors']} "
+              f"tensors bit-equal to the originals, the rest the "
+              f"positional conv kernel through g·v/||v||: "
+              f"{cmp['pos_conv_off']} of {cmp['pos_conv_elems']} elements "
+              f"one ulp off, none further")
+
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        t0 = time.perf_counter()
+        paths = write_front_door_corpus(corpus, FRONT_CLIPS, seed=31)
+        corpus_s = time.perf_counter() - t0
+        missing = os.path.join(corpus, "missing.flac")
+        served = paths + [missing]
+
+        scorer = SpoofScorer.from_checkpoints(dirs["stage1"], dirs["stage2"],
+                                              device=dev)
+        server = ScoringServer(scorer, "127.0.0.1", 0, batch=FRONT_BATCH,
+                               max_wait_ms=FRONT_WAIT_MS,
+                               log_fn=lambda m: None)
+        # the collector's work for one batch makes no host sync
+        probe = np.zeros((FRONT_BATCH, scorer.num_samples), np.float32)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = server.batcher.dispatch(probe)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _finish_fetch(pending)
+        serving = threading.Thread(target=server.serve_forever)
+        serving.start()
+        # one request first: the collector thread's first batch creates
+        # its own cuBLAS and cuDNN handles
+        _, first, _ = run_clients(server.address, [[paths[0]]])
+        failed0 = AudioLoader.failed_count
+        torch.cuda.synchronize()
+        _reset_counters()
+        batches0 = server.batcher.n_batches
+        replies, lat, wall = run_clients(server.address, client_requests(
+            served, FRONT_CLIENTS))
+        stats = server.shutdown()
+        serving.join(timeout=60)
+        torch.cuda.synchronize()
+        counts = _counters()
+        n_failed = AudioLoader.failed_count - failed0
+        nb = stats["batches"] - batches0
+        occupancy = len(served) / (nb * FRONT_BATCH)
+        if serving.is_alive():
+            raise RuntimeError("the server's accept loop outlived shutdown")
+        want = {"attention_fwd": XLSR_300M.num_layers * nb,
+                "attention_bwd": 0, "ln_gelu_fwd": 7 * nb, "ln_gelu_bwd": 0,
+                "supcon": 0}
+        print(f"front door: server launches over {nb} batches {counts}, "
+              f"expected {want}; failed decodes {n_failed} (expected 1, the "
+              f"missing path)")
+        if counts != want or n_failed != 1:
+            raise RuntimeError("server launch counts or failed decodes "
+                               "differ")
+        by_path = {line.partition("\t")[2] or line: v
+                   for line, v in replies.items()}
+        got = np.array([by_path[p] for p in served])
+        ref = reference_logits(scorer, served, FRONT_BATCH)
+        gap = float(np.abs(got - ref).max())
+        if not np.isfinite(got).all():
+            raise RuntimeError("non-finite server logits")
+        p50, p90 = (1e3 * float(x) for x in np.percentile(lat, [50, 90]))
+        print(f"front door: {len(served)} requests ({FRONT_CLIPS // 2} "
+              f"FLAC, {FRONT_CLIPS // 2} WAV of 3-7 s, 1 missing) from "
+              f"{FRONT_CLIENTS} clients, one request in flight each: "
+              f"{len(served) / wall:.1f} requests/s, latency p50 "
+              f"{p50:.2f} ms p90 {p90:.2f} ms, {nb} batches, occupancy "
+              f"{occupancy:.3f}; the first request after start "
+              f"{1e3 * first[0]:.2f} ms; largest |server - score_waveforms| "
+              f"{gap:.3e} (tol {FRONT_LOGIT_TOL}); corpus written in "
+              f"{corpus_s:.1f} s [{CARD}]")
+        if not gap <= FRONT_LOGIT_TOL:
+            raise RuntimeError("server logits disagree with the scorer")
+
+        # serve --list, serve --windowed and doctor, each in a process of
+        # its own on the card, all three at once
+        listing = os.path.join(tmp, "paths.txt")
+        with open(listing, "w") as f:
+            f.write("\n".join(served) + "\n")
+        rng = np.random.default_rng(32)
+        long_paths = []
+        for i in range(2):
+            p = os.path.join(tmp, f"long_{i}.wav")
+            write_wav(p, (0.2 * rng.standard_normal(12 * 16000)
+                          ).astype(np.float32))
+            long_paths.append(p)
+        long_listing = os.path.join(tmp, "long.txt")
+        with open(long_listing, "w") as f:
+            f.write("\n".join(long_paths) + "\n")
+        ckpts = ["--stage1_dir", dirs["stage1"], "--stage2_dir",
+                 dirs["stage2"]]
+        t0 = time.perf_counter()
+        outs = run_clis({
+            "serve --list": ["serve", *ckpts, "--list", listing],
+            "serve --windowed": ["serve", *ckpts, "--list", long_listing,
+                                 "--windowed", "mean"],
+            "doctor": ["doctor"]})
+        cli_s = time.perf_counter() - t0
+        lines = [ln.split("\t") for ln in outs["serve --list"].splitlines()]
+        if [ln[0] for ln in lines] != served:
+            raise RuntimeError("serve --list did not print one line a path "
+                               "in order")
+        cli_gap = float(np.abs(np.array([float(ln[1]) for ln in lines])
+                               - got).max())
+        print(f"front door: serve --list, serve --windowed and doctor as "
+              f"three processes at once in {cli_s:.1f} s (start and "
+              f"checkpoint loads included); serve --list: {len(lines)} "
+              f"lines, largest |serve - server| {cli_gap:.3e} (tol "
+              f"{FRONT_LOGIT_TOL})")
+        if not cli_gap <= FRONT_LOGIT_TOL:
+            raise RuntimeError("serve --list disagrees with the server")
+
+        full = AudioLoader(AudioConfig(16000, None))
+        want_win = scorer.score_long_waveforms(
+            [full.load(p) for p in long_paths], agg="mean")
+        win = np.array([float(ln.split("\t")[1])
+                        for ln in outs["serve --windowed"].splitlines()])
+        win_gap = float(np.abs(win - want_win).max())
+        print(f"front door: serve --windowed mean on two 12 s clips "
+              f"{win.tolist()} vs score_long_waveforms {want_win.tolist()}: "
+              f"|d| {win_gap:.3e} (tol {WINDOWED_TOL})")
+        if win.shape != (2,) or not win_gap <= WINDOWED_TOL:
+            raise RuntimeError("serve --windowed disagrees with "
+                               "score_long_waveforms")
+        print("\n".join(f"front door: doctor: {ln}"
+                        for ln in outs["doctor"].splitlines()))
+        del scorer, server
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, n in counts.items():
+        results[name]["front_door_launches"] = n
+    phase_s = time.perf_counter() - t_phase
+    print(f"front door phase: {phase_s:.1f} s [{CARD}]")
+    return {"requests_per_s": len(served) / wall, "p50_ms": p50,
+            "p90_ms": p90, "occupancy": occupancy, "gap": gap}
+
+
 def read_card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1511,6 +1969,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 1
+    from wav2vec_contr_loss_torch.data.audio import native_decoder
     from wav2vec_contr_loss_torch.ops import _build
 
     global CARD
@@ -1527,6 +1986,10 @@ def main() -> int:
     _build.build(names)
     print(f"build: {names} with nvcc in {time.perf_counter() - t0:.1f} s "
           f"into {_build.BUILD_DIR}")
+    t0 = time.perf_counter()
+    lib = native_decoder()
+    print(f"build: the native audio decoder {lib._name} with g++ in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -1537,6 +2000,7 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_phase(dev, results)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s")
+    front_door_phase(dev, results)
     t0 = time.perf_counter()
     off_profile = train_phase(dev, results)
     step_vs_cpu(dev)

@@ -1,16 +1,23 @@
 """chip_smoke.py's CPU-reachable parts: its seeded random weights have
 exactly the JAX package's tree layout, and its serving path and its train
 phase's model run at the XLS-R-300M widths (depth cut to one or two
-layers, 1 s clips) on the CPU."""
+layers, 1 s clips) on the CPU, and the front-door phase's helpers run at
+a small width on the CPU."""
+
+import threading
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
-from chip_smoke import (expected_extract_launches, expected_train_launches,
-                        random_jax_trees, serving_waves, train_batch,
-                        write_corpus)
+from chip_smoke import (client_requests, compare_converted,
+                        convert_front_door, expected_extract_launches,
+                        expected_train_launches, random_jax_trees,
+                        reference_logits, run_clients, serving_waves,
+                        train_batch, ulps, write_corpus,
+                        write_front_door_corpus, write_reference_files)
 from tests.test_torch_bridge import jax_config, jax_trees, port_config
 from wav2vec_contr_loss_torch import (XLSR_300M, SpoofScorer, Stage1Config,
                                       Stage1Trainer, Stage2Config,
@@ -94,3 +101,55 @@ def test_pipeline_phase_extraction_on_cpu(tmp_path):
     assert expected_extract_launches(XLSR_300M, 4) == {
         "attention_fwd": 96, "attention_bwd": 0, "ln_gelu_fwd": 28,
         "ln_gelu_bwd": 0, "supcon": 0}
+
+
+def test_front_door_helpers_on_cpu(tmp_path):
+    """The front-door phase at a small width on the CPU: the reference
+    files written by the port's writers convert back through the CLIs to
+    the original tensors (the positional conv within one ulp), and
+    ScoringServer answers 3 clients' bare and tagged lines over a FLAC and
+    WAV corpus and a missing path, each once, with the scorer's logits."""
+    from wav2vec_contr_loss_torch.data import AudioLoader
+    from wav2vec_contr_loss_torch.eval.server import ScoringServer
+
+    cfg = port_config(jax_config("xlsr"))
+    weights = jax_params_to_torch(cfg, *random_jax_trees(cfg, comp_dim=16))
+    files = write_reference_files(str(tmp_path), cfg, weights, "test/small")
+    dirs = convert_front_door(str(tmp_path), files, hf_config=str(
+        tmp_path / "hf_snapshot" / "config.json"))
+    cmp = compare_converted(weights, dirs)
+    # encoder_init, stage1 and stage1_frozen each hold one pos-conv kernel
+    assert cmp["bit_equal"] >= cmp["tensors"] - 3
+    assert cmp["pos_conv_off"] < cmp["pos_conv_elems"]
+    a = torch.tensor([1.0, -2.0, 0.5])
+    b = torch.nextafter(a, torch.tensor(10.0))
+    assert ulps(a, b).tolist() == [1, 1, 1] and ulps(a, a).sum() == 0
+
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    paths = write_front_door_corpus(str(corpus), 6, seed=3,
+                                    seconds=(0.5, 1.5))
+    assert sum(p.endswith(".flac") for p in paths) == 3
+    served = paths + [str(corpus / "missing.flac")]
+    scorer = SpoofScorer.from_checkpoints(dirs["stage1"], dirs["stage2"],
+                                          device="cpu",
+                                          compute_dtype="float32")
+    server = ScoringServer(scorer, "127.0.0.1", 0, batch=4, max_wait_ms=5,
+                           log_fn=lambda m: None)
+    thread = threading.Thread(target=server.serve_forever)
+    failed0 = AudioLoader.failed_count
+    thread.start()
+    try:
+        requests = client_requests(served, 3)
+        assert any("\t" in r for r in requests[0])
+        replies, lat, _ = run_clients(server.address, requests)
+    finally:
+        stats = server.shutdown()
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+    assert AudioLoader.failed_count - failed0 == 1
+    assert stats["clips"] == len(served) == len(lat)
+    got = np.array([replies[r] for c in requests for r in c])
+    order = [r.partition("\t")[2] or r for c in requests for r in c]
+    ref = reference_logits(scorer, order, 4)
+    np.testing.assert_allclose(got, ref, atol=1e-5)

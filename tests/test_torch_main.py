@@ -1,0 +1,71 @@
+"""The port's front door: `python -m wav2vec_contr_loss_torch` lists
+exactly the commands the port has, refuses an unknown one, passes
+`--help` to every command, and `doctor --device cpu` reports the card's
+checks as absent and fails. ~10 s alone."""
+
+import importlib
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+from tests.test_torch_bridge import cap_torch_threads
+from wav2vec_contr_loss_torch import __main__ as front, cli
+from wav2vec_contr_loss_torch.cli import doctor
+
+cap_torch_threads()
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(*args):
+    return subprocess.run([sys.executable, "-m", "wav2vec_contr_loss_torch",
+                           *args], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_lists_exactly_the_port_commands():
+    modules = {m.name for m in pkgutil.iter_modules(cli.__path__)
+               if hasattr(importlib.import_module(f"{cli.__name__}.{m.name}"),
+                          "main")}
+    assert set(front.COMMANDS) == modules
+    out = _run()
+    assert out.returncode == 0
+    listed = [ln.split()[0] for ln in out.stdout.splitlines()
+              if ln.startswith("  ")]
+    assert listed == list(front.COMMANDS)
+    # commands of the JAX package the port does not have are not listed
+    for absent in ("train_baseline", "export_serving", "cache_waveforms",
+                   "verify_parity", "bench_components"):
+        assert absent not in listed
+
+
+def test_unknown_command_exits_2():
+    out = _run("no_such_command")
+    assert out.returncode == 2
+    assert "unknown command" in out.stderr
+
+
+@pytest.mark.parametrize("command", list(front.COMMANDS))
+def test_every_command_takes_help(command, capsys):
+    with pytest.raises(SystemExit) as e:
+        front.main([command, "--help"])
+    assert e.value.code == 0
+    assert "usage:" in capsys.readouterr().out
+
+
+def test_doctor_on_the_cpu_names_the_absent_card(capsys):
+    with pytest.raises(SystemExit) as e:
+        doctor.main(["--device", "cpu"])
+    assert e.value.code == 1
+    out = capsys.readouterr().out
+    for name in ("card", "nvcc", "triton", "CUDA kernel builds"):
+        assert f"[FAIL] {name}: absent (--device cpu)" in out
+    for name in ("native audio decoder", "eval forward (tiny encoder)",
+                 "checkpoint write/restore"):
+        assert f"[ ok ] {name}:" in out
+    assert "launches attention 0, LN+GELU 0" in out
+    assert "cache" not in out          # the port has no waveform cache yet
+    assert "==> doctor: 3/7 checks passed" in out

@@ -100,7 +100,8 @@ def test_scorer_defaults_to_the_gpu():
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one has JAX loaded), importing every
     module of the port and chip_smoke.py loads no JAX, flax or JAX-package
-    module."""
+    module, and none of transformers, safetensors, soundfile or librosa,
+    which the machine with the card does not have."""
     code = (
         "import importlib, pkgutil, sys\n"
         "before = set(sys.modules)\n"
@@ -112,14 +113,16 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-        "                                    'wav2vec_contr_loss_tpu'))\n"
+        "                                    'wav2vec_contr_loss_tpu',\n"
+        "                                    'transformers', 'safetensors',\n"
+        "                                    'soundfile', 'librosa'))\n"
         "assert not bad, bad\n"
         "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     walked = set(out.stdout.split())
-    assert len(walked) >= 49   # every submodule was walked
+    assert len(walked) >= 60   # every submodule was walked
     # the stage-1 pipeline, device RawBoost, checkpoints and the CLI; the
     # inference half (metrics, score files, BCE, stage 2, extraction,
     # plots) and its CLIs
@@ -130,4 +133,9 @@ def test_port_imports_no_jax():
         "eval.metrics", "eval.score", "eval.extract", "losses.bce",
         "train.stage2", "viz", "viz.umap_plots", "cli.extract_embeddings",
         "cli.train_stage2", "cli.generate_scores", "cli.eval_scores",
-        "cli.plot_umap", "cli.run_pipeline")} <= walked
+        "cli.plot_umap", "cli.run_pipeline",
+        # the serving front door: conversion, the server, the CLIs
+        "models.hf_convert", "models.export_hf", "models.ref_convert",
+        "eval.server", "cli.serve", "cli.convert_hf_checkpoint",
+        "cli.convert_reference_checkpoint", "cli.export_hf_checkpoint",
+        "cli.export_reference_checkpoint", "cli.doctor", "__main__")} <= walked

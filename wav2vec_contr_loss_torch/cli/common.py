@@ -5,14 +5,12 @@ common.py that stage-1 training, extraction and run_pipeline need."""
 from __future__ import annotations
 
 import argparse
-import json
 import os
 from typing import Dict, Tuple
 
 import torch
 
-from ..config import (LARGE_960H, XLSR_300M, Wav2Vec2Config,
-                      config_from_dict, run_tag)
+from ..config import LARGE_960H, XLSR_300M, Wav2Vec2Config, run_tag
 from ..data import AudioConfig, parse_asvspoof2019, parse_in_the_wild
 
 __all__ = ["TINY_TEST", "KNOWN_ARCHS", "add_asv_paths", "add_encoder_args",
@@ -56,10 +54,12 @@ def add_encoder_args(p: argparse.ArgumentParser) -> None:
         help="the encoder architecture (an HF id of KNOWN_ARCHS)")
     p.add_argument(
         "--encoder_init", type=str, default="pretrained",
-        help="'random' = seeded random weights; a path = the encoder of a "
-             "port stage-1 checkpoint (<dir>/<name>.pt beside its "
+        help="'random' = seeded random weights; a path = a directory "
+             "written by convert_hf_checkpoint, or the encoder of a port "
+             "stage-1 checkpoint (<dir>/<name>.pt beside its "
              "<name>.config.json); 'pretrained' is refused: the port "
-             "downloads nothing")
+             "downloads nothing (convert a local HF snapshot with "
+             "convert_hf_checkpoint)")
 
 
 def load_encoder_init(encoder_init: str, model_name: str
@@ -68,16 +68,16 @@ def load_encoder_init(encoder_init: str, model_name: str
     if encoder_init == "pretrained":
         raise ValueError(
             "--encoder_init pretrained needs the HuggingFace checkpoint, "
-            "and the port neither downloads nor converts one; pass "
-            "--encoder_init random, or the .pt of a port stage-1 "
-            "checkpoint")
+            "and the port downloads nothing: convert a local snapshot "
+            "with `python -m wav2vec_contr_loss_torch convert_hf_checkpoint "
+            "--src <snapshot dir> --out <dir>` and pass --encoder_init "
+            "<dir>, or pass --encoder_init random, or the .pt of a port "
+            "stage-1 checkpoint")
     if encoder_init == "random":
         return KNOWN_ARCHS.get(model_name, XLSR_300M), {}
-    base = encoder_init[:-3] if encoder_init.endswith(".pt") else encoder_init
-    with open(base + ".config.json") as f:
-        enc_config = config_from_dict(json.load(f)["extra"]["enc_config"])
-    state = torch.load(base + ".pt", map_location="cpu", weights_only=True)
-    return enc_config, state["encoder"]
+    from ..models.hf_convert import load_encoder_init as load
+
+    return load(encoder_init)   # a missing path is an error
 
 
 def save_dir_for(base: str, model_name: str) -> str:

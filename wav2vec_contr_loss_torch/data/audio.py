@@ -8,28 +8,50 @@ contract:
   * a corrupted or missing file gives an all-zero waveform and is counted
     (loaded/failed counters + print_summary()).
 
-Backends, first that decodes wins: stdlib `wave`/numpy for PCM WAV,
-scipy.io.wavfile for other WAV encodings, soundfile or librosa if
-installed (FLAC). The JAX package's native C++ decoder is not ported; its
-module takes the same Python backends when that library is absent.
+Backends, first that decodes wins, as in the JAX module:
+  1. the repository's native C++ decoder (native/w2vaudio.cpp: WAV and
+     FLAC to mono float32), compiled with g++ at first use into the
+     port's `_build/` (gitignored) under a name that carries a hash of the
+     source and flags, and loaded with ctypes. If it cannot be built or
+     loaded, decoding raises with the compiler's output: the run never
+     goes on turning every FLAC clip into silence;
+  2. stdlib `wave`/numpy for PCM WAV, scipy.io.wavfile for other WAV
+     encodings, soundfile or librosa if installed, for a file the native
+     decoder rejects.
 
 Resampling uses a polyphase filter (scipy.signal.resample_poly).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import hashlib
 import math
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
 import threading
 import wave
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
 __all__ = ["AudioConfig", "AudioLoader", "load_waveform", "pad_or_trim",
-           "resample", "decode_any", "write_wav"]
+           "resample", "decode_any", "write_wav", "native_decoder",
+           "NATIVE_SRC"]
+
+_PKG = Path(__file__).resolve().parent.parent
+NATIVE_SRC = _PKG.parent / "native" / "w2vaudio.cpp"
+BUILD_DIR = _PKG / "_build"
+# the flags of native/Makefile
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-pthread"]
+# decode capacity of one file: 10 minutes at 16 kHz (the JAX module's)
+_NATIVE_CAP = 16000 * 60 * 10
 
 
 @dataclass(frozen=True)
@@ -110,6 +132,77 @@ def _decode_soundfile(path: str) -> Tuple[np.ndarray, int]:
     return np.asarray(x, np.float32), sr
 
 
+@functools.cache
+def _native_target() -> Path:
+    digest = hashlib.sha1(NATIVE_SRC.read_bytes()
+                          + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"libw2vaudio-{digest}.so"
+
+
+def _build_native(so: Path) -> None:
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++ or $CXX) to build the "
+                           "native audio decoder")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # a private name, then a rename: another process never loads a
+    # half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(NATIVE_SRC)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"building the native audio decoder from "
+                           f"{NATIVE_SRC} failed ({cxx} exit "
+                           f"{proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+
+
+@functools.cache
+def _native() -> ctypes.CDLL:
+    if not NATIVE_SRC.exists():
+        raise RuntimeError(f"the native decoder's source {NATIVE_SRC} is "
+                           f"missing: the port decodes FLAC with it")
+    so = _native_target()
+    if not so.exists():
+        _build_native(so)
+    lib = ctypes.CDLL(str(so))
+    lib.w2v_decode_audio.restype = ctypes.c_longlong
+    lib.w2v_decode_audio.argtypes = [
+        ctypes.c_char_p,                  # path
+        ctypes.POINTER(ctypes.c_float),   # out buffer
+        ctypes.c_longlong,                # out capacity (samples)
+        ctypes.POINTER(ctypes.c_int),     # out sample rate
+    ]
+    return lib
+
+
+_NATIVE_LOCK = threading.Lock()
+
+
+def native_decoder() -> ctypes.CDLL:
+    """The ctypes handle of the native decoder, compiled from
+    native/w2vaudio.cpp into `_build/` at the first call. Raises
+    RuntimeError, with the compiler's output, if it cannot be built or
+    loaded (a failure is not cached: the next call tries again)."""
+    with _NATIVE_LOCK:
+        return _native()
+
+
+def _decode_native(path: str) -> Tuple[np.ndarray, int]:
+    lib = native_decoder()
+    buf = np.empty(_NATIVE_CAP, dtype=np.float32)
+    sr = ctypes.c_int(0)
+    n = lib.w2v_decode_audio(
+        str(path).encode(),
+        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        _NATIVE_CAP, ctypes.byref(sr))
+    if n < 0:
+        raise ValueError(f"native decoder failed on {path} (code {n})")
+    return buf[:n].copy(), int(sr.value)
+
+
 def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     if sr_in == sr_out:
         return x.astype(np.float32, copy=False)
@@ -124,13 +217,17 @@ def decode_any(path: str) -> Tuple[np.ndarray, int]:
     p = str(path)
     ext = os.path.splitext(p)[1].lower()
     errors = []
+    try:
+        return _decode_native(p)
+    except ValueError as e:   # a file it rejects: the Python backends
+        errors.append(f"native: {e}")
     if ext == ".wav":
         for fn in (_decode_wav_stdlib, _decode_scipy, _decode_soundfile):
             try:
                 return fn(p)
             except Exception as e:  # the next backend may decode it
                 errors.append(f"{fn.__name__}: {e}")
-    else:  # .flac and friends need soundfile or librosa
+    else:  # other formats need soundfile or librosa
         try:
             return _decode_soundfile(p)
         except Exception as e:
@@ -158,6 +255,7 @@ class AudioLoader:
 
     def load(self, path) -> np.ndarray:
         cfg = self.config
+        native_decoder()   # a decoder that cannot be built is no bad file
         try:
             x, sr = decode_any(path)
             x = resample(x, sr, cfg.target_sample_rate)

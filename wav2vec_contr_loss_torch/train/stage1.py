@@ -379,7 +379,11 @@ class Stage1Trainer:
         alone: the configs from the sidecar, the rest from the state."""
         state, sidecar = ckpt.restore_checkpoint(save_dir, name)
         extra = sidecar["extra"]
-        cfg = Stage1Config(**extra["stage1_config"])
+        # a JAX sidecar also carries the fields the port leaves out
+        # (config.py: the XLA-path and TPU knobs)
+        names = {f.name for f in dataclasses.fields(Stage1Config)}
+        cfg = Stage1Config(**{k: v for k, v in extra["stage1_config"].items()
+                              if k in names})
         trainer = cls(cfg, config_from_dict(extra["enc_config"]),
                       {"encoder": state["encoder"],
                        "compression": state["compression"]}, device=device)
