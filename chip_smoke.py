@@ -843,18 +843,21 @@ def train_batch(rng, n: int, samples: int = SAMPLES):
     return {"waveforms": w, "labels": labels}
 
 
-def expected_train_launches(scfg, cfg) -> dict:
-    """Kernel launches of one train step, from the config: the remat
-    recompute runs each layer's forward (and so its attention) again in
-    the backward, and `remat_conv` the conv tower's LN+GELU."""
+def expected_train_launches(scfg, cfg, supcon: int = 1) -> dict:
+    """Kernel launches of one finetune step, from the config (a
+    Stage1Config, or a BaselineConfig with `supcon=0`: its loss is a BCE
+    head): the remat recompute runs each layer's forward (and so its
+    attention) again in the backward, and `remat_conv` the conv tower's
+    LN+GELU."""
     n_conv = len(cfg.conv_dim)
-    frozen = scfg.freeze_feature_extractor
+    frozen = getattr(scfg, "freeze_feature_extractor", False)
+    remat_conv = getattr(scfg, "remat_conv", False)
     return {
         "attention_fwd": cfg.num_layers * (2 if scfg.remat_encoder else 1),
         "attention_bwd": cfg.num_layers,
-        "ln_gelu_fwd": n_conv * (2 if scfg.remat_conv and not frozen else 1),
+        "ln_gelu_fwd": n_conv * (2 if remat_conv and not frozen else 1),
         "ln_gelu_bwd": 0 if frozen else n_conv,
-        "supcon": 1,
+        "supcon": supcon,
     }
 
 
@@ -924,18 +927,19 @@ def train_phase(dev, results):
           f"clock to the loss on the host; step 1 {1e3 * times[0]:.1f} ms), "
           f"{1e3 * scfg.batch_size / ms:.1f} clips/s, peak device memory "
           f"{peak:.2f} GiB")
-    return profile_step(trainer, batch)
+    return profile_step(lambda: trainer.train_step(batch, 1.0))
 
 
-def profile_step(trainer, batch):
-    """Device time by kernel over one train step under torch.profiler.
-    -> (device busy ms, device operations) of the step."""
+def profile_step(step):
+    """Device time by kernel over one train step, `step()` -> its metrics
+    dict, under torch.profiler. -> (device busy ms, device operations)
+    of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(batch, 1.0)["loss"].item()
+        step()["loss"].item()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
     for e in prof.events():
@@ -1182,11 +1186,148 @@ def rawboost_step_phase(dev, off_profile) -> None:
           f"in turns: median of 6 {med['on']:.1f} vs {med['off']:.1f} ms "
           f"(on {[round(x, 1) for x in times['on']]}, off "
           f"{[round(x, 1) for x in times['off']]}) [{CARD}]")
-    busy, n_ops = profile_step(on, batch)
+    busy, n_ops = profile_step(lambda: on.train_step(batch, 1.0))
     if n_ops is not None and off_profile[1] is not None:
         print(f"train step device ops: {n_ops} with RawBoost, "
               f"{off_profile[1]} without (+{n_ops - off_profile[1]}); device "
               f"busy {busy:.1f} vs {off_profile[0]:.1f} ms [{CARD}]")
+
+
+def baseline_weights(cfg, hidden_dim: int = 256, seed: int = 0):
+    """Encoder, compression and classifier state dicts of the end-to-end
+    baseline from seeded random trees (the seed-0 XLS-R-300M weights of
+    the other phases at full width, a lecun-scaled Dense(256 -> 1))."""
+    from wav2vec_contr_loss_torch import XLSR_300M, jax_params_to_torch
+    from wav2vec_contr_loss_torch.bridge import dense_state_dict, random_dense
+
+    if cfg == XLSR_300M and hidden_dim == 256 and seed == 0:
+        weights = dict(xlsr_weights())
+    else:
+        weights = jax_params_to_torch(cfg, *random_jax_trees(
+            cfg, comp_dim=hidden_dim, seed=seed))
+    weights["classifier"] = dense_state_dict(random_dense(hidden_dim, 1,
+                                                          seed=seed))
+    return weights
+
+
+def baseline_phase(dev, results) -> None:
+    """The end-to-end BCE baseline at XLS-R-300M width: BaselineConfig's
+    defaults (bf16, remat, dropout 0.1, device RawBoost 'fft' at 0.7, the
+    clip over every gradient), pos_weight from the batch, 8 steps on one
+    fixed batch of 32 x 5 s with the launch counters reset just before
+    and read just after (48 attention forwards, 24 backwards, 7 LN+GELU
+    forwards, 7 backwards, no SupCon a step); one step under
+    set_sync_debug_mode("error"); the step's time, device busy time and
+    operations, peak memory. Then a 2-layer step on the card in bf16
+    against the CPU in fp32."""
+    from wav2vec_contr_loss_torch import (XLSR_300M, BaselineConfig,
+                                          BaselineTrainer)
+    from wav2vec_contr_loss_torch.losses import pos_weight_from_labels
+
+    cfg, bcfg = XLSR_300M, BaselineConfig()
+    batch = train_batch(np.random.default_rng(5), bcfg.batch_size)
+    t0 = time.perf_counter()
+    trainer = BaselineTrainer(bcfg, cfg, baseline_weights(cfg), device=dev,
+                              pos_weight=pos_weight_from_labels(
+                                  batch["labels"]))
+    print(f"baseline: XLS-R-300M end-to-end BCE, B={bcfg.batch_size} x 5 s, "
+          f"{bcfg.compute_dtype}, remat_encoder={bcfg.remat_encoder}, "
+          f"dropout on, device RawBoost {bcfg.rawboost_fir_impl} at "
+          f"{bcfg.rawboost_prob}, clip {bcfg.grad_clip} over every "
+          f"gradient; built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch)["loss"].item())   # syncs
+        times.append(time.perf_counter() - t0)
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: v * TRAIN_STEPS for k, v in
+            expected_train_launches(bcfg, cfg, supcon=0).items()}
+    print(f"baseline: losses {[round(x, 5) for x in losses]}")
+    print(f"baseline: launches over {TRAIN_STEPS} steps {counts}, expected "
+          f"{want}")
+    if counts != want:
+        raise RuntimeError("baseline-step launch counts differ from the "
+                           "config")
+    for name, n in counts.items():
+        results[name]["baseline_launches"] = n
+    if not np.isfinite(losses).all():
+        raise RuntimeError("non-finite baseline loss")
+    ms = 1e3 * float(np.median(times[1:]))
+    print(f"baseline: step {ms:.1f} ms (median of steps 2-{TRAIN_STEPS}, "
+          f"host clock to the loss on the host; step 1 "
+          f"{1e3 * times[0]:.1f} ms; min {1e3 * min(times[1:]):.1f}, max "
+          f"{1e3 * max(times[1:]):.1f}), {1e3 * bcfg.batch_size / ms:.1f} "
+          f"clips/s, peak device memory {peak:.2f} GiB [{CARD}]")
+    dbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    trainer.train_step(dbatch)["loss"].item()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = trainer.train_step(dbatch)["loss"]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"baseline: a step (device RawBoost, BCE, the clip over every "
+          f"gradient, AdamW) ran under torch.cuda.set_sync_debug_mode("
+          f"'error'), loss {loss.item():.5f}")
+    profile_step(lambda: trainer.train_step(dbatch))
+    del trainer, dbatch
+    torch.cuda.empty_cache()
+    baseline_step_vs_cpu(dev)
+
+
+def baseline_step_vs_cpu(dev) -> None:
+    """One baseline step at 2 layers and full width, B=4, dropout,
+    SpecAugment and RawBoost off: bf16 on the card against fp32 on the
+    CPU, held to the limits of step_vs_cpu (the loss, the gradients of
+    layer 0's q_proj and conv 0's LN scale by cosine and norm ratio)."""
+    from wav2vec_contr_loss_torch import (XLSR_300M, BaselineConfig,
+                                          BaselineTrainer)
+
+    cfg = XLSR_300M.with_(num_layers=2, hidden_dropout=0.0,
+                          attention_dropout=0.0, activation_dropout=0.0,
+                          feat_proj_dropout=0.0, apply_spec_augment=False)
+    weights = baseline_weights(cfg, seed=3)
+    batch = train_batch(np.random.default_rng(4), 4)
+    out = {}
+    for name, device, dtype in (("gpu", dev, "bfloat16"),
+                                ("cpu", "cpu", "float32")):
+        t0 = time.perf_counter()
+        tr = BaselineTrainer(BaselineConfig(compute_dtype=dtype, dropout=0.0,
+                                            use_rawboost=False, batch_size=4),
+                             cfg, weights, device=device)
+        loss = tr.train_step(batch)["loss"].item()
+        params = dict(tr.encoder.named_parameters(prefix="encoder"))
+        params["classifier"] = tr.classifier.weight
+        grads = {k: params[k].grad.detach().float().cpu()
+                 for k in ("classifier",) + STEP_ENC_GRADS}
+        out[name] = (loss, grads, time.perf_counter() - t0)
+    (lg, gg, _), (lc, gc, cpu_s) = out["gpu"], out["cpu"]
+    print(f"baseline step vs CPU fp32 ({cpu_s:.1f} s on the CPU): loss gpu "
+          f"{lg:.6f} cpu {lc:.6f} (|d| {abs(lg - lc):.3e}, tol "
+          f"{STEP_LOSS_TOL})")
+    failed = [] if abs(lg - lc) <= STEP_LOSS_TOL else ["loss"]
+    for key, a in gg.items():
+        w = gc[key]
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten(), w.flatten(), dim=0).item()
+        ratio = (a.norm() / w.norm()).item()
+        held = key != "classifier"
+        print(f"  grad {key}: cosine {cos:.6f}"
+              + (f" (tol >= {STEP_ENC_COS})" if held else "")
+              + f", norm gpu/cpu {ratio:.6f}"
+              + (f" (tol 1 +- {STEP_ENC_NORM})" if held else "")
+              + f", max_abs_err {(a - w).abs().max().item():.3e}")
+        if held and not (cos >= STEP_ENC_COS
+                         and abs(ratio - 1.0) <= STEP_ENC_NORM):
+            failed.append(key)
+    if failed:
+        raise RuntimeError(f"the GPU bf16 baseline step disagrees with the "
+                           f"CPU fp32 step: {failed}")
 
 
 class StepCountGuard:
@@ -1474,6 +1615,191 @@ def pipeline_phase(dev, tmp: str) -> dict:
             "extract_clips_per_s": n_clips / warm_s,
             "extract_batch_ms": batch_ms, "stage2_s": stage2_s,
             "eer": eer, "phase_s": phase_s}
+
+
+def baseline_cli_phase(dev, tmp: str) -> dict:
+    """The baseline recipe through its CLIs at XLS-R-300M width on the fit
+    phase's corpus (64 train, 32 dev clips; the pipeline phase's 32 eval
+    clips): `train_baseline --device cuda --cache_waveforms --cache_dtype
+    int16` for 2 epochs (launch counters reset just before and read just
+    after: 4 baseline steps and 2 dev batches; the cache decoded once and
+    read on both epochs), then `score_baseline` on the eval split, whose
+    file must hold the logits of `score_dataset` from the same
+    checkpoint."""
+    from wav2vec_contr_loss_torch import XLSR_300M, BaselineConfig
+    from wav2vec_contr_loss_torch.cli import score_baseline, train_baseline
+    from wav2vec_contr_loss_torch.data import (AudioConfig, AudioLoader,
+                                               BatchPipeline,
+                                               parse_asvspoof2019)
+    from wav2vec_contr_loss_torch.data.cache import CachedLoader
+    from wav2vec_contr_loss_torch.eval.score import read_score_file
+    from wav2vec_contr_loss_torch.train import BaselineTrainer
+    from wav2vec_contr_loss_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    protos = {part: os.path.join(tmp, part, "protocol.txt")
+              for part in ("train", "dev", "eval")}
+    save = os.path.join(tmp, "baseline")
+    args = ["--device", "cuda", "--encoder_init", "random",
+            "--save_dir", save, "--epochs", "2", "--batch_size", "32",
+            "--num_workers", "8", "--cache_waveforms",
+            os.path.join(tmp, "cache"), "--cache_dtype", "int16"]
+    for part in ("train", "dev"):
+        args += [f"--{part}_root", os.path.dirname(protos[part]),
+                 f"--{part}_protocol", protos[part]]
+    AudioLoader.reset_counters()
+    rows0 = CachedLoader.rows_read
+    _reset_counters()
+    t0 = time.perf_counter()
+    train_baseline.main(args)
+    train_s = time.perf_counter() - t0
+    counts = _counters()
+    loads = AudioLoader.loaded_count + AudioLoader.failed_count
+    rows = CachedLoader.rows_read - rows0
+    step = expected_train_launches(BaselineConfig(), XLSR_300M, supcon=0)
+    evals = expected_extract_launches(XLSR_300M, 1)
+    want = {k: 4 * step[k] + 2 * evals[k] for k in step}
+    print(f"baseline CLI: launches over 4 steps and 2 dev batches {counts}, "
+          f"expected {want}")
+    if counts != want:
+        raise RuntimeError("train_baseline launch counts differ from the "
+                           "config")
+    print(f"baseline CLI: {loads - rows} clips decoded (the cache build), "
+          f"{rows} cache rows read over 2 epochs (expected 96 and "
+          f"{2 * (64 + 32)})")
+    if (loads - rows, rows) != (96, 2 * (64 + 32)):
+        raise RuntimeError("the waveform cache was not built once and read "
+                           "on every epoch")
+    run = os.path.join(save, "facebook__wav2vec2-xls-r-300m")
+    for name in ("baseline_best", "baseline_latest"):
+        if not ckpt.checkpoint_exists(run, name):
+            raise RuntimeError(f"train_baseline wrote no {name}")
+    m = ckpt.load_sidecar(run, "baseline_latest")["metrics"]
+    if not (m["epoch"] == 2 and np.isfinite(m["dev_eer"])):
+        raise RuntimeError(f"baseline_latest metrics {m}")
+
+    scores = os.path.join(tmp, "baseline_scores")
+    score_baseline.main(["--ckpt_dir", run, "--scores_dir", scores,
+                         "--eval_root", os.path.dirname(protos["eval"]),
+                         "--eval_protocol", protos["eval"], "--batch_size",
+                         "32", "--device", "cuda"])
+    rec = read_score_file(os.path.join(scores, "score_cm_eval.txt"))
+    trainer = BaselineTrainer.from_checkpoint(run, "baseline_best",
+                                              device=dev)
+    logits, _ = trainer.score_dataset(BatchPipeline(parse_asvspoof2019(
+        protos["eval"], os.path.dirname(protos["eval"]),
+        audio=AudioConfig(16000, 5)), 32, num_workers=8))
+    err = float(np.abs(logits - rec.scores).max())
+    print(f"baseline CLI: 2 epochs in {train_s:.1f} s, dev EER "
+          f"{m['dev_eer']} (finite; synthetic corpus), score_cm_eval.txt "
+          f"{len(rec)} trials against score_dataset max |d| {err:.3e} (tol "
+          f"1e-6: the file keeps 6 decimals); phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{CARD}]")
+    if len(rec) != EVAL_CLIPS or not err <= 1e-6:
+        raise RuntimeError("score_baseline's file disagrees with "
+                           "score_dataset")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"baseline_cli_launches": counts}
+
+
+def features_phase(dev, tmp: str) -> dict:
+    """Stage 1 from encoder features at XLS-R-300M width:
+    `extract_encoder_features` (the CLI, seeded random encoder, bf16,
+    batch 32, host RawBoost on train) over the fit phase's 64 + 32 clips
+    into (N, 1024, 250) fp32 memmaps, exactly 24 attention and 7 LN+GELU
+    forwards a batch and nothing else; then `train_stage1 --features_dir`
+    for 2 epochs, binary (exactly one SupCon launch a train step and a
+    dev batch, nothing else) and multiclass (no kernel launch); the ms of
+    a head-only step."""
+    from wav2vec_contr_loss_torch import XLSR_300M, Stage1Trainer
+    from wav2vec_contr_loss_torch.cli import (extract_encoder_features,
+                                              train_stage1)
+
+    t_phase = time.perf_counter()
+    feats = os.path.join(tmp, "features")
+    args = ["--device", "cuda", "--encoder_init", "random", "--out_dir",
+            feats, "--batch_size", "32", "--num_workers", "8"]
+    for part in ("train", "dev"):
+        proto = os.path.join(tmp, part, "protocol.txt")
+        args += [f"--{part}_root", os.path.dirname(proto),
+                 f"--{part}_protocol", proto]
+    extract = extract_encoder_features.extract_encoder_features
+    spent = []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = extract(*a, **k)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    extract_encoder_features.extract_encoder_features = timed
+    _reset_counters()
+    try:
+        extract_encoder_features.main(args)
+    finally:
+        extract_encoder_features.extract_encoder_features = extract
+    counts = _counters()
+    want = expected_extract_launches(XLSR_300M, 3)
+    print(f"features: extraction launches over 3 batches {counts}, "
+          f"expected {want}")
+    if counts != want:
+        raise RuntimeError("feature-extraction launch counts differ from "
+                           "the model")
+    shapes = {}
+    for part, n in (("train", 64), ("dev", 32)):
+        x = np.load(os.path.join(feats, f"{part}_features.npy"),
+                    mmap_mode="r")
+        shapes[part] = x.shape
+        if (x.shape != (n, 1024, 250) or x.dtype != np.float32
+                or not np.isfinite(x[:, :, :249]).all()
+                or np.asarray(x[:, :, 249:]).any()):
+            raise RuntimeError(f"{part} features {x.shape} {x.dtype}: not "
+                               f"finite (N, 1024, 250) with a zero pad")
+    print(f"features: {shapes} float32 memmaps (249 frames, padded to 250); "
+          f"96 clips of 5 s in {sum(spent):.2f} s of extraction "
+          f"({96 / sum(spent):.1f} clips/s, decode and the memmap writes "
+          f"included): train {64 / spent[0]:.1f} clips/s with host "
+          f"RawBoost, dev {32 / spent[1]:.1f} clips/s without [{CARD}]")
+
+    out = {"features_launches": counts}
+    for mode, supcon_n in (("binary", 4 + 2), ("multiclass", 0)):
+        save = os.path.join(tmp, f"from_features_{mode}")
+        _reset_counters()
+        t0 = time.perf_counter()
+        train_stage1.main(["--features_dir", feats, "--device", "cuda",
+                           "--save_dir", save, "--epochs", "2",
+                           "--batch_size", "32", "--loss_mode", mode,
+                           "--warmup_epochs", "1", "--alpha_ramp_epochs",
+                           "2"])
+        fit_s = time.perf_counter() - t0
+        counts = _counters()
+        want = {"attention_fwd": 0, "attention_bwd": 0, "ln_gelu_fwd": 0,
+                "ln_gelu_bwd": 0, "supcon": supcon_n}
+        print(f"features: fit_from_features {mode} 2 epochs (4 steps, 2 dev "
+              f"batches) in {fit_s:.1f} s, launches {counts}, expected "
+              f"{want}")
+        if counts != want:
+            raise RuntimeError(f"fit_from_features {mode} launch counts "
+                               f"differ")
+        run = os.path.join(save, "facebook__wav2vec2-xls-r-300m")
+        tr = Stage1Trainer.from_checkpoint(run, "latest", device=dev)
+        batch = {"features": torch.randn(32, 250, 1024, device=dev),
+                 "labels": torch.arange(32, device=dev) % 2,
+                 "multi_labels": torch.arange(32, device=dev) % 3}
+        losses, times = [], []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            losses.append(tr.train_step(batch, 0.5)["loss"].item())
+            times.append(1e3 * (time.perf_counter() - t0))
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"non-finite fit_from_features {mode} loss")
+        print(f"features: {mode} head-only step {np.median(times[1:]):.2f} "
+              f"ms (median of steps 2-8 on a (32, 250, 1024) device batch, "
+              f"host clock to the loss on the host) [{CARD}]")
+        out[f"fit_from_features_{mode}_launches"] = counts
+    print(f"features phase: {time.perf_counter() - t_phase:.1f} s [{CARD}]")
+    return out
 
 
 # ---------------------------------------------------------- front door
@@ -1945,6 +2271,8 @@ def fit_main() -> int:
     try:
         fit = fit_phase(dev, tmp)
         fit.update(pipeline_phase(dev, tmp))
+        fit.update(baseline_cli_phase(dev, tmp))
+        fit.update(features_phase(dev, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"fit": fit}))
@@ -2011,8 +2339,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"rawboost phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    baseline_phase(dev, results)
+    print(f"baseline phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     fit = run_fit_child()
-    for key in ("fit_launches", "pipeline_launches"):
+    for key in ("fit_launches", "pipeline_launches",
+                "baseline_cli_launches", "features_launches",
+                "fit_from_features_binary_launches",
+                "fit_from_features_multiclass_launches"):
         for name, n in fit[key].items():
             results[name][key] = n
     print(f"fit and pipeline phases (own process): "

@@ -12,16 +12,17 @@ import torch
 
 import jax
 
-from chip_smoke import (client_requests, compare_converted,
+from chip_smoke import (baseline_weights, client_requests, compare_converted,
                         convert_front_door, expected_extract_launches,
                         expected_train_launches, random_jax_trees,
                         reference_logits, run_clients, serving_waves,
                         train_batch, ulps, write_corpus,
                         write_front_door_corpus, write_reference_files)
 from tests.test_torch_bridge import jax_config, jax_trees, port_config
-from wav2vec_contr_loss_torch import (XLSR_300M, SpoofScorer, Stage1Config,
-                                      Stage1Trainer, Stage2Config,
-                                      jax_params_to_torch)
+from wav2vec_contr_loss_torch import (XLSR_300M, BaselineConfig,
+                                      BaselineTrainer, SpoofScorer,
+                                      Stage1Config, Stage1Trainer,
+                                      Stage2Config, jax_params_to_torch)
 from wav2vec_contr_loss_torch.data import (AudioConfig, BatchPipeline,
                                            parse_asvspoof2019)
 from wav2vec_contr_loss_torch.ops import attention, conv_ln, supcon
@@ -81,6 +82,31 @@ def test_train_phase_model_steps_on_cpu():
     assert expected_train_launches(scfg, cfg) == {
         "attention_fwd": 4, "attention_bwd": 2, "ln_gelu_fwd": 7,
         "ln_gelu_bwd": 7, "supcon": 1}
+
+
+def test_baseline_phase_model_steps_on_cpu():
+    """The baseline phase's trainer (BaselineConfig's defaults: dropout,
+    SpecAugment, remat, device RawBoost and the clip over every gradient)
+    at XLS-R-300M width, 2 layers, fp32, 4 clips of 1 s, from
+    `baseline_weights`; and the per-step launch counts the phase expects
+    on the card at full depth: no SupCon."""
+    cfg = XLSR_300M.with_(num_layers=2)
+    bcfg = BaselineConfig(compute_dtype="float32", max_duration_seconds=1)
+    weights = baseline_weights(cfg)
+    assert weights["classifier"]["weight"].shape == (1, 256)
+    trainer = BaselineTrainer(bcfg, cfg, weights, device="cpu")
+    batch = train_batch(np.random.default_rng(0), 4, 16000)
+    before = (attention.launches, attention.bwd_launches, conv_ln.launches,
+              conv_ln.bwd_launches, supcon.launches)
+    losses = [trainer.train_step(batch)["loss"].item() for _ in range(2)]
+    assert before == (attention.launches, attention.bwd_launches,
+                      conv_ln.launches, conv_ln.bwd_launches, supcon.launches)
+    assert np.isfinite(losses).all()
+    assert trainer.classifier.weight.grad is not None
+    assert expected_train_launches(BaselineConfig(), XLSR_300M,
+                                   supcon=0) == {
+        "attention_fwd": 48, "attention_bwd": 24, "ln_gelu_fwd": 7,
+        "ln_gelu_bwd": 7, "supcon": 0}
 
 
 def test_pipeline_phase_extraction_on_cpu(tmp_path):

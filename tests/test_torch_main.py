@@ -1,7 +1,8 @@
 """The port's front door: `python -m wav2vec_contr_loss_torch` lists
 exactly the commands the port has, refuses an unknown one, passes
-`--help` to every command, and `doctor --device cpu` reports the card's
-checks as absent and fails. ~10 s alone."""
+`--help` to every command (the five of the baseline and features slice
+among them), and `doctor --device cpu` reports the card's checks as
+absent, passes the waveform-cache check and fails. ~16 s alone."""
 
 import importlib
 import os
@@ -37,9 +38,13 @@ def test_lists_exactly_the_port_commands():
               if ln.startswith("  ")]
     assert listed == list(front.COMMANDS)
     # commands of the JAX package the port does not have are not listed
-    for absent in ("train_baseline", "export_serving", "cache_waveforms",
-                   "verify_parity", "bench_components"):
+    for absent in ("export_serving", "run_sweep", "verify_parity",
+                   "bench_components"):
         assert absent not in listed
+    for present in ("train_baseline", "score_baseline",
+                    "score_famous_figures", "extract_encoder_features",
+                    "cache_waveforms"):
+        assert present in listed
 
 
 def test_unknown_command_exits_2():
@@ -64,8 +69,8 @@ def test_doctor_on_the_cpu_names_the_absent_card(capsys):
     for name in ("card", "nvcc", "triton", "CUDA kernel builds"):
         assert f"[FAIL] {name}: absent (--device cpu)" in out
     for name in ("native audio decoder", "eval forward (tiny encoder)",
-                 "checkpoint write/restore"):
+                 "checkpoint write/restore", "waveform cache"):
         assert f"[ ok ] {name}:" in out
     assert "launches attention 0, LN+GELU 0" in out
-    assert "cache" not in out          # the port has no waveform cache yet
-    assert "==> doctor: 3/7 checks passed" in out
+    assert "cache built, reused and read back bit for bit" in out
+    assert "==> doctor: 4/8 checks passed" in out

@@ -3,8 +3,8 @@ JAX package: stage-1 (frozen and finetuned, with and without
 DataParallel's `module.`) and stage-2 (linear and MLP) `.pt` files written
 by the JAX `export_reference_checkpoint` from JAX checkpoints convert into
 port checkpoints whose scorer gives the JAX scorer's logits (fp32, CPU);
-the port's export gives the JAX export's keys and values; the baseline
-raises naming ROADMAP A7; a sidecar with the JAX trainer's extra fields
+the port's export gives the JAX export's keys and values; a malformed
+baseline .pt is refused; a sidecar with the JAX trainer's extra fields
 restores. ~25 s alone."""
 
 import json
@@ -206,14 +206,18 @@ def test_export_matches_the_jax_export(jax_side, tmp_path, name):
 
 
 def test_baseline_is_refused_naming_a7(tmp_path):
+    """A .pt that detect_kind takes for a baseline but that lacks the
+    compression is refused, naming the parts a baseline .pt holds; so is
+    an export from a directory that holds no baseline checkpoint (the
+    baseline's conversion itself: tests/test_torch_scorers.py)."""
     pt = str(tmp_path / "baseline.pt")
     torch.save({"model_state_dict": {"encoder.model.x": torch.zeros(1),
                                      "classifier.weight": torch.zeros(1)},
                 "config": {}}, pt)
     assert detect_kind(torch.load(pt)) == "baseline"
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="compression"):
         port_convert(pt, str(tmp_path / "out"))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(FileNotFoundError):
         port_export(str(tmp_path), str(tmp_path / "b.pt"), kind="baseline")
 
 

@@ -99,9 +99,9 @@ def test_scorer_defaults_to_the_gpu():
 
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one has JAX loaded), importing every
-    module of the port and chip_smoke.py loads no JAX, flax or JAX-package
-    module, and none of transformers, safetensors, soundfile or librosa,
-    which the machine with the card does not have."""
+    module of the port and chip_smoke.py loads no JAX, flax, optax or
+    JAX-package module, and none of transformers, safetensors, soundfile,
+    librosa or pandas, which the machine with the card does not have."""
     code = (
         "import importlib, pkgutil, sys\n"
         "before = set(sys.modules)\n"
@@ -113,9 +113,11 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'optax',\n"
         "                                    'wav2vec_contr_loss_tpu',\n"
         "                                    'transformers', 'safetensors',\n"
-        "                                    'soundfile', 'librosa'))\n"
+        "                                    'soundfile', 'librosa',\n"
+        "                                    'pandas'))\n"
         "assert not bad, bad\n"
         "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -138,4 +140,9 @@ def test_port_imports_no_jax():
         "models.hf_convert", "models.export_hf", "models.ref_convert",
         "eval.server", "cli.serve", "cli.convert_hf_checkpoint",
         "cli.convert_reference_checkpoint", "cli.export_hf_checkpoint",
-        "cli.export_reference_checkpoint", "cli.doctor", "__main__")} <= walked
+        "cli.export_reference_checkpoint", "cli.doctor", "__main__",
+        # the baseline, the waveform cache, the other corpora and stage 1
+        # from features
+        "train.baseline", "data.cache", "cli.train_baseline",
+        "cli.score_baseline", "cli.score_famous_figures",
+        "cli.extract_encoder_features", "cli.cache_waveforms")} <= walked

@@ -15,17 +15,22 @@ import sys
 COMMANDS = {
     "train_stage1": "stage-1 SupCon finetune or frozen training",
     "train_stage2": "stage-2 head training on extracted embeddings",
+    "train_baseline": "end-to-end BCE baseline training",
     "extract_embeddings": "stage-1 clip embeddings -> .npy",
+    "extract_encoder_features": "raw encoder layer-mean features -> memmap .npy",
     "generate_scores": "stage-2 scores over saved embeddings -> CM score file",
+    "score_baseline": "baseline model scores from audio -> CM score file",
+    "score_famous_figures": "FamousFigures end-to-end scoring",
     "eval_scores": "EER / min-tDCF from score files",
-    "plot_umap": "UMAP plots of stage-1 embeddings",
+    "plot_umap": "UMAP plots of stage-1 / subspace embeddings",
     "run_pipeline": "train -> extract -> stage 2 -> score -> EER",
     "serve": "scoring daemon (paths on stdin or a TCP socket -> scores)",
     "convert_hf_checkpoint": "local HF wav2vec2 snapshot -> port encoder weights",
-    "convert_reference_checkpoint": "reference .pt (stage-1 / stage-2) -> port checkpoints",
-    "export_reference_checkpoint": "port checkpoint -> reference .pt (stage-1 / stage-2)",
+    "convert_reference_checkpoint": "reference .pt (stage-1 / stage-2 / baseline) -> port checkpoints",
+    "export_reference_checkpoint": "port checkpoint -> reference .pt (stage-1 / stage-2 / baseline)",
     "export_hf_checkpoint": "port encoder -> HF snapshot directory",
-    "doctor": "environment check (card, kernel builds, decoder, forward, checkpoints)",
+    "cache_waveforms": "prebuild the decode-once waveform cache for a protocol",
+    "doctor": "environment check (card, kernel builds, decoder, forward, checkpoints, cache)",
 }
 
 

@@ -28,7 +28,8 @@ import torch
 
 from .config import Wav2Vec2Config
 
-__all__ = ["jax_params_to_torch", "head_state_dict", "random_jax_trees"]
+__all__ = ["jax_params_to_torch", "head_state_dict", "dense_state_dict",
+           "random_jax_trees", "random_dense"]
 
 Tree = Mapping[str, object]
 
@@ -173,6 +174,24 @@ def random_jax_trees(cfg: Wav2Vec2Config, comp_dim: int = 256,
         head = {"fc1": dense(comp_dim, head_hidden),
                 "fc2": dense(head_hidden, 1, std=1.0)}
     return enc, comp, head
+
+
+def dense_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
+    """A flax Dense tree ('kernel' (in, out), 'bias') -> an nn.Linear
+    state dict, such as the baseline's classifier."""
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(sd, "", tree)
+    return {k[1:]: v for k, v in sd.items()}
+
+
+def random_dense(n_in: int, n_out: int, seed: int = 0):
+    """A seeded numpy Dense(n_in -> n_out) tree in flax's default init:
+    kernel std 1/sqrt(n_in) (lecun scale), zero bias. The baseline's
+    classifier, and a head over precomputed features."""
+    rng = np.random.default_rng(seed)
+    return {"kernel": (rng.standard_normal((n_in, n_out), dtype=np.float32)
+                       * np.float32(n_in ** -0.5)),
+            "bias": np.zeros(n_out, np.float32)}
 
 
 def head_state_dict(head_params: Tree) -> Dict[str, torch.Tensor]:

@@ -14,6 +14,7 @@ from ..config import LARGE_960H, XLSR_300M, Wav2Vec2Config, run_tag
 from ..data import AudioConfig, parse_asvspoof2019, parse_in_the_wild
 
 __all__ = ["TINY_TEST", "KNOWN_ARCHS", "add_asv_paths", "add_encoder_args",
+           "add_cache_args",
            "load_encoder_init", "save_dir_for", "asv_dataset", "itw_dataset",
            "parse_num_samples"]
 
@@ -60,6 +61,21 @@ def add_encoder_args(p: argparse.ArgumentParser) -> None:
              "<name>.config.json); 'pretrained' is refused: the port "
              "downloads nothing (convert a local HF snapshot with "
              "convert_hf_checkpoint)")
+
+
+def add_cache_args(p: argparse.ArgumentParser,
+                   required: bool = False) -> None:
+    """--cache_waveforms DIR (its train/ and dev/ hold one decode-once
+    cache each, data/cache.py) and --cache_dtype."""
+    p.add_argument("--cache_waveforms", type=str, default=None,
+                   required=required,
+                   help="decode-once waveform cache directory: the first "
+                        "run decodes the corpus into a memmap, later "
+                        "epochs and runs read rows (data/cache.py)")
+    p.add_argument("--cache_dtype", type=str, default="int16",
+                   choices=["int16", "float32"],
+                   help="cache storage (int16: exact for PCM sources, "
+                        "half the disk; float32: bit-exact)")
 
 
 def load_encoder_init(encoder_init: str, model_name: str

@@ -10,11 +10,13 @@
     # stage-2 head:
     python -m wav2vec_contr_loss_torch convert_reference_checkpoint \\
         --src stage2_binary_head_best.pt --out ckpt/stage2
+    # the end-to-end baseline (the .pt embeds the encoder):
+    python -m wav2vec_contr_loss_torch convert_reference_checkpoint \\
+        --src baseline_best.pt --out ckpt/baseline
 
 The outputs are what `serve --stage1_dir/--stage2_dir`,
-`extract_embeddings --ckpt_dir` and `run_pipeline --stage1_ckpt` read.
-The conversion runs on the CPU. The baseline's .pt waits for the port's
-baseline trainer (ROADMAP A7).
+`extract_embeddings --ckpt_dir`, `run_pipeline --stage1_ckpt` and
+`score_baseline --ckpt_dir` read. The conversion runs on the CPU.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ import argparse
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--src", type=str, required=True,
-                   help="reference .pt checkpoint (stage-1 / stage-2 head;"
-                        " format auto-detected)")
+                   help="reference .pt checkpoint (stage-1 / stage-2 head "
+                        "/ baseline; format auto-detected)")
     p.add_argument("--out", type=str, required=True,
                    help="output checkpoint directory")
     p.add_argument("--kind", type=str, default="auto",
@@ -40,7 +42,7 @@ def main(argv=None) -> None:
                         "only (for .pt files that embed encoder weights)")
     p.add_argument("--name", type=str, default=None,
                    help="checkpoint name inside --out (defaults: best / "
-                        "stage2_binary_head_best)")
+                        "stage2_binary_head_best / baseline_best)")
     args = p.parse_args(argv)
 
     from ..models.ref_convert import convert_reference_checkpoint
@@ -50,7 +52,8 @@ def main(argv=None) -> None:
         hf_config=args.hf_config, name=args.name)
     print(f"Converted {args.src} ({kind}) -> {path}.pt")
     follow = {"stage1": f"extract_embeddings --ckpt_dir {args.out} ...",
-              "stage2": f"serve --stage2_dir {args.out} ..."}[kind]
+              "stage2": f"serve --stage2_dir {args.out} ...",
+              "baseline": f"score_baseline --ckpt_dir {args.out} ..."}[kind]
     print(f"  use with: python -m wav2vec_contr_loss_torch {follow}")
 
 

@@ -5,7 +5,8 @@ starts: the card (name and power limit, CUDA, nvcc, triton), the builds
 of the port's CUDA sources and of the native audio decoder with a decode
 round trip, an eval forward of a tiny encoder on the card that must
 launch exactly one attention kernel a layer and one LN+GELU kernel a
-conv, and a checkpoint round trip. One `[ ok ]` or `[FAIL]` line a check;
+conv, a checkpoint round trip and a decode-once waveform cache round
+trip. One `[ ok ]` or `[FAIL]` line a check;
 the exit code is 1 if any check fails. `--device cpu` runs the forward on
 the CPU and reports the card's checks as absent, which fails them.
 """
@@ -139,6 +140,40 @@ def _ckpt(dev) -> str:
         if sidecar["config"] != {"OK": 1}:
             raise RuntimeError("sidecar mismatch")
     return "save/restore round trip ok"
+
+
+@check("waveform cache")
+def _cache(dev) -> str:
+    from ..data import AudioConfig, parse_asvspoof2019
+    from ..data.audio import write_wav
+    from ..data.cache import attach_cache
+
+    with tempfile.TemporaryDirectory() as d:
+        lines = []
+        for i in range(2):
+            x = (0.25 * np.sin(2 * np.pi * (300 + 100 * i)
+                               * np.arange(16000) / 16000)).astype(np.float32)
+            write_wav(os.path.join(d, f"c{i}.wav"), x, 16000)
+            lines.append(f"x/c{i}.wav - bonafide - SPK{i}")
+        proto = os.path.join(d, "protocol.txt")
+        with open(proto, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+        def dataset():
+            return parse_asvspoof2019(proto, d, audio=AudioConfig(16000, 1))
+
+        plain, cached = dataset(), dataset()
+        quiet = dict(num_workers=2, log=lambda m: None)
+        built = attach_cache(cached, os.path.join(d, "cache"), **quiet)
+        if not built or attach_cache(dataset(), os.path.join(d, "cache"),
+                                     **quiet):
+            raise RuntimeError("the cache was not built once, then reused")
+        for u in plain.utterances:
+            if not np.array_equal(cached.loader.load(u.path),
+                                  plain.loader.load(u.path)):
+                raise RuntimeError(f"cached row of {u.name} differs from "
+                                   f"its decode")
+    return "2-clip int16 cache built, reused and read back bit for bit"
 
 
 def main(argv=None) -> None:

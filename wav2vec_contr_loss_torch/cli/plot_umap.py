@@ -6,8 +6,9 @@ stage-1 embeddings colored by attack type (ASV) or real-vs-spoof (ITW).
 
 The port of wav2vec_contr_loss_tpu/cli/plot_umap.py, on the host only.
 It needs matplotlib and raises an ImportError naming --skip_plots
-without it. The `--subspace` mode waits for the encoder-feature
-extraction.
+without it. `--subspace` plots the pre-compression encoder features that
+extract_encoder_features wrote: the time-mean of each (F, 250) row, L2
+normalized.
 """
 
 from __future__ import annotations
@@ -22,6 +23,17 @@ from ..eval.extract import load_embeddings
 from ..viz import plot_embeddings_2d
 
 
+def subspace_embeddings(emb_dir: str, split: str):
+    """-> ((N, F) time-mean, L2-normalized features, (N,) labels) of
+    <split>_features.npy."""
+    feats = np.load(os.path.join(emb_dir, f"{split}_features.npy"),
+                    mmap_mode="r")
+    labels = np.load(os.path.join(emb_dir, f"{split}_feature_labels.npy"))
+    embs = np.asarray(feats).mean(axis=2)
+    embs /= np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-12)
+    return embs, labels
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--emb_dir", type=str, required=True)
@@ -33,10 +45,16 @@ def main(argv=None) -> None:
     p.add_argument("--by_attack", action="store_true",
                    help="color by attack type using the multi-labels and "
                         "attack map saved at extraction time")
+    p.add_argument("--subspace", action="store_true",
+                   help="plot pre-compression encoder features instead: "
+                        "(N, F, 250) layer-mean features -> time-mean -> L2")
     p.add_argument("--seed", type=int, default=1337)
     args = p.parse_args(argv)
 
-    embs, labels = load_embeddings(args.emb_dir, args.split)
+    if args.subspace:
+        embs, labels = subspace_embeddings(args.emb_dir, args.split)
+    else:
+        embs, labels = load_embeddings(args.emb_dir, args.split)
     names = {1: "Real", 0: "Spoof"}
     if args.by_attack and not args.multi_labels:
         args.multi_labels = os.path.join(args.emb_dir,

@@ -6,7 +6,8 @@ filesystem: checkpoints -> .npy embeddings -> score .txt -> EER.
         --exp_name supcon_temp_0.07 --work_dir DIR \\
         --train_root DIR --train_protocol FILE --dev_root DIR \\
         --dev_protocol FILE --eval_root DIR --eval_protocol FILE \\
-        [--stage1_ckpt DIR] [--skip_plots] [--device cpu]
+        [--stage1_ckpt DIR] [--cache_waveforms DIR] [--skip_plots] \\
+        [--device cpu]
 
   1. stage-1 SupCon training (the preset, then flags), or an existing
      stage-1 checkpoint directory with --stage1_ckpt
@@ -20,8 +21,8 @@ filesystem: checkpoints -> .npy embeddings -> score .txt -> EER.
 The port of wav2vec_contr_loss_tpu/cli/run_pipeline.py over the port's
 CLIs. --device goes to every leg that touches the card. The stage-1
 checkpoint is the port's <work_dir>/<exp>/checkpoints_stage1/<run_tag>/
-best.pt pair. Not ported yet: --cache_waveforms and the multi-host
-flags.
+best.pt pair. --cache_waveforms and --cache_dtype go to the training
+leg. Not ported yet: the multi-host flags.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from .common import save_dir_for
 # flags that configure only the stage-1 training leg: those forwarded as
 # they are, then --encoder_init
 _STAGE1_FLAGS = ("epochs", "batch_size", "max_duration_seconds", "input_dim",
-                 "hidden_dim")
+                 "hidden_dim", "cache_waveforms")
 _TRAINING_FLAGS = _STAGE1_FLAGS + ("encoder_init",)
 
 
@@ -61,6 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_duration_seconds", type=int, default=None)
     p.add_argument("--input_dim", type=int, default=None)
     p.add_argument("--hidden_dim", type=int, default=None)
+    p.add_argument("--cache_waveforms", type=str, default=None,
+                   help="decode-once waveform cache directory of the "
+                        "stage-1 training leg (data/cache.py)")
+    p.add_argument("--cache_dtype", type=str, default="int16",
+                   choices=["int16", "float32"])
     # stage-2 overrides (the reference's sbatch varies the classifier
     # flags independently of stage-1)
     p.add_argument("--stage2_lr", type=float, default=None)
@@ -130,6 +136,8 @@ def main(argv=None) -> None:
             v = getattr(args, flag)
             if v is not None:
                 s1 += [f"--{flag}", str(v)]
+        if args.cache_waveforms is not None:
+            s1 += ["--cache_dtype", args.cache_dtype]
         if args.resume:
             s1 += ["--resume"]
         train_stage1.main(s1)

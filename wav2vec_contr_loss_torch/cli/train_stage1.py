@@ -6,26 +6,36 @@
 
 The JAX CLI's (wav2vec_contr_loss_tpu/cli/train_stage1.py) flags for the
 config (with `--preset`, one of the published sweep's EXPERIMENT_PRESETS,
-under the other flags), the data, `--resume` and `--num_workers`, plus
-`--device` and `--compute_dtype`. SIGTERM saves the full state mid-epoch and exits 75
+under the other flags), the data, `--loss_mode`, the decode-once
+waveform cache, `--resume` and `--num_workers`, plus `--device` and
+`--compute_dtype`. SIGTERM saves the full state mid-epoch and exits 75
 (EX_TEMPFAIL); rerunning with `--resume` continues past the saved batch
 cursor. The encoder starts from seeded random weights or from a port
-checkpoint; nothing is downloaded.
+checkpoint; nothing is downloaded. `--features_dir DIR` trains the
+compression head alone on the (N, F, 250) features that
+extract_encoder_features wrote there (train_features.npy and, when
+present, dev_features.npy), with no audio and no encoder.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
-from ..bridge import jax_params_to_torch, random_jax_trees
-from ..config import EXPERIMENT_PRESETS, Stage1Config, preset
+import numpy as np
+
+from ..bridge import (dense_state_dict, jax_params_to_torch, random_dense,
+                      random_jax_trees)
+from ..config import XLSR_300M, EXPERIMENT_PRESETS, Stage1Config, preset
 from ..data import BatchPipeline
+from ..data.cache import attach_cache
 from ..train import Stage1Trainer
 from ..train.checkpoint import checkpoint_exists, resume_cursor
 from ..utils.preemption import PreemptionGuard
-from .common import (add_asv_paths, add_encoder_args, asv_dataset,
-                     load_encoder_init, parse_num_samples, save_dir_for)
+from .common import (KNOWN_ARCHS, add_asv_paths, add_cache_args,
+                     add_encoder_args, asv_dataset, load_encoder_init,
+                     parse_num_samples, save_dir_for)
 
 # config fields taken as they are, and those given as 0/1
 _VALUE_FIELDS = ("supcon_similarity", "temperature", "uniformity_weight",
@@ -71,6 +81,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["bfloat16", "float32"])
     p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--loss_mode", type=str, default="binary",
+                   choices=["binary", "multiclass"])
+    p.add_argument("--features_dir", type=str, default=None,
+                   help="train on precomputed features instead of audio")
+    add_cache_args(p)
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--resume", action="store_true",
@@ -94,24 +109,55 @@ def config_from_args(args) -> Stage1Config:
     return cfg.replace(**overrides)
 
 
+def _banner(cfg: Stage1Config) -> None:
+    print("=== CONFIG ===")
+    for k, v in dataclasses.asdict(cfg).items():
+        print(f"{k.upper()}={v}")
+
+
+def train_from_features(args, cfg: Stage1Config, save_dir: str) -> None:
+    """The head alone on <features_dir>/{train,dev}_features.npy (memmapped);
+    the compression starts from seeded random weights."""
+    _banner(cfg)
+    fdir = args.features_dir
+    feats = np.load(os.path.join(fdir, "train_features.npy"), mmap_mode="r")
+    labels = np.load(os.path.join(fdir, "train_feature_labels.npy"))
+    dev_feats = dev_labels = None
+    if os.path.exists(os.path.join(fdir, "dev_features.npy")):
+        dev_feats = np.load(os.path.join(fdir, "dev_features.npy"),
+                            mmap_mode="r")
+        dev_labels = np.load(os.path.join(fdir, "dev_feature_labels.npy"))
+    proj = dense_state_dict(random_dense(cfg.input_dim, cfg.hidden_dim,
+                                         seed=cfg.seed))
+    trainer = Stage1Trainer(
+        cfg, KNOWN_ARCHS.get(cfg.model_name, XLSR_300M),
+        {"compression": {f"proj.{k}": v for k, v in proj.items()}},
+        device=args.device, loss_mode=args.loss_mode, from_features=True)
+    trainer.fit_from_features(feats, labels, dev_feats, dev_labels,
+                              save_dir=save_dir)
+    print(f"==> Stage-1 (from features) complete. Checkpoints in {save_dir}")
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     save_dir = save_dir_for(args.save_dir, cfg.model_name)
+    if args.features_dir is not None:
+        train_from_features(args, cfg, save_dir)
+        return
     enc_config, encoder = load_encoder_init(args.encoder_init,
                                             cfg.model_name)
     if args.input_dim is None and cfg.input_dim != enc_config.hidden_size:
         # the compression input follows the encoder width
         cfg = cfg.replace(input_dim=enc_config.hidden_size)
-    print("=== CONFIG ===")
-    for k, v in dataclasses.asdict(cfg).items():
-        print(f"{k.upper()}={v}")
+    _banner(cfg)
 
     weights = jax_params_to_torch(enc_config, *random_jax_trees(
         enc_config, comp_dim=cfg.hidden_dim, seed=cfg.seed))
     if encoder:
         weights["encoder"] = encoder
-    trainer = Stage1Trainer(cfg, enc_config, weights, device=args.device)
+    trainer = Stage1Trainer(cfg, enc_config, weights, device=args.device,
+                            loss_mode=args.loss_mode)
     start_epoch, skip_steps, best_dev = 1, 0, float("inf")
     if args.resume:
         if checkpoint_exists(save_dir, "latest"):
@@ -128,6 +174,9 @@ def main(argv=None) -> None:
     train_ds = asv_dataset(args.train_root, args.train_protocol,
                            cfg.num_samples, seconds=cfg.max_duration_seconds,
                            sr=cfg.target_sample_rate)
+    if args.cache_waveforms:
+        attach_cache(train_ds, os.path.join(args.cache_waveforms, "train"),
+                     dtype=args.cache_dtype, num_workers=args.num_workers)
     train_pipe = BatchPipeline(
         train_ds, cfg.batch_size, seed=cfg.seed, num_workers=args.num_workers,
         rawboost=rawboost, rawboost_prob=cfg.rawboost_prob)
@@ -136,6 +185,10 @@ def main(argv=None) -> None:
         dev_ds = asv_dataset(args.dev_root, args.dev_protocol,
                              cfg.num_samples, seconds=cfg.max_duration_seconds,
                              sr=cfg.target_sample_rate)
+        if args.cache_waveforms:
+            attach_cache(dev_ds, os.path.join(args.cache_waveforms, "dev"),
+                         dtype=args.cache_dtype,
+                         num_workers=args.num_workers)
         # the dev sampler is seeded seed + 1, as the reference's
         dev_pipe = BatchPipeline(dev_ds, cfg.batch_size, seed=cfg.seed + 1,
                                  num_workers=args.num_workers)

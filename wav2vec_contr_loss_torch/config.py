@@ -2,7 +2,8 @@
 
 The port keeps its own copy of the architecture fields of the JAX
 package's `Wav2Vec2Config` (wav2vec_contr_loss_tpu/models/wav2vec2.py),
-of its `Stage2Config`, `Stage1Config` and `EXPERIMENT_PRESETS`
+of its `Stage2Config`, `Stage1Config`, `BaselineConfig` and
+`EXPERIMENT_PRESETS`
 (wav2vec_contr_loss_tpu/config.py) and of its `SupConConfig`
 (wav2vec_contr_loss_tpu/losses/supcon.py), so that it never imports the
 JAX package. TPU execution knobs (scan/pipeline/sequence parallelism,
@@ -18,7 +19,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["Wav2Vec2Config", "Stage1Config", "Stage2Config", "SupConConfig",
+__all__ = ["Wav2Vec2Config", "Stage1Config", "Stage2Config", "BaselineConfig",
+           "SupConConfig",
            "XLSR_300M", "LARGE_960H", "EXPERIMENT_PRESETS", "preset",
            "feature_frame_length", "config_from_dict", "run_tag"]
 
@@ -194,6 +196,75 @@ class Stage1Config:
             sample_rate=self.target_sample_rate, prob=self.rawboost_prob,
             fir_impl=self.rawboost_fir_impl,
             isd_mode=self.rawboost_isd_mode)
+
+
+@dataclass(frozen=True)
+class BaselineConfig:
+    """The end-to-end BCE baseline: the fields of the JAX package's
+    `BaselineConfig` that change values. `grad_clip` clips the global
+    norm of every trainable gradient (head and encoder together), as the
+    reference's baseline does.
+
+    Left out, because they only pick an XLA path or a TPU schedule (as in
+    `Stage1Config`): `remat_policy`, `scan_unroll`, `softmax_dtype` (the
+    attention kernels keep fp32 scores), `dropout_impl` (always the
+    murmur hashes) and `param_sharding`."""
+
+    wire_dtype: str = "float32"         # 'float32' | 'int16'
+    model_name: str = "facebook/wav2vec2-xls-r-300m"
+    target_sample_rate: int = 16000
+    max_duration_seconds: int = 5
+    input_dim: int = 1024
+    hidden_dim: int = 256
+    dropout: float = 0.1
+
+    epochs: int = 100
+    batch_size: int = 32
+    num_samples: Optional[int] = None
+    head_lr: float = 5e-3
+    enc_lr: float = 1e-5
+    weight_decay: float = 3e-3
+    seed: int = 1337
+    finetune_encoder: bool = True
+    grad_clip: float = 5.0              # on ALL trainable params
+    patience: int = 10                  # early stop on dev EER
+
+    use_rawboost: bool = True
+    rawboost_prob: float = 0.7
+    rawboost_mode: str = "device"       # 'device' | 'host' | 'off'
+    use_pos_weight: bool = True
+
+    compute_dtype: str = "bfloat16"     # the reference's AMP; no scaler
+    remat_encoder: bool = True
+    adam_mu_dtype: str = "bfloat16"     # AdamW moment storage; math fp32
+    adam_nu_dtype: str = "bfloat16"
+    grad_dtype: str = "auto"            # 'auto' | 'float32' | 'bfloat16'
+    rawboost_fir_impl: str = "fft"
+    rawboost_isd_mode: str = "exact"
+
+    def replace(self, **kw) -> "BaselineConfig":
+        return dataclasses.replace(self, **kw)
+
+    def ckpt_config(self) -> Dict:
+        """The reference's UPPERCASE reload dict of a baseline run."""
+        return {
+            "MODEL_NAME": self.model_name,
+            "RUN_TAG": run_tag(self.model_name),
+            "INPUT_DIM": self.input_dim,
+            "HIDDEN_DIM": self.hidden_dim,
+            "DROPOUT": self.dropout,
+            "BATCH_SIZE": self.batch_size,
+            "HEAD_LR": self.head_lr,
+            "ENC_LR": self.enc_lr,
+            "WEIGHT_DECAY": self.weight_decay,
+            "USE_RAWBOOST": self.use_rawboost,
+            "RAWBOOST_PROB": self.rawboost_prob,
+            "FINETUNE_ENCODER": self.finetune_encoder,
+        }
+
+    def rawboost_params(self):
+        """The RawBoostParams of this config (host and device forms)."""
+        return Stage1Config.rawboost_params(self)
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,12 @@
-"""Binary supervised-contrastive loss, in plain PyTorch with autograd.
+"""Supervised-contrastive losses, in plain PyTorch with autograd.
 
 The port of wav2vec_contr_loss_tpu/losses/supcon.py (`pairwise_similarity`
-:61, `uniformity_loss` :90, `supcon_binary_loss` :112). It is also the
-plain version of the fused CUDA kernel in ops/supcon.py, which computes
-the same loss and its gradient in one launch. Everything runs in fp32.
+:61, `uniformity_loss` :90, `supcon_binary_loss` :112,
+`supcon_multiclass_loss` :189). The binary loss is also the plain
+version of the fused CUDA kernel in ops/supcon.py, which computes the
+same loss and its gradient in one launch. The multiclass loss is plain
+XLA in the JAX package, with no Pallas kernel, and plain PyTorch here.
+Everything runs in fp32.
 
 Edge rules, as in the JAX package:
   * anchors with no positives contribute nothing,
@@ -23,7 +26,8 @@ import torch
 
 from ..config import SupConConfig
 
-__all__ = ["pairwise_similarity", "uniformity_loss", "supcon_binary_loss"]
+__all__ = ["pairwise_similarity", "uniformity_loss", "supcon_binary_loss",
+           "supcon_multiclass_loss"]
 
 # large-negative stand-in for -inf: keeps every logsumexp finite
 _NEG = -1e30
@@ -122,3 +126,28 @@ def supcon_binary_loss(z: torch.Tensor, labels: torch.Tensor, alpha,
         main = main + config.uniformity_weight * uniformity_loss(
             z, config.uniformity_t)
     return main
+
+
+def supcon_multiclass_loss(z: torch.Tensor, labels: torch.Tensor,
+                           temperature: float = 0.1) -> torch.Tensor:
+    """Khosla-style multi-class SupCon over attack-id classes (bonafide =
+    0), cosine only: per anchor, the log-sum-exp over every other row
+    minus the mean logit of its positives, averaged over the anchors that
+    have a positive; 0 when none has. The Gram is an fp32 product (the
+    JAX function asks for HIGHEST precision; torch's fp32 matmul runs
+    without TF32 unless a caller turns it on)."""
+    z = z.float()
+    b = z.shape[0]
+    labels = labels.reshape(-1)
+    eye = torch.eye(b, dtype=torch.bool, device=z.device)
+    logits = torch.where(eye, _NEG, (z @ z.T) / temperature)
+    pos_mask = (labels[:, None] == labels[None, :]) & ~eye
+    n_pos = pos_mask.sum(-1)
+    has_pos = n_pos > 0
+    mean_pos = (torch.where(pos_mask, logits, 0.0).sum(-1)
+                / n_pos.clamp_min(1))
+    loss_i = _masked_logsumexp(logits, ~eye) - mean_pos
+    num = has_pos.sum()
+    return torch.where(num > 0,
+                       torch.where(has_pos, loss_i, 0.0).sum()
+                       / num.clamp_min(1), 0.0)

@@ -9,14 +9,16 @@ reference writes:
     possibly under DataParallel's `module.`;
   * the stage-2 head: {epoch, model_state_dict, ..., config}, a linear
     head `fc.*` or an MLP `net.0.*`/`net.3.*`;
-  * the baseline: {epoch, model_state_dict with encoder.*, ...}.
+  * the baseline: {epoch, model_state_dict (the whole End2EndBCEModel:
+    encoder.model.*, compression.mlp3.*, classifier.*), best_eer, ...,
+    config}.
 
-`convert_reference_checkpoint` turns the first two into the checkpoints
-that `Stage1Trainer.from_checkpoint`, `SpoofScorer.from_checkpoints`,
-`extract_embeddings` and `run_pipeline --stage1_ckpt` read: the stage-1
-state is a whole train state (the converted weights, a fresh optimizer,
-step 0). The `export_*` functions go the other way. The baseline waits for
-the port's `BaselineTrainer` (ROADMAP A7) and raises NotImplementedError.
+`convert_reference_checkpoint` turns them into the checkpoints that
+`Stage1Trainer.from_checkpoint`, `SpoofScorer.from_checkpoints`,
+`extract_embeddings`, `run_pipeline --stage1_ckpt`,
+`BaselineTrainer.from_checkpoint` and `score_baseline` read: a stage-1 or
+baseline state is a whole train state (the converted weights, a fresh
+optimizer, step 0). The `export_*` functions go the other way.
 
 The encoder's architecture, which a `.pt` does not carry, comes from
 `encoder_init` (a directory of `convert_hf_checkpoint`, which also gives
@@ -36,25 +38,24 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from ..config import (LARGE_960H, XLSR_300M, Stage1Config, Stage2Config,
-                      Wav2Vec2Config, config_from_dict)
+from ..config import (LARGE_960H, XLSR_300M, BaselineConfig, Stage1Config,
+                      Stage2Config, Wav2Vec2Config, config_from_dict)
 from ..train import checkpoint as ckpt_mod
 from ..train.stage2 import STAGE2_BEST
 from .hf_convert import config_from_hf, convert_hf_state_dict, load_encoder_init
 
 __all__ = ["detect_kind", "convert_reference_checkpoint",
            "convert_stage1_checkpoint", "convert_stage2_checkpoint",
-           "stage1_config_from_ckpt_dict", "export_reference_checkpoint",
+           "convert_baseline_checkpoint", "stage1_config_from_ckpt_dict",
+           "baseline_config_from_ckpt_dict", "export_reference_checkpoint",
            "export_stage1_checkpoint", "export_stage2_checkpoint",
-           "reference_encoder_state_dict"]
+           "export_baseline_checkpoint", "reference_encoder_state_dict"]
 
 # MODEL_NAME values of the published runs -> built-in architectures
 _KNOWN_MODELS = {
     "facebook/wav2vec2-xls-r-300m": XLSR_300M,
     "facebook/wav2vec2-large-960h": LARGE_960H,
 }
-_BASELINE = ("the baseline's conversion waits for the port's "
-             "BaselineTrainer (ROADMAP A7)")
 
 
 def _load_pt(path: str) -> Dict:
@@ -165,6 +166,22 @@ def stage1_config_from_ckpt_dict(c: Mapping) -> Stage1Config:
                            if k in field_map})
 
 
+def baseline_config_from_ckpt_dict(c: Mapping) -> BaselineConfig:
+    """The reference baseline's config dict (note its lowercase enc_lr,
+    head_lr and train_batch_size keys) -> BaselineConfig; absent keys
+    keep the defaults."""
+    field_map = {
+        "MODEL_NAME": "model_name", "INPUT_DIM": "input_dim",
+        "HIDDEN_DIM": "hidden_dim", "DROPOUT": "dropout",
+        "enc_lr": "enc_lr", "head_lr": "head_lr",
+        "WEIGHT_DECAY": "weight_decay", "train_batch_size": "batch_size",
+        "USE_RAWBOOST": "use_rawboost", "RAWBOOST_PROB": "rawboost_prob",
+        "PATIENCE": "patience", "FINETUNE_ENCODER": "finetune_encoder",
+    }
+    return BaselineConfig(**{field_map[k]: v for k, v in c.items()
+                             if k in field_map})
+
+
 # ------------------------------------------------------------ converters
 def convert_stage1_checkpoint(src: str, out_dir: str,
                               encoder_init: Optional[str] = None,
@@ -229,6 +246,48 @@ def convert_stage2_checkpoint(src: str, out_dir: str,
                                     metrics)
 
 
+def convert_baseline_checkpoint(src: str, out_dir: str,
+                                encoder_init: Optional[str] = None,
+                                hf_config: Optional[str] = None,
+                                name: str = "baseline_best",
+                                config_overrides: Optional[Dict] = None,
+                                ckpt: Optional[Dict] = None) -> str:
+    """A reference baseline .pt (the whole End2EndBCEModel state dict) ->
+    a port checkpoint that `BaselineTrainer.from_checkpoint(out_dir,
+    name)` restores: the converted encoder, compression and classifier, a
+    fresh optimizer, step 0. The .pt always embeds the encoder, so only
+    its architecture is resolved. Built on the CPU. -> the checkpoint's
+    base path."""
+    from ..train.baseline import BaselineTrainer
+
+    ckpt = _load_pt(src) if ckpt is None else ckpt
+    sd = _strip_module_prefix(ckpt["model_state_dict"])
+    cfg = baseline_config_from_ckpt_dict(ckpt.get("config", {}))
+    if config_overrides:
+        cfg = cfg.replace(**config_overrides)
+    enc_sd = {k[len("encoder."):]: v for k, v in sd.items()
+              if k.startswith("encoder.")}
+    comp_sd = {k[len("compression."):]: v for k, v in sd.items()
+               if k.startswith("compression.")}
+    if not enc_sd or not comp_sd or "classifier.weight" not in sd:
+        raise ValueError(
+            f"{src} is not a reference baseline checkpoint "
+            "(need encoder.* / compression.* / classifier.*)")
+    enc_cfg, _ = _resolve_encoder(encoder_init, hf_config, cfg.model_name,
+                                  need_weights=False)
+    weights = {"encoder": convert_encoder_state_dict(enc_sd, enc_cfg),
+               "compression": convert_compression_state_dict(comp_sd),
+               "classifier": {"weight": _f32(sd["classifier.weight"]),
+                              "bias": _f32(sd["classifier.bias"])}}
+    trainer = BaselineTrainer(cfg, enc_cfg, weights, device="cpu")
+    metrics = {k: ckpt[k] for k in ("epoch", "best_eer", "train_loss",
+                                    "dev_loss") if k in ckpt}
+    metrics["converted_from"] = os.path.abspath(src)
+    return ckpt_mod.save_checkpoint(out_dir, name, trainer.state_dict(),
+                                    cfg.ckpt_config(), metrics,
+                                    trainer._sidecar_extra())
+
+
 def convert_reference_checkpoint(src: str, out_dir: str, kind: str = "auto",
                                  encoder_init: Optional[str] = None,
                                  hf_config: Optional[str] = None,
@@ -247,7 +306,10 @@ def convert_reference_checkpoint(src: str, out_dir: str, kind: str = "auto",
         path = convert_stage2_checkpoint(src, out_dir,
                                          name=name or STAGE2_BEST, ckpt=ckpt)
     elif kind == "baseline":
-        raise NotImplementedError(_BASELINE)
+        path = convert_baseline_checkpoint(src, out_dir, encoder_init,
+                                           hf_config,
+                                           name=name or "baseline_best",
+                                           ckpt=ckpt)
     else:
         raise ValueError(f"unknown kind {kind!r}")
     return kind, path
@@ -319,6 +381,31 @@ def export_stage2_checkpoint(src_dir: str, out_pt: str,
     return out_pt
 
 
+def export_baseline_checkpoint(src_dir: str, out_pt: str,
+                               name: str = "baseline_best") -> str:
+    """A port baseline checkpoint -> the reference's whole-model .pt,
+    which its End2EndBCEModel loads."""
+    sidecar = ckpt_mod.load_sidecar(src_dir, name)
+    extra, metrics = sidecar["extra"], sidecar.get("metrics") or {}
+    parts = ckpt_mod.restore_parts(src_dir, name,
+                                   ("encoder", "compression", "classifier"))
+    sd = reference_encoder_state_dict(config_from_dict(extra["enc_config"]),
+                                      parts["encoder"],
+                                      prefix="encoder.model.")
+    comp, cls = parts["compression"], parts["classifier"]
+    sd["compression.mlp3.weight"] = comp["proj.weight"].float().contiguous()
+    sd["compression.mlp3.bias"] = comp["proj.bias"].float().contiguous()
+    sd["classifier.weight"] = cls["weight"].float().contiguous()
+    sd["classifier.bias"] = cls["bias"].float().contiguous()
+    out = {"epoch": metrics.get("epoch", 0), "model_state_dict": sd,
+           **{k: metrics.get(k) for k in ("best_eer", "train_loss",
+                                          "dev_loss")},
+           "config": sidecar.get("config") or {}}
+    os.makedirs(os.path.dirname(os.path.abspath(out_pt)), exist_ok=True)
+    torch.save(out, out_pt)
+    return out_pt
+
+
 def export_reference_checkpoint(src_dir: str, out_pt: str,
                                 kind: str = "auto",
                                 name: Optional[str] = None
@@ -337,10 +424,9 @@ def export_reference_checkpoint(src_dir: str, out_pt: str,
             raise FileNotFoundError(
                 f"no best/stage2_binary_head_best/baseline_best checkpoint "
                 f"under {src_dir}")
-    if kind == "baseline":
-        raise NotImplementedError(_BASELINE)
     fn = {"stage1": export_stage1_checkpoint,
-          "stage2": export_stage2_checkpoint}.get(kind)
+          "stage2": export_stage2_checkpoint,
+          "baseline": export_baseline_checkpoint}.get(kind)
     if fn is None:
         raise ValueError(f"unknown kind {kind!r}")
     return kind, fn(src_dir, out_pt, name=name or defaults[kind])

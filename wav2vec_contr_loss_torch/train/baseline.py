@@ -1,0 +1,298 @@
+"""End-to-end BCE baseline trainer.
+
+The port of `BaselineTrainer` of wav2vec_contr_loss_tpu/train/baseline.py
+(:50-452). One step runs, on one device:
+
+  waveforms -> device RawBoost (ops/rawboost.py, when
+  rawboost_mode='device') -> Wav2Vec2 encoder (train mode when
+  finetuning: dropout, SpecAugment, remat; its attention and LN+GELU
+  kernels forward and backward) -> compression (dropout whenever
+  training, also with a frozen encoder) -> time-mean (no L2) ->
+  Linear(hidden_dim, 1) -> BCE with pos_weight (losses/bce.py) ->
+  backward -> one global-norm clip over every trainable gradient -> AdamW
+  per group (train/optim.py `build_baseline_optimizer`).
+
+No SupCon runs: the gradient that reaches the encoder kernels comes from
+the BCE head. `fit` scores the natural-distribution dev set every epoch
+(sigmoid, the exact threshold sweep EER, accuracy at the threshold),
+keeps `baseline_best` by dev EER and `baseline_latest` every epoch, stops
+after `patience` epochs without a better EER, and on a preemption request
+saves the full state mid-epoch with its batch cursor, best EER and
+patience count. As in `Stage1Trainer`, every random number (dropout
+seeds, SpecAugment uniforms, each step's RawBoost seed) comes from one
+CPU `torch.Generator` seeded with cfg.seed, where the JAX trainer splits
+a threefry key; a resumed run continues bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import BaselineConfig, Wav2Vec2Config, config_from_dict
+from ..data.pipeline import (Batch, BatchPipeline, prefetch_to_device,
+                             stream_through_device)
+from ..device import resolve_device
+from ..eval.metrics import eer_threshold_sweep
+from ..losses.bce import bce_logits_loss
+from ..models.compression import CompressionModule, clip_embedding
+from ..models.wav2vec2 import Wav2Vec2Encoder
+from ..ops.wire import quantize_wire
+from . import checkpoint as ckpt
+from .optim import build_baseline_optimizer
+from .stage1 import (_device_rawboost, _load, _pinned, _to_device,
+                     check_config)
+
+__all__ = ["BaselineTrainer"]
+
+BEST, LATEST = "baseline_best", "baseline_latest"
+
+
+class BaselineTrainer:
+    """`weights` holds the 'encoder', 'compression' and 'classifier'
+    (`weight` (1, hidden_dim), `bias` (1,)) state dicts; the trainer
+    trains copies of them on `device`. `pos_weight` (the neg/pos ratio of
+    the train labels) weights the positive class when
+    cfg.use_pos_weight."""
+
+    def __init__(self, cfg: BaselineConfig, enc_config: Wav2Vec2Config,
+                 weights: Mapping[str, Mapping[str, torch.Tensor]],
+                 device="cuda", pos_weight: float = 1.0):
+        check_config(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.enc_config = enc_config.with_(dtype=cfg.compute_dtype)
+        with torch.device("meta"):
+            self.encoder = Wav2Vec2Encoder(self.enc_config,
+                                           remat=cfg.remat_encoder)
+            self.compression = CompressionModule(cfg.input_dim, cfg.hidden_dim,
+                                                 cfg.dropout)
+            self.classifier = nn.Linear(cfg.hidden_dim, 1)
+        for name in ("encoder", "compression", "classifier"):
+            _load(getattr(self, name), weights[name], self.device)
+        self.encoder.requires_grad_(cfg.finetune_encoder)
+        self.optimizer = build_baseline_optimizer(
+            cfg, list(self.compression.parameters())
+            + list(self.classifier.parameters()),
+            list(self.encoder.parameters()) if cfg.finetune_encoder else [])
+        self.pos_weight = pos_weight if cfg.use_pos_weight else None
+        self.rawboost_params = cfg.rawboost_params()
+        self.gen = torch.Generator().manual_seed(cfg.seed)
+        self._rawboost_gen = (
+            torch.Generator(device=self.device)
+            if cfg.use_rawboost and cfg.rawboost_mode == "device" else None)
+        self.step = 0
+
+    # -------------------------------------------------------------- steps
+    def _logits(self, waves: torch.Tensor, train: bool) -> torch.Tensor:
+        """waveforms -> (B,) logits. The encoder trains only when
+        finetuning; the compression dropout runs whenever `train`."""
+        enc_train = train and self.cfg.finetune_encoder
+        self.encoder.train(enc_train)
+        self.compression.train(train)
+        with torch.set_grad_enabled(enc_train):
+            layer_mean = self.encoder(
+                waves, waves != 0.0,
+                gen=self.gen if enc_train else None)["layer_mean"]
+        seq = self.compression(layer_mean, gen=self.gen if train else None)
+        pooled = clip_embedding(seq, l2_normalize=False)
+        return self.classifier(pooled)[..., 0]
+
+    def train_step(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        """One BCE step on `batch` ({'waveforms': (B, T) float32 or int16
+        wire, 'labels': (B,) 0/1}). -> {'loss': scalar tensor on the
+        device} (no host sync)."""
+        b = _to_device(batch, self.device, ("waveforms", "labels"))
+        waves = b["waveforms"]
+        if self._rawboost_gen is not None:
+            waves = _device_rawboost(waves, self.gen, self._rawboost_gen,
+                                     self.cfg.rawboost_prob,
+                                     self.rawboost_params)
+        loss = bce_logits_loss(self._logits(waves, train=True), b["labels"],
+                               self.pos_weight)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return {"loss": loss.detach()}
+
+    @torch.no_grad()
+    def logits_step(self, waves) -> torch.Tensor:
+        """(B, T) waveforms (float32 or int16 wire) -> (B,) eval-mode
+        logits on the device."""
+        b = _to_device({"waveforms": waves}, self.device, ("waveforms",))
+        return self._logits(b["waveforms"], train=False)
+
+    # --------------------------------------------------------------- data
+    def _put(self, b: Batch) -> Dict[str, torch.Tensor]:
+        return _pinned({
+            "waveforms": quantize_wire(b.waveforms)
+            if self.cfg.wire_dtype == "int16" else b.waveforms,
+            "labels": b.labels.astype(np.int64)}, self.device)
+
+    def _scored_batches(self, pipe: BatchPipeline
+                        ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """(valid-row logits, valid-row labels) per sequential batch, with
+        decode, compute and the copy back overlapped."""
+        for lg, b in stream_through_device(
+                pipe.sequential(), lambda b: self._put(b)["waveforms"],
+                self.logits_step):
+            yield lg[b.valid], b.labels[b.valid]
+
+    def score_dataset(self, pipe: BatchPipeline
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """-> ((N,) logits, (N,) labels) over `pipe`'s dataset in order,
+        for CM score files."""
+        logits, labels = zip(*self._scored_batches(pipe))
+        return np.concatenate(logits), np.concatenate(labels)
+
+    def evaluate_dev(self, dev_pipe: BatchPipeline
+                     ) -> Tuple[float, float, float]:
+        """-> (dev EER, threshold, accuracy at the threshold) over the
+        natural-distribution dev set, on sigmoid scores."""
+        logits, labels = self.score_dataset(dev_pipe)
+        scores = 1.0 / (1.0 + np.exp(-logits))
+        eer, thresh = eer_threshold_sweep(labels, scores)
+        acc = float(((scores >= thresh).astype(int) == labels).mean())
+        return eer, thresh, acc
+
+    # ---------------------------------------------------------------- fit
+    def fit(self, train_pipe: BatchPipeline, dev_pipe: BatchPipeline,
+            save_dir: Optional[str] = None, log_fn=print, preemption=None,
+            start_epoch: int = 1, skip_steps: int = 0,
+            best_eer: float = float("inf"),
+            epochs_no_improve: int = 0) -> Dict:
+        """Epoch loop with the dev EER, patience and early stop.
+        -> history {'train_loss', 'dev_eer', 'dev_acc'} (one entry an
+        epoch), plus 'preempted': True after a stop.
+
+        `preemption` (anything with `requested(step)`) is polled after
+        every step; on a request the full state is saved to
+        'baseline_latest' with its `batches_done` cursor, `best_eer` and
+        `epochs_no_improve`, and fit returns. `skip_steps` resumes the
+        first epoch past that cursor; `best_eer` and `epochs_no_improve`
+        carry the best dev EER and the patience count across resumes, and
+        a resume that has already reached the patience is a no-op."""
+        cfg = self.cfg
+        history = {"train_loss": [], "dev_eer": [], "dev_acc": []}
+        if epochs_no_improve >= cfg.patience:
+            log_fn(f"[EARLY STOP] patience {cfg.patience} already reached "
+                   f"at resume (best EER={best_eer * 100:.2f}%)")
+            return history
+        for epoch in range(start_epoch, cfg.epochs + 1):
+            losses = []
+            skip = skip_steps if epoch == start_epoch else 0
+            n_steps = skip   # absolute batch cursor within the epoch
+            preempted = False
+            for batch in prefetch_to_device(
+                    train_pipe.train_epoch(epoch, skip=skip), self._put,
+                    depth=2):
+                losses.append(self.train_step(batch)["loss"])
+                n_steps += 1
+                if preemption is not None and preemption.requested(n_steps):
+                    preempted = True
+                    break
+            if preempted:
+                if save_dir is not None:
+                    ckpt.save_checkpoint(
+                        save_dir, LATEST, self.state_dict(),
+                        cfg.ckpt_config(),
+                        {"epoch": epoch, "batches_done": n_steps,
+                         "preempted": True, "best_eer": best_eer,
+                         "epochs_no_improve": epochs_no_improve},
+                        self._sidecar_extra())
+                log_fn(f"[PREEMPTED] "
+                       f"{'saved mid-epoch state at' if save_dir else 'stopping (no save_dir) at'} "
+                       f"epoch {epoch} batch {n_steps}"
+                       + ("; resume with --resume" if save_dir else ""))
+                history["preempted"] = True
+                return history
+            train_loss = (float(np.mean(torch.stack(losses).tolist()))
+                          if losses else 0.0)
+            dev_eer, thresh, dev_acc = self.evaluate_dev(dev_pipe)
+            history["train_loss"].append(train_loss)
+            history["dev_eer"].append(dev_eer)
+            history["dev_acc"].append(dev_acc)
+            log_fn(f"[epoch {epoch:03d}] train_loss={train_loss:.4f} | "
+                   f"dev_eer={dev_eer * 100:.2f}% | dev_acc="
+                   f"{dev_acc * 100:.2f}% | thresh={thresh:.4f}")
+            is_new_best = dev_eer < best_eer
+            if is_new_best:
+                best_eer = dev_eer
+                epochs_no_improve = 0
+            else:
+                epochs_no_improve += 1
+            if save_dir is not None:
+                # one host copy serves 'baseline_best' and 'baseline_latest'
+                host = ckpt.snapshot_for_save(self.state_dict())
+                extra = self._sidecar_extra()
+                if is_new_best:
+                    ckpt.save_checkpoint(
+                        save_dir, BEST, None, cfg.ckpt_config(),
+                        {"epoch": epoch, "dev_eer": dev_eer,
+                         "dev_acc": dev_acc}, extra, block=False,
+                        host_state=host)
+                    log_fn(f"[epoch {epoch:03d}] new best dev EER="
+                           f"{best_eer * 100:.2f}%")
+                ckpt.save_checkpoint(
+                    save_dir, LATEST, None, cfg.ckpt_config(),
+                    {"epoch": epoch, "dev_eer": dev_eer, "dev_acc": dev_acc,
+                     "best_eer": best_eer,
+                     "epochs_no_improve": epochs_no_improve},
+                    extra, block=False, host_state=host)
+            if epochs_no_improve >= cfg.patience:
+                log_fn(f"[EARLY STOP] patience {cfg.patience} reached "
+                       f"(best EER={best_eer * 100:.2f}%)")
+                break
+        if save_dir is not None:
+            ckpt.wait_for_saves()
+        return history
+
+    # -------------------------------------------------------------- state
+    def state_dict(self) -> Dict:
+        """The full train state; its tensors are the live ones."""
+        return {"encoder": self.encoder.state_dict(),
+                "compression": self.compression.state_dict(),
+                "classifier": self.classifier.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "gen": self.gen.get_state()}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])   # checks first
+        for name in ("encoder", "compression", "classifier"):
+            getattr(self, name).load_state_dict(state[name], strict=True)
+        self.step = int(state["step"])
+        self.gen.set_state(state["gen"])
+
+    def _sidecar_extra(self) -> Dict:
+        return {"enc_config": dataclasses.asdict(self.enc_config),
+                "baseline_config": dataclasses.asdict(self.cfg)}
+
+    def restore(self, save_dir: str, name: str = BEST) -> Dict:
+        """Load the full train state of <save_dir>/<name> into this
+        trainer. -> the checkpoint's sidecar."""
+        state, sidecar = ckpt.restore_checkpoint(save_dir, name)
+        self.load_state_dict(state)
+        return sidecar
+
+    @classmethod
+    def from_checkpoint(cls, save_dir: str, name: str = BEST,
+                        device="cuda") -> "BaselineTrainer":
+        """Rebuild the trainer and its state from a checkpoint directory
+        alone; a JAX sidecar's extra fields (the XLA-path and TPU knobs)
+        are dropped."""
+        state, sidecar = ckpt.restore_checkpoint(save_dir, name)
+        extra = sidecar["extra"]
+        names = {f.name for f in dataclasses.fields(BaselineConfig)}
+        cfg = BaselineConfig(**{k: v for k, v in
+                                extra["baseline_config"].items()
+                                if k in names})
+        trainer = cls(cfg, config_from_dict(extra["enc_config"]),
+                      {k: state[k] for k in ("encoder", "compression",
+                                             "classifier")}, device=device)
+        trainer.load_state_dict(state)
+        return trainer

@@ -1,14 +1,22 @@
-"""Grouped AdamW of the stage-1 trainer.
+"""Grouped AdamW of the stage-1 and baseline trainers.
 
 The port of `build_optimizer` and `_param_groups`
-(wav2vec_contr_loss_tpu/train/stage1.py:66,124) and of the storage-dtype
-Adam core (wav2vec_contr_loss_tpu/ops/adam_bf16nu.py):
+(wav2vec_contr_loss_tpu/train/stage1.py:66,124), of the baseline's
+optimizer (wav2vec_contr_loss_tpu/train/baseline.py:124-144) and of the
+storage-dtype Adam core (wav2vec_contr_loss_tpu/ops/adam_bf16nu.py):
 
-  * 'head' (the compression module): global-norm clip at `grad_clip` on
-    the head's gradients only, then AdamW at `head_lr`;
-  * 'encoder' (when finetuning): AdamW at `enc_lr`;
-  * 'frozen' (the conv feature extractor under freeze_feature_extractor):
-    no update, no weight decay, no state, as optax.set_to_zero.
+  * stage 1, 'head' (the compression module): global-norm clip at
+    `grad_clip` on the head's gradients only, then AdamW at `head_lr`;
+    'encoder' (when finetuning): AdamW at `enc_lr`; 'frozen' (the conv
+    feature extractor under freeze_feature_extractor): no update, no
+    weight decay, no state, as optax.set_to_zero;
+  * the baseline: one global-norm clip at `grad_clip` over the gradients
+    of every group, head and encoder together (optax.chain of
+    clip_by_global_norm and multi_transform), then AdamW per group.
+
+A clip scales the gradients by min(1, clip / norm), the norm in fp32 over
+the fp32 gradients; the scale stays on the device (no host sync) and is
+applied to each gradient as its parameter is updated.
 
 Both moments are stored in `adam_mu_dtype` / `adam_nu_dtype` and the
 moment and step math runs in fp32; with fp32 storage it is optax.adamw's
@@ -22,8 +30,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["resolve_grad_bf16", "AdamWGroup", "GroupedAdamW",
-           "build_optimizer"]
+__all__ = ["resolve_grad_bf16", "clip_scale", "AdamWGroup", "GroupedAdamW",
+           "build_optimizer", "build_baseline_optimizer"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -45,6 +53,14 @@ def resolve_grad_bf16(cfg) -> bool:
     return gd == "bfloat16"
 
 
+def clip_scale(grads: List[torch.Tensor], clip: float) -> torch.Tensor:
+    """optax.clip_by_global_norm as a factor: 1 where the global norm of
+    `grads` is below `clip`, else clip / norm; a 0-d fp32 tensor on the
+    gradients' device, computed without a host sync."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    return torch.where(norm < clip, torch.ones_like(norm), clip / norm)
+
+
 class AdamWGroup:
     """One optax.adamw over a list of parameters, optionally behind a
     global-norm clip of their gradients."""
@@ -60,21 +76,28 @@ class AdamWGroup:
         self.nu = [torch.zeros_like(p, dtype=nu_dtype) for p in self.params]
         self.count = 0
 
+    def gradients(self) -> List[torch.Tensor]:
+        """fp32 gradients, zeros for a parameter that got none."""
+        return [torch.zeros_like(p) if p.grad is None else p.grad.float()
+                for p in self.params]
+
     @torch.no_grad()
-    def step(self) -> None:
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad.float()
-                 for p in self.params]
-        if self.clip is not None and grads:
-            # optax.clip_by_global_norm: g if |g| < clip else g / |g| * clip
-            norm = torch.sqrt(sum(g.square().sum() for g in grads))
-            keep = norm < self.clip
-            grads = [torch.where(keep, g, g / norm * self.clip)
-                     for g in grads]
+    def step(self, grads: Optional[List[torch.Tensor]] = None,
+             scale: Optional[torch.Tensor] = None) -> None:
+        """One update. `grads` and `scale` come from a clip that spans
+        more than this group (GroupedAdamW); otherwise the group reads
+        its parameters' gradients and applies its own clip."""
+        if grads is None:
+            grads = self.gradients()
+            if self.clip is not None and grads:
+                scale = clip_scale(grads, self.clip)
         self.count += 1
         f32 = torch.float32
         bc1 = float(1 - torch.tensor(self.b1, dtype=f32) ** self.count)
         bc2 = float(1 - torch.tensor(self.b2, dtype=f32) ** self.count)
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            if scale is not None:
+                g = g * scale
             m32 = mu.float().mul_(self.b1).add_(g, alpha=1 - self.b1)
             v32 = nu.float().mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
             upd = (m32 / bc1) / ((v32 / bc2).sqrt_().add_(self.eps))
@@ -88,8 +111,10 @@ class GroupedAdamW:
     """The optax.multi_transform of the JAX trainer over named groups;
     parameters in no group take no update."""
 
-    def __init__(self, groups: Dict[str, AdamWGroup]):
+    def __init__(self, groups: Dict[str, AdamWGroup],
+                 clip: Optional[float] = None):
         self.groups = groups
+        self.clip = clip   # over the gradients of every group
 
     def zero_grad(self) -> None:
         for grp in self.groups.values():
@@ -97,8 +122,15 @@ class GroupedAdamW:
                 p.grad = None
 
     def step(self) -> None:
-        for grp in self.groups.values():
-            grp.step()
+        if self.clip is None:
+            for grp in self.groups.values():
+                grp.step()
+            return
+        grads = {name: grp.gradients() for name, grp in self.groups.items()}
+        scale = clip_scale([g for gs in grads.values() for g in gs],
+                           self.clip)
+        for name, grp in self.groups.items():
+            grp.step(grads[name], scale)
 
     def state_dict(self) -> Dict[str, Dict]:
         """Each group's stored moments (in their storage dtype) and step
@@ -144,3 +176,19 @@ def build_optimizer(cfg, head: List[torch.nn.Parameter],
         groups["encoder"] = AdamWGroup(encoder, cfg.enc_lr, cfg.weight_decay,
                                        mu, nu)
     return GroupedAdamW(groups)
+
+
+def build_baseline_optimizer(cfg, head: List[torch.nn.Parameter],
+                             encoder: List[torch.nn.Parameter]
+                             ) -> GroupedAdamW:
+    """The baseline's optimizer: one clip at cfg.grad_clip over head and
+    encoder gradients together, then AdamW(head_lr) on the head
+    (compression and classifier) and AdamW(enc_lr) on the encoder when
+    it trains; shared weight decay."""
+    mu = _DTYPES[cfg.adam_mu_dtype]
+    nu = _DTYPES[cfg.adam_nu_dtype]
+    groups = {"head": AdamWGroup(head, cfg.head_lr, cfg.weight_decay, mu, nu)}
+    if encoder:
+        groups["encoder"] = AdamWGroup(encoder, cfg.enc_lr, cfg.weight_decay,
+                                       mu, nu)
+    return GroupedAdamW(groups, clip=cfg.grad_clip)

@@ -2,9 +2,11 @@
 
 The port of `Stage1Trainer` of wav2vec_contr_loss_tpu/train/stage1.py:
 `train_step` (:355-404), `eval_step` (:406-410), `embed_step` with their
-shared `_embed` (:296-320), the epoch loop `fit` (:453-616), the
-extraction pass `embed_dataset` (:703-724) and the checkpoint reload
-`restore` / `from_checkpoint` (:727-768). One step runs, on one device:
+shared `_embed` and `_loss` (:296-333), the epoch loop `fit` (:453-616),
+the head-only loop over precomputed encoder features `fit_from_features`
+(:618-700), the extraction pass `embed_dataset` (:703-724) and the
+checkpoint reload `restore` / `from_checkpoint` (:727-768). One step
+runs, on one device:
 
   waveforms -> device RawBoost (ops/rawboost.py, when
   rawboost_mode='device') -> Wav2Vec2 encoder (train mode: dropout,
@@ -12,6 +14,12 @@ extraction pass `embed_dataset` (:703-724) and the checkpoint reload
   backward) -> compression (dropout) -> time-mean + L2 -> fused SupCon
   kernel (loss, dL/dz, dL/dalpha) -> backward -> grouped AdamW
   (train/optim.py).
+
+`loss_mode='multiclass'` trains on the attack-id classes with the plain
+multi-class SupCon (losses/supcon.py) at `multiclass_temperature`
+instead of the binary kernel. `from_features=True` builds no encoder and
+needs no encoder weights: the batches carry (B, T, F) layer-mean
+features, and only the compression module trains.
 
 With `finetune_encoder=False` the encoder runs in eval mode without
 gradients, outside the differentiated part, as the JAX step hoists it.
@@ -21,9 +29,6 @@ RawBoost seed) comes from one CPU `torch.Generator` seeded with
 a generator seeded with that step's seed. The trainer holds its state
 (parameters, optimizer, step, generator) and `state_dict` /
 `load_state_dict` move all of it, so a resumed run continues bit for bit.
-
-Not ported: the multiclass loss mode and `from_features` with
-`fit_from_features`.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from ..device import resolve_device
 from ..models.compression import CompressionModule, clip_embedding
 from ..models.wav2vec2 import Wav2Vec2Encoder
 from ..ops.rawboost import rawboost_batch, rawboost_draws
+from ..data.sampler import BalancedBatchSampler
+from ..losses.supcon import supcon_multiclass_loss
 from ..ops.supcon import supcon_binary_loss_fused
 from ..ops.wire import dequantize_wire, quantize_wire
 from . import checkpoint as ckpt
@@ -53,8 +60,9 @@ from .schedule import alpha_for_epoch
 __all__ = ["Stage1Trainer"]
 
 
-def _check(cfg: Stage1Config) -> None:
-    """Refuse the settings the port does not compute."""
+def check_config(cfg) -> None:
+    """Refuse the settings the port does not compute (a Stage1Config or
+    a BaselineConfig)."""
     if resolve_grad_bf16(cfg) and cfg.compute_dtype != "bfloat16":
         raise ValueError(
             "grad_dtype='bfloat16' requires compute_dtype='bfloat16' "
@@ -74,41 +82,95 @@ def _check(cfg: Stage1Config) -> None:
                          f"{cfg.wire_dtype!r}")
 
 
+def _to_device(batch: Mapping, device: torch.device,
+               keys=("waveforms", "labels", "multi_labels", "features")
+               ) -> Dict[str, torch.Tensor]:
+    """Host or device arrays -> tensors on `device` (a non-blocking copy
+    from pinned host memory); int16 wire waveforms are dequantized there
+    (dewire)."""
+    out = {}
+    for key in keys:
+        if key in batch:
+            x = batch[key]
+            x = torch.from_numpy(np.asarray(x)) if not isinstance(
+                x, torch.Tensor) else x
+            out[key] = x.to(device, non_blocking=True)
+    if "waveforms" in out:
+        out["waveforms"] = dequantize_wire(out["waveforms"])
+    return out
+
+
+def _pinned(arrays: Mapping[str, np.ndarray], device: torch.device
+            ) -> Dict[str, torch.Tensor]:
+    """Host arrays as tensors, pinned when `device` is the card (so the
+    step's copy is non-blocking)."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v))
+           for k, v in arrays.items()}
+    if device.type == "cuda":
+        return {k: v.pin_memory() for k, v in out.items()}
+    return out
+
+
+def _device_rawboost(waves: torch.Tensor, gen: torch.Generator,
+                     device_gen: torch.Generator, prob: float,
+                     params) -> torch.Tensor:
+    """In-step device RawBoost: a seed from the trainer's CPU generator
+    seeds the device generator, which draws the batch's numbers."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
+    device_gen.manual_seed(seed)
+    draws = rawboost_draws(device_gen, *waves.shape, params)
+    return rawboost_batch(waves, draws, prob, params)
+
+
+def _load(mod: torch.nn.Module, sd: Mapping[str, torch.Tensor],
+          device: torch.device) -> torch.nn.Module:
+    """Copies of `sd` in fp32 on `device` as the parameters of `mod`,
+    which was built on the meta device."""
+    mod.load_state_dict({k: v.to(device, torch.float32, copy=True)
+                         for k, v in sd.items()}, strict=True, assign=True)
+    return mod
+
+
 class Stage1Trainer:
     """`weights` holds the 'encoder' and 'compression' state dicts, as
     `bridge.jax_params_to_torch` returns them (a 'head' entry is
-    ignored); the trainer trains copies of them on `device`."""
+    ignored; a `from_features` trainer needs no 'encoder'); the trainer
+    trains copies of them on `device`."""
 
     def __init__(self, cfg: Stage1Config, enc_config: Wav2Vec2Config,
                  weights: Mapping[str, Mapping[str, torch.Tensor]],
-                 device="cuda"):
-        _check(cfg)
+                 device="cuda", loss_mode: str = "binary",
+                 from_features: bool = False,
+                 multiclass_temperature: float = 0.1):
+        check_config(cfg)
+        if loss_mode not in ("binary", "multiclass"):
+            raise ValueError(f"loss_mode must be 'binary' or 'multiclass'; "
+                             f"got {loss_mode!r}")
         self.cfg = cfg
+        self.loss_mode = loss_mode
+        self.from_features = from_features
+        self.multiclass_temperature = multiclass_temperature
         self.device = resolve_device(device)
         self.enc_config = enc_config.with_(dtype=cfg.compute_dtype)
         with torch.device("meta"):
-            self.encoder = Wav2Vec2Encoder(
+            self.compression = CompressionModule(cfg.input_dim, cfg.hidden_dim,
+                                                 cfg.dropout)
+            self.encoder = None if from_features else Wav2Vec2Encoder(
                 self.enc_config, remat=cfg.remat_encoder,
                 remat_conv=cfg.remat_conv,
                 freeze_feature_extractor=cfg.freeze_feature_extractor)
-            self.compression = CompressionModule(cfg.input_dim, cfg.hidden_dim,
-                                                 cfg.dropout)
-        for name, mod in (("encoder", self.encoder),
-                          ("compression", self.compression)):
-            mod.load_state_dict({k: v.to(self.device, torch.float32,
-                                         copy=True)
-                                 for k, v in weights[name].items()},
-                                strict=True, assign=True)
-
-        # the 'frozen' group of the JAX trainer: no gradient, no update
-        fx = set(self.encoder.feature_extractor.parameters())
+        _load(self.compression, weights["compression"], self.device)
         enc = []
-        for p in self.encoder.parameters():
-            train = cfg.finetune_encoder and not (
-                cfg.freeze_feature_extractor and p in fx)
-            p.requires_grad_(train)
-            if train:
-                enc.append(p)
+        if self.encoder is not None:
+            _load(self.encoder, weights["encoder"], self.device)
+            # the 'frozen' group of the JAX trainer: no gradient, no update
+            fx = set(self.encoder.feature_extractor.parameters())
+            for p in self.encoder.parameters():
+                train = cfg.finetune_encoder and not (
+                    cfg.freeze_feature_extractor and p in fx)
+                p.requires_grad_(train)
+                if train:
+                    enc.append(p)
         self.optimizer = build_optimizer(
             cfg, list(self.compression.parameters()), enc)
         self.supcon_cfg = SupConConfig(
@@ -120,59 +182,56 @@ class Stage1Trainer:
         # RawBoost's numbers, drawn on the device; reseeded every step
         self._rawboost_gen = (
             torch.Generator(device=self.device)
-            if cfg.use_rawboost and cfg.rawboost_mode == "device" else None)
+            if cfg.use_rawboost and cfg.rawboost_mode == "device"
+            and not from_features else None)
         self.step = 0
 
     # ------------------------------------------------------------ helpers
     def _batch(self, batch: Mapping) -> Dict[str, torch.Tensor]:
-        """Host or device arrays -> tensors on the trainer's device (a
-        non-blocking copy from pinned host memory); int16 wire waveforms
-        are dequantized there (dewire)."""
-        out = {}
-        for key in ("waveforms", "labels"):
-            if key in batch:
-                x = batch[key]
-                x = torch.from_numpy(np.asarray(x)) if not isinstance(
-                    x, torch.Tensor) else x
-                out[key] = x.to(self.device, non_blocking=True)
-        out["waveforms"] = dequantize_wire(out["waveforms"])
-        return out
+        """The batch's 'waveforms' (or 'features'), 'labels' and
+        'multi_labels' on the trainer's device (_to_device)."""
+        return _to_device(batch, self.device)
 
-    def _rawboost(self, waves: torch.Tensor) -> torch.Tensor:
-        """In-step device RawBoost: a seed from the trainer's generator
-        seeds the device generator, which draws the batch's numbers."""
-        seed = int(torch.randint(0, 2 ** 62, (), generator=self.gen))
-        self._rawboost_gen.manual_seed(seed)
-        draws = rawboost_draws(self._rawboost_gen, *waves.shape,
-                               self.rawboost_params)
-        return rawboost_batch(waves, draws, self.cfg.rawboost_prob,
-                              self.rawboost_params)
-
-    def _embed(self, waves: torch.Tensor, train: bool) -> torch.Tensor:
-        """waveforms -> (B, D) L2-normalized clip embeddings. The encoder
-        trains only when finetuning; a frozen one stays in eval mode."""
-        enc_train = train and self.cfg.finetune_encoder
-        self.encoder.train(enc_train)
+    def _embed(self, b: Mapping[str, torch.Tensor],
+               train: bool) -> torch.Tensor:
+        """A device batch's waveforms (or (B, T, F) features) -> (B, D)
+        L2-normalized clip embeddings. The encoder trains only when
+        finetuning; a frozen one stays in eval mode."""
         self.compression.train(train)
-        with torch.set_grad_enabled(enc_train):
-            enc_out = self.encoder(waves, waves != 0.0,
-                                   gen=self.gen if enc_train else None)
-        seq = self.compression(enc_out["layer_mean"],
-                               gen=self.gen if train else None)
+        if self.from_features:
+            layer_mean = b["features"]
+        else:
+            waves = b["waveforms"]
+            enc_train = train and self.cfg.finetune_encoder
+            self.encoder.train(enc_train)
+            with torch.set_grad_enabled(enc_train):
+                layer_mean = self.encoder(
+                    waves, waves != 0.0,
+                    gen=self.gen if enc_train else None)["layer_mean"]
+        seq = self.compression(layer_mean, gen=self.gen if train else None)
         return clip_embedding(seq)
+
+    def _loss(self, z: torch.Tensor, b: Mapping[str, torch.Tensor],
+              alpha) -> torch.Tensor:
+        if self.loss_mode == "multiclass":
+            return supcon_multiclass_loss(z, b["multi_labels"],
+                                          self.multiclass_temperature)
+        return supcon_binary_loss_fused(z, b["labels"], alpha,
+                                        self.supcon_cfg)
 
     # -------------------------------------------------------------- steps
     def train_step(self, batch: Mapping, alpha) -> Dict[str, torch.Tensor]:
         """One SupCon step on `batch` ({'waveforms': (B, T) float32 or
-        int16 wire, 'labels': (B,) ints}) at mining weight `alpha`.
-        -> {'loss': scalar tensor on the device} (no host sync)."""
+        int16 wire, or 'features': (B, T, F) for a from_features trainer;
+        'labels': (B,) ints; 'multi_labels' for the multiclass loss} at
+        mining weight `alpha`. -> {'loss': scalar tensor on the device}
+        (no host sync)."""
         b = self._batch(batch)
-        waves = b["waveforms"]
         if self._rawboost_gen is not None:
-            waves = self._rawboost(waves)
-        z = self._embed(waves, train=True)
-        loss = supcon_binary_loss_fused(z, b["labels"], alpha,
-                                        self.supcon_cfg)
+            b["waveforms"] = _device_rawboost(
+                b["waveforms"], self.gen, self._rawboost_gen,
+                self.cfg.rawboost_prob, self.rawboost_params)
+        loss = self._loss(self._embed(b, train=True), b, alpha)
         self.optimizer.zero_grad()
         loss.backward()
         self.optimizer.step()
@@ -184,25 +243,28 @@ class Stage1Trainer:
         """Dev loss: eval mode, no RawBoost, alpha = 0 (as the JAX eval
         step)."""
         b = self._batch(batch)
-        z = self._embed(b["waveforms"], train=False)
-        return supcon_binary_loss_fused(z, b["labels"], 0.0, self.supcon_cfg)
+        return self._loss(self._embed(b, train=False), b, 0.0)
 
     @torch.no_grad()
     def embed_step(self, batch: Mapping) -> torch.Tensor:
         """(B, D) clip embeddings in eval mode."""
-        return self._embed(self._batch(batch)["waveforms"], train=False)
+        return self._embed(self._batch(batch), train=False)
 
     # -------------------------------------------------------------- state
     def state_dict(self) -> Dict:
-        """The full train state; its tensors are the live ones."""
-        return {"encoder": self.encoder.state_dict(),
-                "compression": self.compression.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "step": self.step, "gen": self.gen.get_state()}
+        """The full train state; its tensors are the live ones. A
+        from_features trainer has no 'encoder'."""
+        state = {"compression": self.compression.state_dict(),
+                 "optimizer": self.optimizer.state_dict(),
+                 "step": self.step, "gen": self.gen.get_state()}
+        if self.encoder is not None:
+            state["encoder"] = self.encoder.state_dict()
+        return state
 
     def load_state_dict(self, state: Mapping) -> None:
         self.optimizer.load_state_dict(state["optimizer"])   # checks first
-        self.encoder.load_state_dict(state["encoder"], strict=True)
+        if self.encoder is not None:
+            self.encoder.load_state_dict(state["encoder"], strict=True)
         self.compression.load_state_dict(state["compression"], strict=True)
         self.step = int(state["step"])
         self.gen.set_state(state["gen"])
@@ -211,13 +273,11 @@ class Stage1Trainer:
     def _put(self, b: Batch) -> Dict[str, torch.Tensor]:
         """A host batch as tensors in the wire dtype, pinned on the card
         (run in the prefetch thread)."""
-        out = {"waveforms": torch.from_numpy(
-                   quantize_wire(b.waveforms)
-                   if self.cfg.wire_dtype == "int16" else b.waveforms),
-               "labels": torch.from_numpy(b.labels.astype(np.int64))}
-        if self.device.type == "cuda":
-            return {k: v.pin_memory() for k, v in out.items()}
-        return out
+        return _pinned({
+            "waveforms": quantize_wire(b.waveforms)
+            if self.cfg.wire_dtype == "int16" else b.waveforms,
+            "labels": b.labels.astype(np.int64),
+            "multi_labels": b.multi_labels.astype(np.int64)}, self.device)
 
     def _device_batches(self, batches: Iterator[Batch]) -> Iterator[Dict]:
         """Prefetch two batches ahead: the producer thread decodes and, on
@@ -359,11 +419,105 @@ class Stage1Trainer:
             ckpt.wait_for_saves()
         return history
 
+    # ------------------------------------------------ from features
+    def _feature_batches(self, features: np.ndarray, labels: np.ndarray,
+                         multi: Optional[np.ndarray],
+                         batches: Iterator[np.ndarray]) -> Iterator[Dict]:
+        """Balanced rows gathered from the (N, F, T) features (a memmap
+        stays on disk), pinned in the prefetch thread; the step copies
+        them to the card non-blocking, and `_feature_step_batch` turns
+        them into (B, T, F) there."""
+        def put(idx):
+            return _pinned({
+                "features": np.asarray(features[idx], np.float32),
+                "labels": np.asarray(labels[idx]).astype(np.int64),
+                "multi_labels": np.asarray(
+                    (multi if multi is not None else labels)[idx]
+                ).astype(np.int64)}, self.device)
+        return prefetch_to_device(batches, put, depth=2)
+
+    def _feature_step_batch(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        b = _to_device(batch, self.device)
+        b["features"] = b["features"].transpose(1, 2)   # (B, T, F)
+        return b
+
+    def fit_from_features(self, features: np.ndarray, labels: np.ndarray,
+                          dev_features: Optional[np.ndarray] = None,
+                          dev_labels: Optional[np.ndarray] = None,
+                          multi_labels: Optional[np.ndarray] = None,
+                          save_dir: Optional[str] = None,
+                          log_fn=print) -> Dict:
+        """Head-only training on precomputed encoder features, (N, F, T)
+        as `extract_encoder_features` writes them (possibly memmapped),
+        with (N,) binary labels and, for the multiclass loss, (N,)
+        attack-id `multi_labels` (the binary labels otherwise; the dev
+        set is scored with its binary labels, as the JAX loop does).
+        Balanced batches (seed cfg.seed; dev seed + 1), the alpha ramp,
+        one dev loss an epoch, 'latest' every epoch and 'best' on a new
+        best dev loss ('best' an alias of 'latest' without a dev set).
+        -> history {'train_loss', 'dev_loss', 'alpha'}.
+
+        The rows of a batch are gathered on the host in the (N, F, T)
+        layout and transposed to (B, T, F) on the trainer's device, after
+        the copy."""
+        if not self.from_features:
+            raise ValueError("fit_from_features needs a trainer built with "
+                             "from_features=True")
+        cfg = self.cfg
+        sampler = BalancedBatchSampler(labels, cfg.batch_size, seed=cfg.seed)
+        dev_sampler = (BalancedBatchSampler(dev_labels, cfg.batch_size,
+                                            seed=cfg.seed + 1)
+                       if dev_labels is not None else None)
+        best_dev = float("inf")
+        history = {"train_loss": [], "dev_loss": [], "alpha": []}
+        for epoch in range(1, cfg.epochs + 1):
+            alpha = alpha_for_epoch(epoch, cfg.warmup_epochs,
+                                    cfg.alpha_ramp_epochs, cfg.alpha_end)
+            losses = [self.train_step(self._feature_step_batch(b),
+                                      alpha)["loss"]
+                      for b in self._feature_batches(
+                          features, labels, multi_labels,
+                          sampler.epoch_batches(epoch))]
+            train_loss = (float(np.mean(torch.stack(losses).tolist()))
+                          if losses else 0.0)
+            dev_loss = float("nan")
+            if dev_sampler is not None:
+                dev = [self.eval_step(self._feature_step_batch(b))
+                       for b in self._feature_batches(
+                           dev_features, dev_labels, None,
+                           dev_sampler.epoch_batches(epoch))]
+                if dev:
+                    dev_loss = float(np.mean(torch.stack(dev).tolist()))
+            history["train_loss"].append(train_loss)
+            history["dev_loss"].append(dev_loss)
+            history["alpha"].append(alpha)
+            log_fn(f"[epoch {epoch:03d}] train_loss={train_loss:.4f} | "
+                   f"dev_loss={dev_loss:.4f} | alpha={alpha:.3f}")
+            if save_dir is not None:
+                metrics = {"epoch": epoch, "train_loss": train_loss,
+                           "dev_loss": dev_loss}
+                extra = self._sidecar_extra()
+                host = ckpt.snapshot_for_save(self.state_dict())
+                ckpt.save_checkpoint(save_dir, "latest", None,
+                                     cfg.ckpt_config(), metrics, extra,
+                                     block=False, host_state=host)
+                if dev_sampler is None:
+                    ckpt.alias_checkpoint(save_dir, "best", "latest")
+                elif dev_loss < best_dev:   # NaN is never best
+                    best_dev = dev_loss
+                    ckpt.save_checkpoint(save_dir, "best", None,
+                                         cfg.ckpt_config(), metrics, extra,
+                                         block=False, host_state=host)
+        if save_dir is not None:
+            ckpt.wait_for_saves()
+        return history
+
     # ------------------------------------------------------------ restore
     def _sidecar_extra(self) -> Dict:
         return {"enc_config": dataclasses.asdict(self.enc_config),
                 "stage1_config": dataclasses.asdict(self.cfg),
-                "loss_mode": "binary", "from_features": False}
+                "loss_mode": self.loss_mode,
+                "from_features": self.from_features}
 
     def restore(self, save_dir: str, name: str = "best") -> Dict:
         """Load the full train state of <save_dir>/<name> into this
@@ -385,8 +539,10 @@ class Stage1Trainer:
         cfg = Stage1Config(**{k: v for k, v in extra["stage1_config"].items()
                               if k in names})
         trainer = cls(cfg, config_from_dict(extra["enc_config"]),
-                      {"encoder": state["encoder"],
-                       "compression": state["compression"]}, device=device)
+                      {k: state[k] for k in ("encoder", "compression")
+                       if k in state}, device=device,
+                      loss_mode=extra.get("loss_mode", "binary"),
+                      from_features=extra.get("from_features", False))
         trainer.load_state_dict(state)
         return trainer
 
