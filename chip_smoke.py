@@ -74,7 +74,21 @@
    clip, exactly one failed decode; requests/s, latency and occupancy;
    then `python -m wav2vec_contr_loss_torch serve --list` and `--windowed
    mean` and `doctor` as processes of their own.
-9. Prints one JSON line with every kernel's numbers, then the result
+9. Artifact and int8 phase, after the front-door phase, from the serve
+   phase's seed-0 weights and batches: a `torch.export` artifact of the
+   bf16 scorer and one of the w8a8 scorer at batch 8 (export seconds,
+   bytes), with `serve --artifact --list` on 8 clips as a process of its
+   own beside the second export and the fp32 CPU references, its scores
+   against `score_waveforms`; scorers with `quantize='w8'` and `'w8a8'`
+   (int8 transformer linears, `torch._int_mm` for w8a8), each with exact
+   launch counts over 4 batches (24 attention and 7 LN+GELU forwards a
+   batch, nothing else), its layer mean against the bf16 scorer's, z and
+   logits against the fp32 CPU run of the same mode, the fp32 CPU
+   quantization error against JAX's bounds, ms a batch, device ms and
+   operations, peak memory and int8 bytes; then each artifact loaded
+   back by `load_exported` and run over 4 batches with exact launch
+   counts against its live scorer, ms a batch, device ms and operations.
+10. Prints one JSON line with every kernel's numbers, then the result
    line. Any failure exits non-zero before the result line.
 
 Needs torch with CUDA, triton and nvcc; imports nothing of JAX.
@@ -187,14 +201,14 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     and the host's time between launches, which decides `cuda_ms` for
     calls of a few microseconds, stays out. Where the host was slower
     than the sleep (its cores are shared), it measures again behind a
-    sleep four times as long."""
+    sleep four times as long, up to ~1.6 s."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # ~25 ms, 0.1 s and 0.4 s at the H100's clock
-    for cycles in (50_000_000, 200_000_000, 800_000_000):
+    # ~25 ms, 0.1 s, 0.4 s and 1.6 s at the H100's clock
+    for cycles in (50_000_000, 200_000_000, 800_000_000, 3_200_000_000):
         torch.cuda._sleep(cycles)
         start.record()
         for _ in range(iters):
@@ -788,49 +802,62 @@ def serve_phase(dev, results) -> None:
     if not (z_err <= Z_TOL and l_err <= LOGIT_TOL):
         raise RuntimeError("GPU bf16 serving disagrees with the CPU fp32 run")
 
-    scorer.score_waveforms(waves[0])               # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(30):
-        t0 = time.perf_counter()
-        scorer.score_waveforms(waves[i % N_BATCHES])
-        times.append(time.perf_counter() - t0)
-    ms, p90 = (1e3 * float(x) for x in np.percentile(times, [50, 90]))
+    ms, p90 = closed_loop_ms(scorer.score_waveforms, waves)
     print(f"serve: {ms:.2f} ms per batch of {BATCH} x 5 s (closed loop, "
-          f"median of 30, p90 {p90:.2f}, min {1e3 * min(times):.2f}, max "
-          f"{1e3 * max(times):.2f}), {1e3 * BATCH / ms:.1f} clips/s, peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_serving(scorer, waves)
+          f"median of 30, p90 {p90:.2f}), {1e3 * BATCH / ms:.1f} clips/s, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_serving(scorer.score_waveforms, waves)
 
 
-def profile_serving(scorer, waves) -> None:
-    """Device time by kernel over 3 batches under torch.profiler, against
-    the wall time of the same window (the profiler's own host cost is in
-    that wall time, so the busy share it gives is a lower bound)."""
+def profile_serving(score, waves, label: str = "profile",
+                    n: int = 3) -> dict:
+    """Device time by kernel over n batches of `score(batch)` under
+    torch.profiler, against the wall time of the same window (the
+    profiler's own host cost is in that wall time, so the busy share it
+    gives is a lower bound). -> {'busy_ms', 'ops'} a batch."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for w in waves[:3]:
-            scorer.score_waveforms(w)
-        wall_ms = 1e3 * (time.perf_counter() - t0) / 3
+        for w in waves[:n]:
+            score(w)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ms_n = by_name.setdefault(e.name, [0.0, 0])
-            ms_n[0] += e.time_range.elapsed_us() / 3e3
+            ms_n[0] += e.time_range.elapsed_us() / (1e3 * n)
             ms_n[1] += 1
     if not by_name:
-        print("profile: the profiler recorded no device activity")
-        return
+        print(f"{label}: the profiler recorded no device activity")
+        return {"busy_ms": None, "ops": None}
     busy = sum(v[0] for v in by_name.values())
-    print(f"profile: per batch, wall {wall_ms:.2f} ms (profiler on), device "
-          f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f} %), "
-          f"{sum(v[1] for v in by_name.values()) // 3} device ops")
-    for name, (ms_b, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"profile:   {ms_b:8.3f} ms  x{n // 3:<4d} {name[:90]}")
+    ops = sum(v[1] for v in by_name.values()) // n
+    print(f"{label}: per batch, wall {wall_ms:.2f} ms (profiler on), device "
+          f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f} %), {ops} device "
+          f"ops")
+    for name, (ms_b, count) in sorted(by_name.items(),
+                                      key=lambda kv: -kv[1][0])[:12]:
+        print(f"{label}:   {ms_b:8.3f} ms  x{count // n:<4d} {name[:90]}")
+    return {"busy_ms": busy, "ops": ops}
+
+
+def closed_loop_ms(score, waves, n: int = 30):
+    """(median, p90) ms of `score(batch)` over n closed-loop batches, each
+    ended by a host read of its result, after a warm-up batch; the peak
+    device memory is reset first."""
+    score(waves[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        score(waves[i % len(waves)])
+        times.append(time.perf_counter() - t0)
+    return tuple(1e3 * float(x) for x in np.percentile(times, [50, 90]))
 
 
 def train_batch(rng, n: int, samples: int = SAMPLES):
@@ -2243,6 +2270,247 @@ def front_door_phase(dev, results) -> dict:
             "p90_ms": p90, "occupancy": occupancy, "gap": gap}
 
 
+# ------------------------------------------------- artifact and int8
+# JAX's bounds on the quantization error of the encoder's layer mean
+# (tests/test_quant.py:83-98), which it holds in fp32: here the fp32 CPU
+# run of each mode against the fp32 CPU run unquantized, on the same
+# weights and clips
+QUANT_REL_TOL = {"w8": 0.02, "w8a8": 0.05}
+# a loaded artifact against the live scorer it was exported from: the
+# same kernels on the same weights and inputs
+ARTIFACT_TOL = 1e-3
+# `serve --artifact` against score_waveforms: 6 printed decimals + this
+ARTIFACT_CLI_TOL = 1e-3
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def int8_bytes(scorer) -> int:
+    """Bytes of the int8 weights of a quantized scorer's encoder."""
+    return sum(b.numel() for b in scorer.encoder.buffers()
+               if b.dtype == torch.int8)
+
+
+def quant_cpu_reference(cfg, weights, waves) -> dict:
+    """{mode: (layer_mean, z, logits)} of the fp32 scorer on the CPU for
+    'none', 'w8' and 'w8a8' on the (n, T) clips `waves`."""
+    from wav2vec_contr_loss_torch import SpoofScorer, Stage2Config
+
+    out = {}
+    x = torch.from_numpy(waves)
+    for mode in ("none", "w8", "w8a8"):
+        cpu = SpoofScorer(cfg.with_(dtype="float32"), weights, Stage2Config(),
+                          device="cpu", quantize=mode)
+        with torch.inference_mode():
+            lm = cpu.encoder(x, x != 0.0)["layer_mean"]
+        out[mode] = (lm, *cpu.run(x))
+    return out
+
+
+def _launches_over(fn, n_batches: int) -> dict:
+    """Run fn() with the launch counters reset just before and read just
+    after; raise unless it made exactly the serving launches of
+    n_batches batches."""
+    from wav2vec_contr_loss_torch import XLSR_300M
+
+    torch.cuda.synchronize()
+    _reset_counters()
+    fn()
+    torch.cuda.synchronize()
+    counts = _counters()
+    want = {"attention_fwd": XLSR_300M.num_layers * n_batches,
+            "attention_bwd": 0, "ln_gelu_fwd": 7 * n_batches,
+            "ln_gelu_bwd": 0, "supcon": 0}
+    if counts != want:
+        raise RuntimeError(f"launches {counts}, expected {want}")
+    return counts
+
+
+def artifact_phase(dev, results) -> dict:
+    """int8 serving and the serving artifact at XLS-R-300M width from the
+    seed-0 weights, on the serve phase's batches. First a `torch.export`
+    artifact of the bf16 scorer and one of the w8a8 scorer at batch 8
+    (export seconds, bytes), with `serve --artifact` on 8 clips as a
+    process of its own beside the second export and the fp32 CPU
+    references, waited for before anything is timed on the card, its
+    scores against score_waveforms. Then the w8 and w8a8 scorers: exact
+    launches over 4 batches (24 attention and 7 LN+GELU forwards a
+    batch, nothing else), their layer mean against the bf16 scorer's, z
+    and logits against the fp32 CPU run of the same mode, the
+    quantization error of the fp32 CPU runs against JAX's bounds, ms a
+    batch, device ms and operations, peak memory and int8 bytes. Then
+    each artifact loaded back in this process and run over 4 batches
+    with exact launches, against its live scorer, ms a batch, device ms
+    and operations."""
+    import shutil
+    import tempfile
+    import threading
+
+    from wav2vec_contr_loss_torch import XLSR_300M, SpoofScorer, Stage2Config
+    from wav2vec_contr_loss_torch.eval.artifact import load_exported
+
+    t_phase = time.perf_counter()
+    cfg = XLSR_300M
+    weights = xlsr_weights()
+    waves = serving_waves(np.random.default_rng(1), N_BATCHES)
+    x0 = torch.from_numpy(waves[0])
+    scorers, bind_s = {}, {}
+    for mode in ("none", "w8", "w8a8"):
+        t0 = time.perf_counter()
+        scorers[mode] = SpoofScorer(cfg, weights, Stage2Config(), device=dev,
+                                    quantize=mode)
+        bind_s[mode] = time.perf_counter() - t0
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_artifact_")
+    try:
+        files, cli, cli_failed = {}, {}, []
+        for mode in ("none", "w8a8"):
+            t0 = time.perf_counter()
+            blob = scorers[mode].export(BATCH)
+            out[f"artifact_{mode}"] = {"export_s": time.perf_counter() - t0}
+            files[mode] = os.path.join(tmp, f"scorer_{mode}.w2vexport")
+            with open(files[mode], "wb") as f:
+                f.write(blob)
+            del blob
+            if mode != "none":
+                continue
+            corpus = os.path.join(tmp, "clips")
+            os.makedirs(corpus)
+            paths = write_front_door_corpus(corpus, BATCH, seed=33)
+            listing = os.path.join(tmp, "paths.txt")
+            with open(listing, "w") as f:
+                f.write("\n".join(paths) + "\n")
+
+            def serve_artifact():
+                try:
+                    cli.update(run_clis({"serve --artifact": [
+                        "serve", "--artifact", files["none"], "--list",
+                        listing]}))
+                except Exception as e:   # re-raised after the join
+                    cli_failed.append(e)
+
+            t_cli = time.perf_counter()
+            serving = threading.Thread(target=serve_artifact)
+            serving.start()
+        t0 = time.perf_counter()
+        cpu = quant_cpu_reference(cfg, weights, waves[0, :2])
+        cpu_s = time.perf_counter() - t0
+        serving.join()
+        cli_s = time.perf_counter() - t_cli
+        if cli_failed:
+            raise cli_failed[0]
+        lines = [ln.split("\t") for ln in
+                 cli["serve --artifact"].splitlines()]
+        if [ln[0] for ln in lines] != paths:
+            raise RuntimeError("serve --artifact did not print one line a "
+                               "path in order")
+        want = reference_logits(scorers["none"], paths, BATCH)
+        cli_gap = float(np.abs(np.array([float(ln[1]) for ln in lines])
+                               - want).max())
+        print(f"artifact: serve --artifact --list on {len(paths)} clips as "
+              f"a process of its own in {cli_s:.1f} s (beside the second "
+              f"export and the CPU references); largest |serve - "
+              f"score_waveforms| {cli_gap:.3e} (tol 1e-6 + "
+              f"{ARTIFACT_CLI_TOL}); fp32 CPU references of 2 clips in "
+              f"{cpu_s:.1f} s")
+        if not cli_gap <= 1e-6 + ARTIFACT_CLI_TOL:
+            raise RuntimeError("serve --artifact disagrees with the scorer")
+        out["serve_artifact_gap"] = cli_gap
+
+        with torch.inference_mode():
+            lm_bf16 = scorers["none"].encoder(
+                x0.to(dev), x0.to(dev) != 0.0)["layer_mean"].float().cpu()
+        for mode in ("w8", "w8a8"):
+            q_err = _rel(cpu[mode][0], cpu["none"][0])
+            print(f"int8 {mode}: fp32 CPU layer-mean relative error "
+                  f"{q_err:.5f} (JAX bound {QUANT_REL_TOL[mode]})")
+            if not q_err <= QUANT_REL_TOL[mode]:
+                raise RuntimeError(f"{mode} quantization error above JAX's "
+                                   f"bound")
+            q = scorers[mode]
+            counts = _launches_over(
+                lambda: [q.score_waveforms(w) for w in waves], N_BATCHES)
+            with torch.inference_mode():
+                lm = q.encoder(x0.to(dev), x0.to(dev) != 0.0)["layer_mean"]
+                z, lg = q.run(x0[:2])
+            lm_err = _rel(lm.float().cpu(), lm_bf16)
+            z_err = (z.cpu() - cpu[mode][1]).abs().max().item()
+            l_err = (lg.cpu() - cpu[mode][2]).abs().max().item()
+            ms, p90 = closed_loop_ms(q.score_waveforms, waves)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            prof = profile_serving(q.score_waveforms, waves, f"int8 {mode}",
+                                   n=1)
+            nbytes = int8_bytes(q)
+            print(f"int8 {mode}: launches {counts} over {N_BATCHES} "
+                  f"batches; layer mean vs the bf16 scorer relative "
+                  f"{lm_err:.5f}; vs the fp32 CPU run of {mode}: z "
+                  f"max_abs_err {z_err:.3e} (tol {Z_TOL}), logit "
+                  f"{l_err:.3e} (tol {LOGIT_TOL}); {ms:.2f} ms a batch "
+                  f"(median of 30, p90 {p90:.2f}); peak {peak:.2f} GiB; int8 "
+                  f"weights {nbytes} bytes; bound in {bind_s[mode]:.1f} s "
+                  f"[{CARD}]")
+            if not (z_err <= Z_TOL and l_err <= LOGIT_TOL):
+                raise RuntimeError(f"{mode} on the card disagrees with the "
+                                   f"CPU")
+            out[mode] = {"launches": counts, "layer_mean_rel": lm_err,
+                         "quant_rel_fp32": q_err, "ms": ms, "p90_ms": p90,
+                         "peak_gib": peak, "int8_bytes": nbytes, **prof}
+            for name in ("attention_fwd", "ln_gelu_fwd"):
+                results[name][f"{mode}_launches"] = counts[name]
+        del cpu
+
+        artifact_launches = {"attention_fwd": 0, "ln_gelu_fwd": 0}
+        for mode in ("none", "w8a8"):
+            live = scorers[mode]
+            t0 = time.perf_counter()
+            art, spec = load_exported(files[mode], with_spec=True)
+            load_s = time.perf_counter() - t0
+            logits = []
+            counts = _launches_over(lambda: logits.extend(
+                art(torch.from_numpy(w)) for w in waves), N_BATCHES)
+            want = np.stack([live.score_waveforms(w) for w in waves])
+            got = np.stack([lg.cpu().numpy() for lg in logits])
+            gap = float(np.abs(got - want).max())
+            art_ms, art_p90 = closed_loop_ms(
+                lambda w: art(torch.from_numpy(w)).cpu(), waves)
+            live_ms, _ = closed_loop_ms(live.score_waveforms, waves)
+            prof = profile_serving(lambda w: art(torch.from_numpy(w)),
+                                   waves, f"artifact {mode}", n=1)
+            size = os.path.getsize(files[mode])
+            calls = [str(n.target) for n in art._program.graph.nodes
+                     if n.op == "call_function"]
+            asserts = sum("_assert_tensor_metadata" in c for c in calls)
+            export_s = out[f"artifact_{mode}"]["export_s"]
+            print(f"artifact {mode}: {spec}; exported in {export_s:.1f} s, "
+                  f"{size} bytes, loaded in {load_s:.1f} s; {len(calls)} "
+                  f"op nodes, {asserts} of them metadata asserts; launches "
+                  f"{counts} over {N_BATCHES} batches; largest |artifact - "
+                  f"live| {gap:.3e} (tol {ARTIFACT_TOL}); {art_ms:.2f} ms a "
+                  f"batch (p90 {art_p90:.2f}) against the live scorer's "
+                  f"{live_ms:.2f} [{CARD}]")
+            if not (np.isfinite(got).all() and gap <= ARTIFACT_TOL):
+                raise RuntimeError(f"the {mode} artifact disagrees with "
+                                   f"its live scorer")
+            for name in artifact_launches:
+                artifact_launches[name] += counts[name]
+            out[f"artifact_{mode}"].update(
+                bytes=size, load_s=load_s, gap=gap, ms=art_ms,
+                live_ms=live_ms, op_nodes=len(calls), assert_nodes=asserts,
+                **prof)
+            del art
+        for name, n in artifact_launches.items():
+            results[name]["artifact_launches"] = n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del scorers
+    torch.cuda.empty_cache()
+    print(f"artifact and int8 phase: {time.perf_counter() - t_phase:.1f} s "
+          f"[{CARD}]")
+    return out
+
+
 def read_card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2329,6 +2597,7 @@ def main() -> int:
     serve_phase(dev, results)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s")
     front_door_phase(dev, results)
+    artifact_phase(dev, results)
     t0 = time.perf_counter()
     off_profile = train_phase(dev, results)
     step_vs_cpu(dev)

@@ -2,7 +2,8 @@
 exactly the JAX package's tree layout, and its serving path and its train
 phase's model run at the XLS-R-300M widths (depth cut to one or two
 layers, 1 s clips) on the CPU, and the front-door phase's helpers run at
-a small width on the CPU."""
+a small width on the CPU, and the artifact and int8 phase's at XLS-R-300M
+width, one layer."""
 
 import threading
 
@@ -12,9 +13,11 @@ import torch
 
 import jax
 
-from chip_smoke import (baseline_weights, client_requests, compare_converted,
+from chip_smoke import (QUANT_REL_TOL, _rel, baseline_weights,
+                        client_requests, compare_converted,
                         convert_front_door, expected_extract_launches,
-                        expected_train_launches, random_jax_trees,
+                        expected_train_launches, int8_bytes,
+                        quant_cpu_reference, random_jax_trees,
                         reference_logits, run_clients, serving_waves,
                         train_batch, ulps, write_corpus,
                         write_front_door_corpus, write_reference_files)
@@ -179,3 +182,34 @@ def test_front_door_helpers_on_cpu(tmp_path):
     order = [r.partition("\t")[2] or r for c in requests for r in c]
     ref = reference_logits(scorer, order, 4)
     np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+def test_artifact_phase_helpers_at_xlsr_width_on_cpu(tmp_path):
+    """The artifact and int8 phase at XLS-R-300M width, depth cut to one
+    layer, 1 s clips: the fp32 CPU references of the three modes (the
+    quantization error within JAX's bounds), the int8 bytes of a
+    quantized scorer, and a w8a8 artifact written, loaded and run."""
+    from wav2vec_contr_loss_torch.eval.artifact import load_exported
+
+    cfg = XLSR_300M.with_(num_layers=1)
+    weights = jax_params_to_torch(cfg, *random_jax_trees(cfg))
+    waves = serving_waves(np.random.default_rng(1), 1)[0, :2, :16000]
+    ref = quant_cpu_reference(cfg, weights, waves)
+    assert set(ref) == {"none", "w8", "w8a8"}
+    for mode, (lm, z, logits) in ref.items():
+        assert lm.shape == (2, 49, 1024) and z.shape == (2, 256)
+        assert logits.shape == (2,) and torch.isfinite(logits).all()
+        if mode != "none":
+            assert 0.0 < _rel(lm, ref["none"][0]) <= QUANT_REL_TOL[mode]
+    scorer = SpoofScorer(cfg.with_(dtype="float32"), weights, Stage2Config(),
+                         max_duration_seconds=1, device="cpu",
+                         quantize="w8a8")
+    # 4 square attention linears and the two FFN linears of one layer
+    assert int8_bytes(scorer) == 4 * 1024 ** 2 + 2 * 1024 * 4096
+    path = tmp_path / "w8a8.w2vexport"
+    path.write_bytes(scorer.export(2))
+    assert path.stat().st_size < sum(
+        t.numel() * 4 for t in weights["encoder"].values())
+    loaded = load_exported(str(path))
+    np.testing.assert_allclose(loaded(waves).numpy(), ref["w8a8"][2].numpy(),
+                               atol=1e-5)

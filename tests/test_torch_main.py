@@ -1,7 +1,8 @@
 """The port's front door: `python -m wav2vec_contr_loss_torch` lists
-exactly the commands the port has, refuses an unknown one, passes
-`--help` to every command (the five of the baseline and features slice
-among them), and `doctor --device cpu` reports the card's checks as
+exactly the commands the port has (21, all of the JAX package's but
+bench_components), refuses an unknown one, passes `--help` to every
+command (the five of the baseline and features slice and the three of
+the serving slice among them), and `doctor --device cpu` reports the card's checks as
 absent, passes the waveform-cache check and fails. ~16 s alone."""
 
 import importlib
@@ -37,13 +38,13 @@ def test_lists_exactly_the_port_commands():
     listed = [ln.split()[0] for ln in out.stdout.splitlines()
               if ln.startswith("  ")]
     assert listed == list(front.COMMANDS)
-    # commands of the JAX package the port does not have are not listed
-    for absent in ("export_serving", "run_sweep", "verify_parity",
-                   "bench_components"):
-        assert absent not in listed
+    # the one command of the JAX package the port does not have
+    assert "bench_components" not in listed
+    assert len(listed) == 21
     for present in ("train_baseline", "score_baseline",
                     "score_famous_figures", "extract_encoder_features",
-                    "cache_waveforms"):
+                    "cache_waveforms", "export_serving", "run_sweep",
+                    "verify_parity"):
         assert present in listed
 
 

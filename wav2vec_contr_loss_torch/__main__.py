@@ -24,11 +24,14 @@ COMMANDS = {
     "eval_scores": "EER / min-tDCF from score files",
     "plot_umap": "UMAP plots of stage-1 / subspace embeddings",
     "run_pipeline": "train -> extract -> stage 2 -> score -> EER",
+    "run_sweep": "run_pipeline over the experiment presets",
     "serve": "scoring daemon (paths on stdin or a TCP socket -> scores)",
+    "export_serving": "self-contained serving artifact via torch.export",
     "convert_hf_checkpoint": "local HF wav2vec2 snapshot -> port encoder weights",
     "convert_reference_checkpoint": "reference .pt (stage-1 / stage-2 / baseline) -> port checkpoints",
     "export_reference_checkpoint": "port checkpoint -> reference .pt (stage-1 / stage-2 / baseline)",
     "export_hf_checkpoint": "port encoder -> HF snapshot directory",
+    "verify_parity": "score-file EERs against the reference's committed results",
     "cache_waveforms": "prebuild the decode-once waveform cache for a protocol",
     "doctor": "environment check (card, kernel builds, decoder, forward, checkpoints, cache)",
 }

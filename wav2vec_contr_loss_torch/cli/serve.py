@@ -15,8 +15,12 @@ device batches; SIGTERM and SIGINT stop it after the replies in flight.
 Decoding runs in a thread pool ahead of the device; a missing or corrupt
 file scores as silence and is counted. Higher logit == more
 bonafide-like. `--windowed` scores each clip's whole length as
-overlapping windows. Serving from an exported artifact (`--artifact`,
-ROADMAP A8) and int8 serving (`--quantize`, A9) are not ported yet.
+overlapping windows. `--quantize w8a8|w8` serves the encoder's
+transformer linears in int8 (ops/quant.py). `--artifact FILE` serves an
+`export_serving` artifact instead of checkpoints: its batch, clip
+length, wire and sample rate are baked in (a conflicting flag exits 2),
+it runs on the device type it was traced for, and no model code is
+imported.
 """
 
 from __future__ import annotations
@@ -172,7 +176,10 @@ def _stdin_paths() -> Iterator[str]:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--artifact", type=str, default=None,
-                   help="not ported (ROADMAP A8): serve from checkpoints")
+                   help="serve from an export_serving artifact instead of "
+                        "checkpoints: batch, clip length, wire and sample "
+                        "rate come from the artifact, which needs no model "
+                        "code or checkpoint files")
     p.add_argument("--stage1_dir", type=str, default=None)
     p.add_argument("--stage1_name", type=str, default="best")
     p.add_argument("--stage2_dir", type=str, default=None)
@@ -180,17 +187,23 @@ def build_parser() -> argparse.ArgumentParser:
                    default="stage2_binary_head_best")
     p.add_argument("--list", dest="list_file", type=str, default=None,
                    help="file with one audio path per line (default: stdin)")
-    p.add_argument("--batch", type=int, default=8,
-                   help="static serving batch")
-    p.add_argument("--max_duration_seconds", type=int, default=5)
-    p.add_argument("--target_sample_rate", type=int, default=16000)
+    p.add_argument("--batch", type=int, default=None,
+                   help="static serving batch (default 8; baked into an "
+                        "artifact)")
+    p.add_argument("--max_duration_seconds", type=int, default=None,
+                   help="(default 5; baked into an artifact)")
+    p.add_argument("--target_sample_rate", type=int, default=None,
+                   help="(default 16000; recorded in an artifact's header)")
     p.add_argument("--num_workers", type=int, default=8)
-    p.add_argument("--wire", type=str, default="float32", choices=_WIRES,
+    p.add_argument("--wire", type=str, default=None, choices=_WIRES,
                    help="host->device waveform format; int16 halves the "
-                        "bytes (exact for unresampled PCM)")
+                        "bytes (exact for unresampled PCM); default float32 "
+                        "(baked into an artifact)")
     p.add_argument("--quantize", type=str, default="none",
                    choices=["none", "w8a8", "w8"],
-                   help="int8 encoder: not ported (ROADMAP A9)")
+                   help="int8 transformer linears (ops/quant.py): 'w8a8' "
+                        "int8 activations and weights, int8 products; 'w8' "
+                        "int8 weights, bf16 products")
     p.add_argument("--threshold", type=float, default=None,
                    help="decision threshold: adds a bonafide/spoof column "
                         "(e.g. the dev-EER threshold of eval_scores)")
@@ -211,20 +224,56 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_clip_seconds", type=float, default=600.0,
                    help="--windowed: the longest length of one clip that "
                         "is scored")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="'cuda' (default) or 'cpu'")
+    p.add_argument("--device", type=str, default=None,
+                   help="'cuda' (default) or 'cpu'; an artifact runs on the "
+                        "device type it was traced for")
     return p
+
+
+def _artifact_scorer(p: argparse.ArgumentParser, args):
+    """-> (ExportedScorer, batch, wire, AudioConfig) from --artifact; a
+    flag that conflicts with what the artifact bakes in exits 2."""
+    # the serving signature is baked into the artifact: a conflicting flag
+    # is refused, not silently overridden
+    if args.quantize != "none":
+        p.error("--quantize is baked into the artifact at export time; "
+                "it cannot be changed at serve time")
+    from ..eval.artifact import load_exported
+
+    try:
+        scorer, spec = load_exported(args.artifact, with_spec=True,
+                                     device=args.device)
+    except ValueError as e:
+        p.error(str(e))
+    for flag, given, baked in (("--batch", args.batch, spec.batch),
+                               ("--wire", args.wire, spec.wire)):
+        if given is not None and given != baked:
+            p.error(f"{flag}={given} conflicts with the artifact's "
+                    f"baked {flag.lstrip('-')}={baked}")
+    sr = spec.sample_rate
+    if args.target_sample_rate is not None and args.target_sample_rate != sr:
+        p.error(f"--target_sample_rate={args.target_sample_rate} "
+                f"conflicts with the artifact's recorded {sr} Hz")
+    if spec.num_samples % sr:
+        p.error(f"artifact expects {spec.num_samples} samples/clip, not a "
+                f"whole number of seconds at {sr} Hz")
+    dur = spec.num_samples // sr
+    if (args.max_duration_seconds is not None
+            and args.max_duration_seconds != dur):
+        p.error(f"--max_duration_seconds={args.max_duration_seconds} "
+                f"conflicts with the artifact's {dur} s clips")
+    _log(f"[serve] artifact {args.artifact}: batch={spec.batch}, "
+         f"{spec.num_samples} samples/clip @ {sr} Hz, wire={spec.wire}, "
+         f"device={spec.device}"
+         + (f", quantize={spec.quantize}"
+            if spec.quantize not in (None, "none") else ""))
+    return (scorer, spec.batch, spec.wire,
+            AudioConfig(target_sample_rate=sr, max_duration_seconds=dur))
 
 
 def main(argv=None) -> None:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.artifact is not None:
-        p.error("--artifact is not ported (ROADMAP A8): serve from "
-                "--stage1_dir and --stage2_dir")
-    if args.quantize != "none":
-        p.error("--quantize is not ported (ROADMAP A9): int8 serving "
-                "waits for the port's QuantDense")
     socket_addr = None
     if args.socket is not None:
         # checked before the scorer is built
@@ -239,16 +288,24 @@ def main(argv=None) -> None:
             socket_addr = (host or "127.0.0.1", int(port))
         except ValueError:
             p.error(f"--socket expects HOST:PORT, got {args.socket!r}")
-    if args.stage1_dir is None or args.stage2_dir is None:
-        p.error("--stage1_dir and --stage2_dir are required")
+    if args.artifact is not None:
+        scorer, batch, wire, audio_cfg = _artifact_scorer(p, args)
+    else:
+        if args.stage1_dir is None or args.stage2_dir is None:
+            p.error("either --artifact or both --stage1_dir and "
+                    "--stage2_dir are required")
+        from ..eval.serving import SpoofScorer
 
-    from ..eval.serving import SpoofScorer
-
-    scorer = SpoofScorer.from_checkpoints(
-        args.stage1_dir, args.stage2_dir, stage1_name=args.stage1_name,
-        stage2_name=args.stage2_name, device=args.device)
-    audio_cfg = AudioConfig(target_sample_rate=args.target_sample_rate,
-                            max_duration_seconds=args.max_duration_seconds)
+        batch = 8 if args.batch is None else args.batch
+        wire = args.wire or "float32"
+        audio_cfg = AudioConfig(
+            target_sample_rate=args.target_sample_rate or 16000,
+            max_duration_seconds=5 if args.max_duration_seconds is None
+            else args.max_duration_seconds)
+        scorer = SpoofScorer.from_checkpoints(
+            args.stage1_dir, args.stage2_dir, stage1_name=args.stage1_name,
+            stage2_name=args.stage2_name, device=args.device or "cuda",
+            quantize=args.quantize)
 
     if socket_addr is not None:
         import signal
@@ -256,9 +313,9 @@ def main(argv=None) -> None:
         from ..eval.server import ScoringServer
 
         server = ScoringServer(
-            scorer, socket_addr[0], socket_addr[1], batch=args.batch,
+            scorer, socket_addr[0], socket_addr[1], batch=batch,
             audio_config=audio_cfg, workers=args.num_workers,
-            wire=args.wire, max_wait_ms=args.max_wait_ms,
+            wire=wire, max_wait_ms=args.max_wait_ms,
             windowed=args.windowed, hop_seconds=args.hop_seconds,
             max_clip_seconds=args.max_clip_seconds, log_fn=_log)
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -274,14 +331,14 @@ def main(argv=None) -> None:
             paths = [line.strip() for line in f if line.strip()]
     if args.windowed != "none":
         scored = score_paths_windowed(
-            scorer, paths, batch=args.batch, audio_config=audio_cfg,
-            workers=args.num_workers, wire=args.wire,
+            scorer, paths, batch=batch, audio_config=audio_cfg,
+            workers=args.num_workers, wire=wire,
             hop_seconds=args.hop_seconds, agg=args.windowed,
             max_clip_seconds=args.max_clip_seconds)
     else:
-        scored = score_paths(scorer, paths, batch=args.batch,
+        scored = score_paths(scorer, paths, batch=batch,
                              audio_config=audio_cfg,
-                             workers=args.num_workers, wire=args.wire)
+                             workers=args.num_workers, wire=wire)
     n = 0
     try:
         for path, logit in scored:

@@ -7,8 +7,8 @@ of its `Stage2Config`, `Stage1Config`, `BaselineConfig` and
 (wav2vec_contr_loss_tpu/config.py) and of its `SupConConfig`
 (wav2vec_contr_loss_tpu/losses/supcon.py), so that it never imports the
 JAX package. TPU execution knobs (scan/pipeline/sequence parallelism,
-int8 quantization, kernel selection) have no counterpart here: the port
-picks a kernel from the device a tensor lives on.
+kernel selection) have no counterpart here: the port picks a kernel from
+the device a tensor lives on. `quant` (int8 serving) is kept.
 """
 
 from __future__ import annotations
@@ -51,6 +51,9 @@ class Wav2Vec2Config:
     mask_time_length: int = 10
     mask_time_min_masks: int = 2
     dtype: str = "bfloat16"              # compute dtype; params stay fp32
+    # int8 transformer linears, serving only (ops/quant.py): 'none' |
+    # 'w8a8' | 'w8'; the trainers keep 'none'
+    quant: str = "none"
 
     def with_(self, **kw) -> "Wav2Vec2Config":
         return dataclasses.replace(self, **kw)
@@ -358,4 +361,7 @@ def config_from_dict(d: dict) -> Wav2Vec2Config:
     if "dtype" in kw and kw["dtype"] not in _DTYPES:
         raise ValueError(f"unsupported compute dtype {kw['dtype']!r}; "
                          f"expected one of {sorted(_DTYPES)}")
+    if kw.get("quant", "none") not in ("none", "w8a8", "w8"):
+        raise ValueError(f"unsupported quant {kw['quant']!r}; expected "
+                         f"'none', 'w8a8' or 'w8'")
     return Wav2Vec2Config(**kw)

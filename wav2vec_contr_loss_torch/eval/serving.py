@@ -6,16 +6,22 @@ compression module, the clip pooling and the stage-2 head (fp32) on one
 device, and returns one raw logit per clip (higher == more
 bonafide-like). `from_checkpoints` builds it from a port stage-1 and
 stage-2 checkpoint pair; `score_dataset` scores a pipeline's dataset
-with decode, compute and the copy back overlapped. Artifact export is
-not ported.
+with decode, compute and the copy back overlapped. `quantize='w8a8'` or
+`'w8'` quantizes the six transformer linears of each layer to int8 when
+the weights are bound (ops/quant.py); nothing on disk changes.
+`export` writes the whole scoring graph with its weights as one
+`torch.export` artifact, which eval/artifact.py `load_exported` runs
+without this module.
 """
 
 from __future__ import annotations
 
+import io
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import Stage2Config, Wav2Vec2Config, config_from_dict
 from ..data.pipeline import BatchPipeline, stream_through_device
@@ -23,11 +29,15 @@ from ..device import resolve_device
 from ..models.compression import CompressionModule, clip_embedding
 from ..models.heads import build_head
 from ..models.wav2vec2 import Wav2Vec2Encoder
+from ..ops.quant import QUANT_MODES, quantize_encoder_state_dict
 from ..ops.wire import dequantize_wire, quantize_wire
 from ..train import checkpoint as ckpt
 from ..train.stage2 import STAGE2_BEST, load_stage2_head
+from .artifact import (ExportedScorer, ExportSpec, load_exported,
+                       wrap_export)
 
-__all__ = ["SpoofScorer", "window_waveform"]
+__all__ = ["SpoofScorer", "window_waveform", "ExportSpec", "ExportedScorer",
+           "load_exported"]
 
 
 def window_waveform(wave: np.ndarray, num_samples: int,
@@ -58,19 +68,50 @@ _WINDOW_AGG = {
 _WIRES = ("float32", "int16")
 
 
+def _embed(encoder: nn.Module, compression: nn.Module,
+           waves: torch.Tensor) -> torch.Tensor:
+    """(B, T) float32 or int16-wire waves on the device -> (B, H) clip
+    embeddings."""
+    waves = dequantize_wire(waves)
+    enc_out = encoder(waves, waves != 0.0)
+    return clip_embedding(compression(enc_out["layer_mean"]))
+
+
+class _ScoringProgram(nn.Module):
+    """waves -> logits: the graph `SpoofScorer.export` traces."""
+
+    def __init__(self, encoder, compression, head):
+        super().__init__()
+        self.encoder, self.compression, self.head = encoder, compression, head
+
+    def forward(self, waves: torch.Tensor) -> torch.Tensor:
+        return self.head(_embed(self.encoder, self.compression, waves))
+
+
 class SpoofScorer:
     """Encoder + compression + stage-2 head as one scoring function.
 
     `weights` holds the 'encoder', 'compression' and 'head' state dicts,
-    as `bridge.jax_params_to_torch` returns them. Clips are
-    `max_duration_seconds * sample_rate` samples long."""
+    as `bridge.jax_params_to_torch` returns them, the encoder's in fp32.
+    Clips are `max_duration_seconds * sample_rate` samples long.
+    `quantize` ('none' | 'w8a8' | 'w8') quantizes the encoder's
+    transformer linears at bind time, as the JAX scorer does
+    (serving.py:151-170)."""
 
     def __init__(self, enc_config: Wav2Vec2Config,
                  weights: Mapping[str, Mapping[str, torch.Tensor]],
                  stage2_cfg: Stage2Config = Stage2Config(), *,
                  sample_rate: int = 16000, max_duration_seconds: int = 5,
-                 device="cuda"):
+                 device="cuda", quantize: str = "none"):
+        if quantize not in QUANT_MODES:
+            raise ValueError(f"quantize must be one of {QUANT_MODES}; got "
+                             f"{quantize!r}")
         self.device = resolve_device(device)
+        self.quantize = quantize
+        enc_config = enc_config.with_(quant=quantize)
+        if quantize != "none":
+            weights = dict(weights, encoder=quantize_encoder_state_dict(
+                weights["encoder"]))
         self.enc_config = enc_config
         self.sample_rate = sample_rate
         self.num_samples = max_duration_seconds * sample_rate
@@ -94,14 +135,14 @@ class SpoofScorer:
     def from_checkpoints(cls, stage1_dir: str, stage2_dir: str,
                          stage1_name: str = "best",
                          stage2_name: str = STAGE2_BEST, device="cuda",
-                         compute_dtype: Optional[str] = None
-                         ) -> "SpoofScorer":
+                         compute_dtype: Optional[str] = None,
+                         quantize: str = "none") -> "SpoofScorer":
         """A scorer from a port stage-1 checkpoint (<name>.pt beside its
         .config.json, as `Stage1Trainer.fit` writes it) and a stage-2 head
         checkpoint. Only the encoder and compression weights of the
         stage-1 state are read, not its optimizer moments. The encoder
         computes in the checkpoint's dtype unless `compute_dtype`
-        ('bfloat16' | 'float32') is given."""
+        ('bfloat16' | 'float32') is given; `quantize` as in __init__."""
         extra = ckpt.load_sidecar(stage1_dir, stage1_name)["extra"]
         enc_config = config_from_dict(extra["enc_config"])
         if compute_dtype is not None:
@@ -113,16 +154,39 @@ class SpoofScorer:
         return cls(enc_config, weights, cfg2,
                    sample_rate=s1["target_sample_rate"],
                    max_duration_seconds=s1["max_duration_seconds"],
-                   device=device)
+                   device=device, quantize=quantize)
 
     @torch.inference_mode()
     def run(self, waves: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, T) float32 or int16-wire waveforms -> ((B, H) clip
         embeddings, (B,) logits), both fp32 on the scorer's device."""
-        waves = dequantize_wire(waves.to(self.device, non_blocking=True))
-        enc_out = self.encoder(waves, waves != 0.0)
-        z = clip_embedding(self.compression(enc_out["layer_mean"]))
+        z = _embed(self.encoder, self.compression,
+                   waves.to(self.device, non_blocking=True))
         return z, self.head(z)
+
+    def export(self, batch: int, wire: str = "float32") -> bytes:
+        """The scoring graph with its weights as one artifact (bytes to
+        write to a file): `torch.export` of waves -> logits at the static
+        input (batch, num_samples) in the wire dtype (float32, or int16
+        PCM), on this scorer's device, which the program bakes in. The
+        two kernels are custom ops in the program, so it runs them; the
+        weights are this scorer's (fp32, or int8 with `quantize`).
+        `eval.artifact.load_exported` loads it."""
+        if wire not in _WIRES:
+            raise ValueError(f"wire must be one of {_WIRES}; got {wire!r}")
+        program = _ScoringProgram(self.encoder, self.compression,
+                                  self.head).eval()
+        example = torch.zeros(batch, self.num_samples, device=self.device,
+                              dtype=torch.int16 if wire == "int16"
+                              else torch.float32)
+        with torch.no_grad():
+            exported = torch.export.export(program, (example,), strict=False)
+        buf = io.BytesIO()
+        torch.export.save(exported, buf)
+        return wrap_export(buf.getvalue(), {
+            "format": "torch.export", "sample_rate": self.sample_rate,
+            "quantize": self.quantize, "wire": wire,
+            "device": self.device.type})
 
     def score_waveforms(self, waves: np.ndarray,
                         wire: str = "float32") -> np.ndarray:

@@ -20,6 +20,11 @@ forward and backward: the conv extractor's LayerNorm+GELU
 attention core with its dropout (`ops/attention.py`, one launch per
 layer).
 
+With `cfg.quant` 'w8a8' or 'w8' (serving only) the six linears of each
+layer are `ops.quant.QuantLinear`s under the same state-dict names, as
+the JAX `_linear` factory (wav2vec2.py:265-276) builds `QuantDense`s;
+their int8 state comes from `quantize_encoder_state_dict`.
+
 Train mode (finetuning) takes a `torch.Generator` and draws every random
 number from it before the layers run: one murmur dropout seed for each
 dropout site (feature projection, the encoder input, and per layer the
@@ -48,6 +53,7 @@ from ..config import Wav2Vec2Config, feature_frame_length
 from ..ops.attention import fused_attention
 from ..ops.conv_ln import fused_ln_gelu
 from ..ops.dropout import draw_seed, murmur_dropout
+from ..ops.quant import QuantLinear
 
 __all__ = ["Wav2Vec2Encoder", "time_mask_spans", "max_mask_spans"]
 
@@ -104,8 +110,19 @@ def time_mask_spans(lengths: torch.Tensor, t_frames: int,
     return (spans & active[:, :, None]).any(dim=1)
 
 
-def _linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def _linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(m, QuantLinear):
+        return m(x)
     return F.linear(x, m.weight.to(x.dtype), m.bias.to(x.dtype))
+
+
+def _transformer_linear(cfg: Wav2Vec2Config, din: int, dout: int
+                        ) -> nn.Module:
+    """A transformer linear: `nn.Linear` with fp32 parameters, or the
+    int8 `QuantLinear` when cfg.quant != 'none'."""
+    if cfg.quant != "none":
+        return QuantLinear(din, dout, cfg.quant, cfg.torch_dtype)
+    return nn.Linear(din, dout)
 
 
 def _conv(m: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -212,10 +229,10 @@ class SelfAttention(nn.Module):
         d = cfg.hidden_size
         self.rate = cfg.attention_dropout
         self.num_heads = cfg.num_heads
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        self.q_proj = _transformer_linear(cfg, d, d)
+        self.k_proj = _transformer_linear(cfg, d, d)
+        self.v_proj = _transformer_linear(cfg, d, d)
+        self.out_proj = _transformer_linear(cfg, d, d)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:
@@ -243,8 +260,10 @@ class FeedForward(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.cfg = cfg
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate_dense = _transformer_linear(
+            cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.output_dense = _transformer_linear(
+            cfg, cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor,
                 seeds: Optional[Dict[str, int]] = None) -> torch.Tensor:

@@ -22,12 +22,20 @@ strides (the head dim contiguous, the other strides multiples of 8
 elements, 16-byte aligned), so the (B, T, H, 64) view of a projection
 output goes in without a copy; the outputs take the layout of q.
 
-`fused_attention` launches the kernels for CUDA tensors, through
-`FusedAttention` (a `torch.autograd.Function` whose residuals are q, k,
-v, bias, out_exact, the row statistics and the seed;
-attention_pallas.py:176 keeps q, k, v, bias and the seed), and takes
-`fused_attention_plain`, differentiated by autograd, only for tensors on
-the CPU.
+`fused_attention` picks its path by whether a gradient is needed:
+
+  * q, k or v needs one: `FusedAttention` on the card (a
+    `torch.autograd.Function` whose residuals are q, k, v, bias,
+    out_exact, the row statistics and the seed; attention_pallas.py:176
+    keeps q, k, v, bias and the seed), `fused_attention_plain` under
+    autograd on the CPU;
+  * none does (serving, extraction, a frozen encoder): the custom op
+    `w2v_torch::attention_fwd`, which launches the forward kernel without
+    residuals on the card and runs the plain version on the CPU, its
+    output in q's layout either way. A custom op is what `torch.export`
+    traces through (its fake gives the output's shape and strides) and
+    what a serving artifact calls, so an exported scorer runs the same
+    kernel.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from ._build import check
 from .dropout import attention_dropout_mask, threshold
 
 __all__ = ["fused_attention", "fused_attention_plain", "FusedAttention",
-           "launches", "bwd_launches"]
+           "attention_fwd", "launches", "bwd_launches"]
 
 # kernel launches through `fused_attention` (forward) and its backward
 # (one per backward call, which runs the dq and the dk/dv kernel); read
@@ -229,6 +237,22 @@ class FusedAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+@torch.library.custom_op("w2v_torch::attention_fwd", mutates_args=())
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """The attention forward with no gradient, in q's layout: the kernel
+    (no residuals) for CUDA tensors, the plain version for CPU ones."""
+    if q.device.type == "cuda":
+        return _launch_fwd(q, k, v, bias, seed, rate, False)[0]
+    return torch.empty_like(q).copy_(
+        fused_attention_plain(q, k, v, bias, seed, rate))
+
+
+@attention_fwd.register_fake
+def _attention_fwd_fake(q, k, v, bias, seed, rate):
+    return torch.empty_like(q)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, seed: int = 0, rate: float = 0.0,
                     heads: int = 1) -> torch.Tensor:
@@ -239,14 +263,17 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention-probability dropout. -> (B, H, T, D), in q's layout on the
     card. q must arrive pre-scaled (1/sqrt(D)). Same contract as the JAX
     `fused_attention`; `heads` must equal H. Differentiable in q, k and
-    v."""
+    v; without a gradient it is the op `w2v_torch::attention_fwd`."""
     _check(q, k, v, bias)
     if heads != q.shape[1]:
         raise ValueError(f"heads={heads} but q has {q.shape[1]} heads")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1); got {rate}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return attention_fwd(q, k, v, bias, int(seed), float(rate))
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, bias, seed, rate)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     return FusedAttention.apply(q, k, v, bias, int(seed), float(rate))

@@ -22,10 +22,12 @@ epilogues, fp32 statistics, no tensor-core work, both bound by bytes:
     reads x and dy and writes dx: at the first conv of a training batch
     (32 x 15999 rows) 1.57 GB, 0.47 ms.
 
-`fused_ln_gelu` launches the kernels for CUDA tensors, through
-`FusedLnGelu` (a `torch.autograd.Function`), and takes
-`fused_ln_gelu_plain`, differentiated by autograd, only for tensors on
-the CPU.
+`fused_ln_gelu` picks its path by whether a gradient is needed: where
+x, scale or bias needs one, `FusedLnGelu` (a `torch.autograd.Function`)
+on the card and `fused_ln_gelu_plain` under autograd on the CPU; where
+none does, the custom op `w2v_torch::ln_gelu_fwd` (the forward kernel on
+the card, the plain version on the CPU), which `torch.export` traces
+through and a serving artifact calls.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import torch.nn.functional as F
 from ._build import check
 
 __all__ = ["fused_ln_gelu", "fused_ln_gelu_plain", "FusedLnGelu",
-           "launches", "bwd_launches"]
+           "ln_gelu_fwd", "launches", "bwd_launches"]
 
 # kernel launches through `fused_ln_gelu` (forward) and its backward
 # (one per backward, counting its two kernels as one); read and reset by
@@ -214,12 +216,28 @@ class FusedLnGelu(torch.autograd.Function):
         return dx, dscale, dbias, None, None
 
 
+@torch.library.custom_op("w2v_torch::ln_gelu_fwd", mutates_args=())
+def ln_gelu_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float, gelu: bool) -> torch.Tensor:
+    """The LN+GELU forward with no gradient, contiguous: the Triton kernel
+    for CUDA tensors, the plain version for CPU ones."""
+    if x.device.type == "cuda":
+        return _launch(x, scale, bias, eps, gelu)
+    return fused_ln_gelu_plain(x, scale, bias, eps, gelu).contiguous()
+
+
+@ln_gelu_fwd.register_fake
+def _ln_gelu_fwd_fake(x, scale, bias, eps, gelu):
+    return x.new_empty(x.shape)
+
+
 def fused_ln_gelu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   eps: float = 1e-5, gelu: bool = True) -> torch.Tensor:
     """gelu(LayerNorm(x) * scale + bias) over the last dim of (..., C).
     x in the compute dtype; scale/bias (C,) fp32. gelu=False gives plain
     LN. Same contract as the JAX `fused_ln_gelu`; differentiable in x,
-    scale and bias."""
+    scale and bias; without a gradient it is the op
+    `w2v_torch::ln_gelu_fwd`."""
     c = x.shape[-1]
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"scale and bias must have shape {(c,)}; got "
@@ -227,8 +245,11 @@ def fused_ln_gelu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     devs = {x.device, scale.device, bias.device}
     if len(devs) != 1:
         raise ValueError(f"x, scale and bias must be on one device; got {devs}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if not (torch.is_grad_enabled() and (
+            x.requires_grad or scale.requires_grad or bias.requires_grad)):
+        return ln_gelu_fwd(x, scale, bias, float(eps), bool(gelu))
     if x.device.type == "cpu":
         return fused_ln_gelu_plain(x, scale, bias, eps, gelu)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     return FusedLnGelu.apply(x, scale, bias, float(eps), bool(gelu))

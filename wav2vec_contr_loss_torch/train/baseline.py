@@ -62,7 +62,7 @@ class BaselineTrainer:
     def __init__(self, cfg: BaselineConfig, enc_config: Wav2Vec2Config,
                  weights: Mapping[str, Mapping[str, torch.Tensor]],
                  device="cuda", pos_weight: float = 1.0):
-        check_config(cfg)
+        check_config(cfg, enc_config)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.enc_config = enc_config.with_(dtype=cfg.compute_dtype)

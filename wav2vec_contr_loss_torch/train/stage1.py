@@ -60,9 +60,13 @@ from .schedule import alpha_for_epoch
 __all__ = ["Stage1Trainer"]
 
 
-def check_config(cfg) -> None:
+def check_config(cfg, enc_config: Wav2Vec2Config) -> None:
     """Refuse the settings the port does not compute (a Stage1Config or
-    a BaselineConfig)."""
+    a BaselineConfig, and the encoder's config)."""
+    if enc_config.quant != "none":
+        raise ValueError(f"quant={enc_config.quant!r} is serving only "
+                         f"(int8 rounding has no gradient); the trainers "
+                         f"take quant='none'")
     if resolve_grad_bf16(cfg) and cfg.compute_dtype != "bfloat16":
         raise ValueError(
             "grad_dtype='bfloat16' requires compute_dtype='bfloat16' "
@@ -142,7 +146,7 @@ class Stage1Trainer:
                  device="cuda", loss_mode: str = "binary",
                  from_features: bool = False,
                  multiclass_temperature: float = 0.1):
-        check_config(cfg)
+        check_config(cfg, enc_config)
         if loss_mode not in ("binary", "multiclass"):
             raise ValueError(f"loss_mode must be 'binary' or 'multiclass'; "
                              f"got {loss_mode!r}")
