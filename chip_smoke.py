@@ -106,6 +106,8 @@ import time
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
+
 from wav2vec_contr_loss_torch.bridge import random_jax_trees
 
 # the card's name and power limit as nvidia-smi gives them, printed
@@ -394,6 +396,53 @@ def _grad_ms(out, inputs, g) -> float:
                                                  retain_graph=True))
 
 
+def stride_phase(dev, gen, hold, grads, seed: int) -> None:
+    """A gang's attention shard: batch rows 3-10 and heads 8-15 of an
+    (11, 16) grid (a data rank's rows, a tensor-parallel rank's heads) at
+    T = 249, rate 0.1, through both kernels with the seed of the shard's
+    first (batch, head) and the global head count as the seed stride,
+    against the plain version with the same offsets; the plain mask is
+    the global mask's slice, and the default stride, wrong for a shard,
+    gives another output."""
+    from wav2vec_contr_loss_torch.ops import attention
+    from wav2vec_contr_loss_torch.ops.dropout import attention_dropout_mask
+
+    b, h, t, d, b0, h0, heads = 8, 8, 249, 64, 3, 8, 16
+    q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device=dev)
+                  for _ in range(4))
+    q = (q * d ** -0.5).to(torch.bfloat16)
+    k, v, g = (x.to(torch.bfloat16) for x in (k, v, g))
+    lengths = torch.full((b,), t, device=dev)
+    lengths[2] = 150
+    bias = _bias_with_tails(lengths, t, dev)
+    first = seed + b0 * heads + h0
+    mask = attention_dropout_mask(b, h, t, first, 0.1, dev, heads)
+    glob = attention_dropout_mask(b0 + b, heads, t, seed, 0.1, dev)
+    part = glob[b0:, h0:]
+    dropped = (int((mask == 0).sum()), int((part == 0).sum()))
+    print(f"attention shard (8,8,249,64) of (11,16): mask is the global "
+          f"slice: {torch.equal(mask, part)}; dropped {dropped[0]} of "
+          f"{mask.numel()} (slice {dropped[1]})")
+    if not torch.equal(mask, part):
+        raise RuntimeError("the seed-stride mask is not the global slice")
+    out, got, _ = grads(attention.fused_attention, q, k, v, g, bias, first,
+                        0.1, h, heads)
+    out_p, want, _ = grads(attention.fused_attention_plain, q, k, v, g,
+                           bias, first, 0.1, heads)
+    torch.cuda.synchronize()
+    e = (out.float() - out_p.float()).abs().max().item()
+    print(f"attention_fwd shard seed stride {heads} max_abs_err={e:.3e} "
+          f"(tolerance {ATT_FWD_TOL})")
+    torch.testing.assert_close(out.float(), out_p.float(), **ATT_FWD_TOL)
+    hold(f"shard seed stride {heads} {(b, h, t, d)}", got, want)
+    wrong = attention.fused_attention(q, k, v, bias, first, 0.1, h)
+    e_wrong = (wrong.float() - out_p.float()).abs().max().item()
+    print(f"attention_fwd shard with the default stride: max_abs_err "
+          f"{e_wrong:.3e} against the shard's plain version")
+    if e_wrong <= ATT_FWD_TOL["atol"] * 10:
+        raise RuntimeError("the kernel ignored the seed stride")
+
+
 def train_kernel_phase(dev, results) -> None:
     """The kernels of the training step at its shapes: attention with
     dropout, forward and backward; LN+GELU backward; SupCon."""
@@ -519,6 +568,7 @@ def train_kernel_phase(dev, results) -> None:
         _, want, _ = grads(attention.fused_attention_plain, eq, ek, ev, eg,
                            ebias, seed, 0.1)
         hold(f"rate 0.1 {(eb, eh, et, d)}", got, want)
+    stride_phase(dev, gen, hold, grads, seed)
     with sdpa_ctx():
         sdpa, _, ins_l = grads(
             lambda *x: F.scaled_dot_product_attention(
@@ -889,13 +939,9 @@ def expected_train_launches(scfg, cfg, supcon: int = 1) -> dict:
 
 
 def _counters():
-    from wav2vec_contr_loss_torch.ops import attention, conv_ln, supcon
+    from wav2vec_contr_loss_torch.parallel.mp_smoke import launch_counts
 
-    return {"attention_fwd": attention.launches,
-            "attention_bwd": attention.bwd_launches,
-            "ln_gelu_fwd": conv_ln.launches,
-            "ln_gelu_bwd": conv_ln.bwd_launches,
-            "supcon": supcon.launches}
+    return launch_counts()
 
 
 def _reset_counters() -> None:
@@ -2511,6 +2557,322 @@ def artifact_phase(dev, results) -> dict:
     return out
 
 
+PARALLEL_STEPS = 4               # leg A: steps of each layout
+# leg B against one process at the global batch (bf16 on both sides; the
+# gang splits the batch's matrix products and sums its partial products
+# in another order): the loss and the first step's gradients, each
+# parameter group's cosine, at the step_vs_cpu limits of PERF.md
+# section 2; the 3-step AdamW update of each group at cosine 0.99,
+# because Adam's step lr * m / sqrt(v) is near lr * sign(g) in its first
+# steps, so a gradient element at rounding level takes a full step
+# either way (tests/test_torch_train.py says the same of the CPU): the
+# updates of dp and fsdp were measured at 0.9983-0.99999, of tp at
+# 0.9945-0.9993, from losses 3e-6 apart (PERF.md, PR 10)
+PARALLEL_LOSS_RTOL = STEP_LOSS_TOL
+PARALLEL_GRAD_COS = STEP_GRAD_COS
+PARALLEL_UPDATE_COS = 0.99
+# the first step's gradient norms, of each group of UPDATE_GROUPS and of
+# each optimizer group as its clip computes them over the shards, within
+# this of one process's: Adam and the cosines are blind to a gradient's
+# scale, which a missing or doubled average over 'data' moves by a
+# factor of 2 and a shard's square summed twice by sqrt(2). A norm moves
+# with the mean of its largest elements' bf16 rounding (first order)
+# where a cosine moves with its square: measured 2.7e-4 (dp, fsdp) and
+# 1.66e-3 (tp) on an H100 at gradient cosines >= 0.99977, and 1.45e-3
+# for dp in bf16 on the CPU with no kernel (PERF.md, PR 10); fp32 on the
+# CPU agrees to 1.2e-6 (tests/test_torch_multiprocess.py holds 1e-3)
+PARALLEL_NORM_RTOL = 1e-2
+# leg B's layouts: Gloo takes CUDA tensors in every collective the
+# layouts use, reduce_scatter_tensor and all_gather_into_tensor (FSDP2)
+# included (parallel/gloo_probe.py on the card, PERF.md PR 10)
+LEG_B = ["dp", "tp", "fsdp"]
+# parameter groups of leg B's update cosine, by a word of the name
+UPDATE_GROUPS = ("feature_extractor", "feature_projection", "pos_conv_embed",
+                 "attention", "feed_forward", "layer_norm", "compression")
+
+
+def _grouped(start, got: dict, want: dict, device) -> dict:
+    """{group: (got's, want's flat float64 vectors on `device`)} of two
+    runs' updates (end - start; with `start` None, of the tensors
+    themselves) over the parameters whose names hold the group's word
+    (UPDATE_GROUPS; a name goes to its first group)."""
+    flat = {g: ([], []) for g in UPDATE_GROUPS}
+    for name in want:
+        group = next((g for g in UPDATE_GROUPS if g in name), None)
+        if group is None:
+            continue
+        s0 = 0.0 if start is None else start[name].to(device).double()
+        for out, run in zip(flat[group], (got, want)):
+            out.append((run[name].to(device).double() - s0).reshape(-1))
+    return {g: (torch.cat(a), torch.cat(b)) for g, (a, b) in flat.items()
+            if a}
+
+
+def update_cosines(start: dict, got: dict, want: dict,
+                   device="cpu") -> dict:
+    """{group: cosine of two runs' updates} (`_grouped`)."""
+    return {g: float(a @ b / (a.norm() * b.norm()))
+            for g, (a, b) in _grouped(start, got, want, device).items()}
+
+
+def norm_ratios(got: dict, want: dict, device="cpu") -> dict:
+    """{group: norm of got's tensors over want's} (`_grouped`)."""
+    return {g: float(a.norm() / b.norm())
+            for g, (a, b) in _grouped(None, got, want, device).items()}
+
+
+def parallel_leg_a(dev) -> dict:
+    """Leg A: a world of one NCCL rank at XLS-R-300M width, B = 32 x 5 s,
+    the train phase's settings with device RawBoost ('fft'): 4 steps of
+    the plain trainer, of 'replicated' (gradients averaged over 'data')
+    and of 'fsdp' (FSDP2 per layer) on one fixed batch, deterministic
+    algorithms on, the launch counters reset just before each and read
+    just after."""
+    from wav2vec_contr_loss_torch import XLSR_300M, Stage1Config, Stage1Trainer
+    from wav2vec_contr_loss_torch.parallel import mp_smoke
+    from wav2vec_contr_loss_torch.parallel.mesh import make_mesh
+    from wav2vec_contr_loss_torch.utils import distributed
+
+    os.environ.update(MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(mp_smoke.free_port()), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    distributed.maybe_initialize(force=True, device="cuda")
+    mesh = make_mesh(device_type="cuda")
+    print(f"parallel leg A: process group up "
+          f"{time.perf_counter() - T_START:.1f} s after start")
+    print(f"parallel leg A: {torch.distributed.get_backend()}, world size "
+          f"{torch.distributed.get_world_size()}, mesh "
+          f"{tuple(mesh.shape)} {mesh.mesh_dim_names}")
+    cfg = XLSR_300M
+    scfg = Stage1Config(finetune_encoder=True)
+    t0 = time.perf_counter()
+    weights = xlsr_weights()
+    batch = train_batch(np.random.default_rng(2), scfg.batch_size)
+    print(f"parallel leg A: weights and batch in "
+          f"{time.perf_counter() - t0:.1f} s")
+    want = {k: v * PARALLEL_STEPS
+            for k, v in expected_train_launches(scfg, cfg).items()}
+    runs = {}
+    for name, on_mesh, sharding in (("plain", None, "replicated"),
+                                    ("replicated", mesh, "replicated"),
+                                    ("fsdp", mesh, "fsdp")):
+        t0 = time.perf_counter()
+        trainer = Stage1Trainer(scfg.replace(param_sharding=sharding), cfg,
+                                weights, device=dev, mesh=on_mesh)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        losses, times = [], []
+        for _ in range(PARALLEL_STEPS):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(batch, 1.0)["loss"].item())
+            times.append(time.perf_counter() - t0)
+        counts = _counters()
+        runs[name] = dict(losses=losses, counts=counts,
+                          ms=1e3 * float(np.median(times[1:])),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"parallel leg A {name}: losses {losses}, step "
+              f"{runs[name]['ms']:.1f} ms (median of steps 2-"
+              f"{PARALLEL_STEPS}; step 1 {1e3 * times[0]:.1f} ms; built in "
+              f"{built:.1f} s), peak {runs[name]['peak_gib']:.2f} GiB, "
+              f"launches {counts} [{CARD}]")
+        if counts != want:
+            raise RuntimeError(f"leg A {name}: launches {counts}, expected "
+                               f"{want}")
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"leg A {name}: non-finite loss")
+        del trainer
+        torch.cuda.empty_cache()
+    plain = runs["plain"]["losses"]
+    if runs["replicated"]["losses"] != plain:
+        raise RuntimeError("leg A: the replicated losses are not the plain "
+                           "trainer's bits")
+    fsdp_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(runs["fsdp"]["losses"], plain))
+    print(f"parallel leg A: replicated losses bit-equal to the plain "
+          f"trainer's; fsdp bit-equal: {runs['fsdp']['losses'] == plain}, "
+          f"largest relative difference {fsdp_rel:.3e} (limit "
+          f"{PARALLEL_LOSS_RTOL})")
+    if fsdp_rel > PARALLEL_LOSS_RTOL:
+        raise RuntimeError("leg A: fsdp losses off the plain trainer's")
+    torch.distributed.destroy_process_group()
+    launches = {k: runs["replicated"]["counts"][k] + runs["fsdp"]["counts"][k]
+                for k in want}
+    return {"leg_a": {k: {m: v[m] for m in ("losses", "ms", "peak_gib")}
+                      for k, v in runs.items()},
+            "leg_a_fsdp_bit_equal": runs["fsdp"]["losses"] == plain,
+            "parallel_launches": launches}
+
+
+def start_leg_b(dev, tmp: str, width: str = "wide"):
+    """Leg B's gang, started in a thread: its two ranks (Gloo: NCCL
+    refuses two ranks on one card) join their group, then wait for
+    <tmp>/go before their first step. -> (the future of launch_gang's
+    results, the go file)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from wav2vec_contr_loss_torch.parallel import mp_smoke
+
+    go = os.path.join(tmp, "go")
+    pool = ThreadPoolExecutor(1)
+    fut = pool.submit(mp_smoke.launch_gang, tmp, LEG_B, n=2,
+                      device=dev.type,
+                      backend="gloo" if dev.type == "cuda" else None,
+                      width=width, timeout=300, save=["tp"], grads=True,
+                      go=go)
+    pool.shutdown(wait=False)
+    return fut, go
+
+
+def parallel_leg_b(dev, tmp: str, width: str = "wide", started=None) -> dict:
+    """Leg B: two Gloo ranks on this one card, XLS-R-300M widths at 4
+    layers, B = 16 x 2 s, bf16, every dropout, SpecAugment and device
+    RawBoost on: LEG_B's layouts, 3 steps each (parallel/mp_smoke.py),
+    against one process at the global batch with the same seeds (loss,
+    first-step gradients, 3-step updates); the tensor-parallel gang's
+    checkpoint restored into one process; the first step's gradient
+    norms, by name group and as the clip computes them, within
+    PARALLEL_NORM_RTOL of one process's. `started`: start_leg_b's
+    (future, go file), else it starts here. (`width` 'tiny' on the CPU
+    rehearses it, where no kernel launches.)"""
+    from wav2vec_contr_loss_torch import Stage1Trainer
+    from wav2vec_contr_loss_torch.parallel import mp_smoke
+
+    job = mp_smoke.Job.named(width)
+    on_card = dev.type == "cuda"
+    fut, go = started or start_leg_b(dev, tmp, width)
+    t0 = time.perf_counter()
+    open(go, "w").close()
+    gang = fut.result()
+    t_gang = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = mp_smoke.run_leg("dp", None, dev, job, grads=True)
+    print(f"parallel leg B: the gang's run {t_gang:.1f} s (legs "
+          f"{ {leg: round(r[0]['seconds'], 1) for leg, r in gang.items()} } "
+          f"s), one process {time.perf_counter() - t0:.1f} s")
+    cfg = mp_smoke.encoder_config(True, width)
+    scfg = mp_smoke.stage1_config(job, True, "replicated")
+    start = {f"{part}.{k}": v for part, sd in mp_smoke.initial_weights(
+        cfg, scfg.hidden_dim).items() for k, v in sd.items()}
+    want = {k: v * job.steps * on_card
+            for k, v in expected_train_launches(scfg, cfg).items()}
+    out, low = {}, []
+    for leg in LEG_B:
+        state = torch.load(os.path.join(tmp, f"{leg}.pt"))
+        for rank, r in enumerate(gang[leg]):
+            rel = [abs(a - b) / abs(b) for a, b in
+                   zip(r["losses"], ref["losses"])]
+            print(f"parallel leg B {leg} rank {rank}: losses {r['losses']} "
+                  f"(one process {ref['losses']}, relative {max(rel):.2e}), "
+                  f"ms a step {[round(x, 1) for x in r['ms']]}, peak "
+                  f"{r['peak_gib']} GiB, launches {r['launches']}")
+            if max(rel) > PARALLEL_LOSS_RTOL:
+                raise RuntimeError(f"leg B {leg}: loss off the single "
+                                   f"process's")
+            if r["launches"] != want:
+                raise RuntimeError(f"leg B {leg}: launches "
+                                   f"{r['launches']}, expected {want}")
+        grads = torch.load(os.path.join(tmp, f"{leg}.grad.pt"))
+        grad = update_cosines(None, grads, ref["grads"], dev)
+        cos = update_cosines(start, state, ref["state"], dev)
+        ratio = norm_ratios(grads, ref["grads"], dev)
+        ratio.update({f"clip {rank} {g}": r["grad_norms"][g] / n
+                      for rank, r in enumerate(gang[leg])
+                      for g, n in ref["grad_norms"].items()})
+        print(f"parallel leg B {leg}: first-step gradient cosines "
+              f"{ {g: round(c, 6) for g, c in grad.items()} }; norm ratios "
+              f"{ {g: round(c, 6) for g, c in ratio.items()} }; 3-step "
+              f"update cosines { {g: round(c, 6) for g, c in cos.items()} }")
+        low += [(leg, "gradient", g) for g, c in grad.items()
+                if c < PARALLEL_GRAD_COS]
+        low += [(leg, "update", g) for g, c in cos.items()
+                if c < PARALLEL_UPDATE_COS]
+        low += [(leg, "norm", g) for g, c in ratio.items()
+                if not abs(c - 1) <= PARALLEL_NORM_RTOL]
+        out[leg] = dict(losses=gang[leg][0]["losses"],
+                        ms=float(np.median(gang[leg][0]["ms"][1:])),
+                        peak_gib=gang[leg][0]["peak_gib"],
+                        min_grad_cos=min(grad.values()),
+                        min_update_cos=min(cos.values()),
+                        max_norm_dev=max(abs(c - 1)
+                                         for c in ratio.values()))
+    if low:
+        raise RuntimeError(f"leg B: cosines or norms beyond their limits "
+                           f"({PARALLEL_GRAD_COS} gradient, "
+                           f"{PARALLEL_UPDATE_COS} update, "
+                           f"{PARALLEL_NORM_RTOL} norm): {low}")
+    # the tensor-parallel gang's checkpoint restores into one process
+    tp = torch.load(os.path.join(tmp, "tp.pt"))
+    one = Stage1Trainer.from_checkpoint(os.path.join(tmp, "ckpt", "tp"),
+                                        "latest", device=dev)
+    back = mp_smoke.model_state(one)
+    if set(back) != set(tp) or not all(torch.equal(back[k], tp[k])
+                                       for k in tp):
+        raise RuntimeError("leg B: the tensor-parallel checkpoint did not "
+                           "restore bit for bit")
+    single_ms = float(np.median(ref["ms"][1:]))
+    print(f"parallel leg B: the tp gang's checkpoint restored into one "
+          f"process bit for bit ({len(tp)} tensors); the gang's run "
+          f"{t_gang:.1f} s; one process at B = {job.batch}: "
+          f"{single_ms:.1f} ms a step [{CARD}]")
+    return {"leg_b": out, "leg_b_single_ms": single_ms,
+            "leg_b_gang_s": t_gang}
+
+
+def parallel_main() -> int:
+    """The parallel phase in a process of its own (`--parallel`, with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 for leg A's deterministic
+    algorithms): leg A in this process, leg B's two ranks spawned."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    import shutil
+    import tempfile
+
+    global CARD
+    CARD = read_card()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    started = None
+    try:
+        # leg B's ranks start up (imports, the process group) while leg A
+        # runs; they take their first step after it
+        started = start_leg_b(dev, tmp)
+        t0 = time.perf_counter()
+        torch.use_deterministic_algorithms(True)
+        res = parallel_leg_a(dev)
+        torch.use_deterministic_algorithms(False)
+        print(f"parallel leg A: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        res.update(parallel_leg_b(dev, tmp, started=started))
+    finally:
+        if started is not None:   # never leave a rank waiting
+            open(started[1], "w").close()
+            started[0].exception()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"parallel leg B: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"parallel": res}))
+    return 0
+
+
+def run_parallel_child() -> dict:
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--parallel"], env=env, capture_output=True,
+                           text=True, timeout=400)
+    lines = child.stdout.splitlines()
+    if child.returncode != 0:
+        print("\n".join(lines))
+        print(child.stderr[-6000:], file=sys.stderr)
+        raise RuntimeError(f"the parallel phase exited {child.returncode}")
+    print("\n".join(lines[:-1]))
+    return json.loads(lines[-1])["parallel"]
+
+
 def read_card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2620,6 +2982,12 @@ def main() -> int:
             results[name][key] = n
     print(f"fit and pipeline phases (own process): "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    par = run_parallel_child()
+    for name, n in par.pop("parallel_launches").items():
+        results[name]["parallel_launches"] = n
+    results["attention_fwd"]["parallel"] = par
+    print(f"parallel phase (own process): {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -2629,4 +2997,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(fit_main() if sys.argv[1:] == ["--fit"] else main())
+    sys.exit({"--fit": fit_main, "--parallel": parallel_main}.get(
+        sys.argv[1] if len(sys.argv) == 2 else None, main)())

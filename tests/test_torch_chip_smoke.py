@@ -3,7 +3,9 @@ exactly the JAX package's tree layout, and its serving path and its train
 phase's model run at the XLS-R-300M widths (depth cut to one or two
 layers, 1 s clips) on the CPU, and the front-door phase's helpers run at
 a small width on the CPU, and the artifact and int8 phase's at XLS-R-300M
-width, one layer."""
+width, one layer, and the parallel phase's leg B (the launcher, the leg
+configs, the update cosines, the checkpoint restore) at tiny width on
+the CPU over Gloo."""
 
 import threading
 
@@ -13,7 +15,10 @@ import torch
 
 import jax
 
-from chip_smoke import (QUANT_REL_TOL, _rel, baseline_weights,
+from chip_smoke import (LEG_B, PARALLEL_GRAD_COS, PARALLEL_NORM_RTOL,
+                        PARALLEL_UPDATE_COS, norm_ratios,
+                        QUANT_REL_TOL, _rel,
+                        baseline_weights, parallel_leg_b, update_cosines,
                         client_requests, compare_converted,
                         convert_front_door, expected_extract_launches,
                         expected_train_launches, int8_bytes,
@@ -213,3 +218,66 @@ def test_artifact_phase_helpers_at_xlsr_width_on_cpu(tmp_path):
     loaded = load_exported(str(path))
     np.testing.assert_allclose(loaded(waves).numpy(), ref["w8a8"][2].numpy(),
                                atol=1e-5)
+
+
+def test_parallel_leg_configs():
+    from wav2vec_contr_loss_torch.parallel import mp_smoke
+
+    assert set(LEG_B) <= set(mp_smoke.LEGS)
+    job = mp_smoke.Job.named("wide")
+    assert (job.batch, job.sr * job.seconds) == (16, 32000)
+    cfg = mp_smoke.encoder_config(True, "wide")
+    assert (cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
+            cfg.num_layers, cfg.dtype) == (1024, 16, 4096, 4, "bfloat16")
+    assert cfg.apply_spec_augment and cfg.attention_dropout == 0.1
+    scfg = mp_smoke.stage1_config(job, True, "fsdp")
+    assert (scfg.compute_dtype, scfg.use_rawboost, scfg.param_sharding,
+            scfg.input_dim) == ("bfloat16", True, "fsdp", 1024)
+    # per rank a step: 4 layers with remat, 7 convs, one SupCon on the
+    # gathered batch
+    assert expected_train_launches(scfg, cfg) == {
+        "attention_fwd": 8, "attention_bwd": 4, "ln_gelu_fwd": 7,
+        "ln_gelu_bwd": 7, "supcon": 1}
+
+
+def test_update_cosines_group_by_name():
+    start = {"encoder.feature_projection.layer_norm.weight": torch.zeros(3),
+             "encoder.encoder.layers.0.attention.q_proj.weight":
+                 torch.zeros(4),
+             "encoder.encoder.layers.0.layer_norm.bias": torch.zeros(2),
+             "compression.proj.weight": torch.zeros(2),
+             "encoder.masked_spec_embed": torch.zeros(2)}
+    got = {k: torch.arange(1.0, v.numel() + 1) for k, v in start.items()}
+    flip = dict(got, **{"compression.proj.weight": -got[
+        "compression.proj.weight"]})
+    cos = update_cosines(start, got, flip)
+    assert set(cos) == {"feature_projection", "attention", "layer_norm",
+                        "compression"}
+    assert cos["attention"] == pytest.approx(1.0)
+    assert cos["compression"] == pytest.approx(-1.0)
+
+
+def test_norm_ratios_group_by_name():
+    want = {"encoder.encoder.layers.0.attention.q_proj.weight":
+                torch.tensor([3.0, 4.0]),
+            "encoder.encoder.layers.1.attention.k_proj.weight":
+                torch.zeros(2),
+            "compression.proj.weight": torch.tensor([1.0, 0.0]),
+            "encoder.masked_spec_embed": torch.ones(2)}
+    got = dict(want, **{"compression.proj.weight": torch.tensor([0.0, 2.0])})
+    assert norm_ratios(got, want) == {"attention": pytest.approx(1.0),
+                                      "compression": pytest.approx(2.0)}
+
+
+def test_parallel_leg_b_on_cpu(tmp_path):
+    """Leg B end to end at tiny width on the CPU: the 2-rank gang started
+    behind its go file, its dp, tp and fsdp steps against one process,
+    the gradient and update cosines, the gradient norms, and the
+    tensor-parallel checkpoint restored bit for bit."""
+    out = parallel_leg_b(torch.device("cpu"), str(tmp_path), width="tiny")
+    assert set(out["leg_b"]) == set(LEG_B)
+    for leg in LEG_B:
+        assert out["leg_b"][leg]["min_update_cos"] >= PARALLEL_UPDATE_COS
+        assert out["leg_b"][leg]["min_grad_cos"] >= PARALLEL_GRAD_COS
+        assert out["leg_b"][leg]["max_norm_dev"] <= PARALLEL_NORM_RTOL
+        assert len(out["leg_b"][leg]["losses"]) == 2   # the tiny job's

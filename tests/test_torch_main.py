@@ -70,8 +70,23 @@ def test_doctor_on_the_cpu_names_the_absent_card(capsys):
     for name in ("card", "nvcc", "triton", "CUDA kernel builds"):
         assert f"[FAIL] {name}: absent (--device cpu)" in out
     for name in ("native audio decoder", "eval forward (tiny encoder)",
-                 "checkpoint write/restore", "waveform cache"):
+                 "torch.distributed", "checkpoint write/restore",
+                 "waveform cache"):
         assert f"[ ok ] {name}:" in out
     assert "launches attention 0, LN+GELU 0" in out
+    assert "Gloo available; not launched under torchrun (one process)" in out
     assert "cache built, reused and read back bit for bit" in out
-    assert "==> doctor: 4/8 checks passed" in out
+    assert "==> doctor: 5/9 checks passed" in out
+
+
+def test_doctor_reports_the_torchrun_gang(monkeypatch, capsys):
+    """Under torchrun's variables the distributed check names the gang."""
+    for key, value in (("RANK", "1"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "1"),
+                       ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "29500")):
+        monkeypatch.setenv(key, value)
+    with pytest.raises(SystemExit):
+        doctor.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert ("[ ok ] torch.distributed: NCCL" in out
+            and "launched under torchrun: world size 2, rank 1, local rank 1"
+            in out)

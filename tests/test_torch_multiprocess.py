@@ -1,0 +1,281 @@
+"""Real multi-process runs of the port (Gloo on the CPU): one 2-rank gang
+and one 4-rank gang of parallel/mp_smoke.py, launched once for the
+module, held against the single-process port at the global batch with
+every random draw on (dropout, SpecAugment, compression dropout, device
+RawBoost): losses rtol 1e-5, parameters rtol 2e-4 / atol 2e-5 (the
+tolerances of tests/test_sharding.py::test_dp_tp_train_step; measured
+~1 % of them: a gang sums its rows in another order). The encoder's
+AdamW steps (enc_lr 1e-5) sit near that atol and Adam is blind to a
+gradient's scale, so the first step's gradients are also held, each
+parameter's by cosine >= 0.999 and norm within 1e-3, and each optimizer
+group's norm as the clip computes it over the shards within 1e-3. Also the
+global-batch SupCon, collective checkpoints across layouts both ways,
+preemption agreement, `fit` in lockstep, the baseline under fsdp, and
+`train_stage1` launched with torchrun's variables."""
+
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import write_corpus
+from tests.test_torch_bridge import cap_torch_threads
+from wav2vec_contr_loss_torch.config import SupConConfig
+from wav2vec_contr_loss_torch.ops.supcon import supcon_binary_loss_fused
+from wav2vec_contr_loss_torch.parallel import mp_smoke
+from wav2vec_contr_loss_torch.train import Stage1Trainer
+from wav2vec_contr_loss_torch.train import checkpoint as ckpt
+
+cap_torch_threads()
+
+LEGS2 = ["dp", "fsdp", "tp", "baseline_smoke", "supcon", "smoke",
+         "restore_tp", "restore_fsdp"]
+LOSS_RTOL = 1e-5
+PARAM_TOL = dict(rtol=2e-4, atol=2e-5)
+GRAD_COS = 0.999
+NORM_RTOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def gang(tmp_path_factory):
+    """The 2-rank and 4-rank runs and the single-process references,
+    computed here while the gangs run: {'out', 'two', 'out4', 'four',
+    'single' (the single-process checkpoint's state), 'ref' (the stage-1
+    legs' one reference: dp, fsdp, tp and fsdp+tp compute the same
+    global step), 'baseline', 'smoke' (the references of those legs)}."""
+    root = tmp_path_factory.mktemp("gang")
+    out2, out4 = str(root / "two"), str(root / "four")
+    single = mp_smoke.write_single_checkpoint(os.path.join(out2, "single"))
+    with ThreadPoolExecutor(2) as pool:
+        two = pool.submit(mp_smoke.launch_gang, out2, LEGS2, 2, timeout=300,
+                          grads=True)
+        four = pool.submit(mp_smoke.launch_gang, out4, ["fsdp_tp"], 4,
+                           timeout=300, grads=True)
+        refs = {"ref": mp_smoke.run_leg("dp", None, "cpu", grads=True),
+                "baseline": mp_smoke.baseline_smoke(
+                    None, "cpu", str(root / "baseline_ref")),
+                "smoke": mp_smoke.run_smoke(None, "cpu",
+                                            str(root / "smoke_ref"))}
+        two, four = two.result(), four.result()
+    return dict(refs, out=out2, two=two, out4=out4, four=four, single=single)
+
+
+def _close(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], **PARAM_TOL, msg=k)
+
+
+@pytest.mark.parametrize("leg", ["dp", "fsdp", "tp", "fsdp_tp"])
+def test_gang_steps_equal_the_single_process_port(gang, leg):
+    n, out = (4, gang["out4"]) if leg == "fsdp_tp" else (2, gang["out"])
+    results = gang["four" if n == 4 else "two"][leg]
+    assert len(results) == n
+    for r in results:   # every rank reports the global batch's loss
+        assert r["losses"] == results[0]["losses"]
+        np.testing.assert_allclose(r["losses"], gang["ref"]["losses"],
+                                   rtol=LOSS_RTOL)
+        # the plain versions run on the CPU: no kernel launches
+        assert set(r["launches"].values()) == {0}
+    _close(torch.load(os.path.join(out, f"{leg}.pt")), gang["ref"]["state"])
+
+
+@pytest.mark.parametrize("leg", ["dp", "fsdp", "tp", "fsdp_tp"])
+def test_gang_first_step_gradients_equal_the_single_process_port(gang, leg):
+    """The first step's gradients, averaged over 'data' and gathered to
+    full, against one process's at the global batch, by direction and by
+    size: a missing or doubled average, or a shard's square counted
+    twice in the clip's norm, moves a norm by a factor of 2 or more."""
+    n, out = (4, gang["out4"]) if leg == "fsdp_tp" else (2, gang["out"])
+    got = torch.load(os.path.join(out, f"{leg}.grad.pt"))
+    want = gang["ref"]["grads"]
+    assert set(got) == set(want)
+    for k in want:
+        # k_proj's bias adds q.b_k to all of a query's scores, which the
+        # softmax cancels: its gradient is rounding alone
+        if k.endswith("k_proj.bias"):
+            continue
+        a, b = got[k].double().flatten(), want[k].double().flatten()
+        assert b.norm() > 0, k
+        cos = float(a @ b / (a.norm() * b.norm()))
+        assert cos >= GRAD_COS, f"{k}: gradient cosine {cos}"
+        assert float(a.norm() / b.norm()) == pytest.approx(
+            1.0, rel=NORM_RTOL), k
+    results = gang["four" if n == 4 else "two"][leg]
+    for r in results:
+        assert set(r["grad_norms"]) == set(gang["ref"]["grad_norms"])
+        for name, norm in gang["ref"]["grad_norms"].items():
+            assert r["grad_norms"][name] == pytest.approx(
+                norm, rel=NORM_RTOL), name
+
+
+def test_baseline_gang_clip_norm_equals_the_single_process_port(gang):
+    """The norm the baseline's clip over every gradient took in the last
+    step of `fit`, on each rank of the fsdp gang (the squares of its
+    shards summed over 'data'), against one process's."""
+    want = gang["baseline"]["grad_norms"]
+    for r in gang["two"]["baseline_smoke"]:
+        assert set(r["grad_norms"]) == set(want)
+        for name, norm in want.items():
+            assert norm > 0, name
+            assert r["grad_norms"][name] == pytest.approx(
+                norm, rel=NORM_RTOL), name
+
+
+def test_baseline_fsdp_layout(gang):
+    """`BaselineTrainer` under fsdp on 2 ranks: 2 epochs of `fit` end on
+    the single-process run's parameters and losses."""
+    want = gang["baseline"]
+    for r in gang["two"]["baseline_smoke"]:
+        np.testing.assert_allclose(r["train_loss"], want["train_loss"],
+                                   rtol=LOSS_RTOL)
+    _close(torch.load(os.path.join(gang["out"], "baseline_smoke.pt")),
+           want["state"])
+
+
+def test_baseline_fit_scores_dev_over_gathered_logits(gang):
+    """The baseline's `fit` in a gang: each rank scores its rows of the
+    dev batches, the logits are gathered over 'data', and every rank
+    finds the single-process run's dev EER each epoch."""
+    want = gang["baseline"]
+    r0, r1 = gang["two"]["baseline_smoke"]
+    assert r0["dev_eer"] == r1["dev_eer"] == want["dev_eer"]
+    assert r0["logits"] == r1["logits"]
+    assert len(r0["logits"]) == mp_smoke.N_CLIPS
+    np.testing.assert_allclose(r0["logits"], want["logits"], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(r0["train_loss"], want["train_loss"],
+                               rtol=LOSS_RTOL)
+
+
+def test_global_loss_equals_replica_average(gang):
+    """The SupCon loss of rows gathered over 'data' is the global batch's
+    on every rank, and each rank's rows get n_data times their rows of
+    the global dL/dz (the average over 'data' then gives dL/dtheta)."""
+    rng = np.random.default_rng(1)
+    z = rng.normal(size=(32, 8)).astype(np.float32)
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    zt = torch.tensor(z, requires_grad=True)
+    loss = supcon_binary_loss_fused(zt, torch.tensor([1, 0] * 16), 0.5,
+                                    SupConConfig())
+    loss.backward()
+    for rank, r in enumerate(gang["two"]["supcon"]):
+        assert r["loss"] == pytest.approx(loss.item(), rel=1e-6)
+        np.testing.assert_allclose(
+            np.asarray(r["grad"]) / 2, zt.grad[16 * rank:16 * (rank + 1)],
+            rtol=1e-5, atol=1e-7)
+
+
+def test_fit_keeps_every_rank_in_lockstep(gang):
+    """`fit` (2 epochs, dev set, collective checkpoints, fsdp) gives every
+    rank the single-process run's losses."""
+    want = gang["smoke"]
+    r0, r1 = gang["two"]["smoke"]
+    for r in (r0, r1):
+        assert r["train_loss"] == r0["train_loss"]
+        assert r["dev_loss"] == r0["dev_loss"]
+        np.testing.assert_allclose(r["train_loss"], want["train_loss"],
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(r["dev_loss"], want["dev_loss"],
+                                   rtol=LOSS_RTOL)
+    assert r0["param_sum"] == pytest.approx(want["param_sum"], rel=1e-5)
+
+
+def test_gang_checkpoint_restores_single_process(gang):
+    """The fsdp gang's collective checkpoint (shards gathered, rank 0
+    writes) restores in one process; its parameters are the gang's."""
+    directory = os.path.join(gang["out"], "ckpt", "fit")
+    trainer = Stage1Trainer.from_checkpoint(directory, "latest",
+                                            device="cpu")
+    assert trainer.cfg.param_sharding == "fsdp"
+    state, _ = ckpt.restore_checkpoint(directory, "latest")
+    for k, v in trainer.encoder.state_dict().items():
+        assert torch.equal(v, state["encoder"][k]), k
+    total = sum(v.double().sum() for part in ("encoder", "compression")
+                for v in state[part].values())
+    assert float(total) == pytest.approx(
+        gang["two"]["smoke"][0]["param_sum"], rel=1e-9)
+    # the moments too, in their full shapes
+    opt = trainer.optimizer.groups["encoder"]
+    assert [m.shape for m in opt.mu] == [p.shape for p in opt.params]
+
+
+@pytest.mark.parametrize("leg", ["restore_tp", "restore_fsdp"])
+def test_checkpoint_restores_across_mesh_shapes(gang, leg):
+    """restore_tp: the fsdp gang's checkpoint on a (1, 2) tensor-parallel
+    mesh; restore_fsdp: a single-process checkpoint on a (2, 1) fsdp
+    mesh. The restored state gathered back is the file's, bit for bit,
+    and one step there gives the single-process restore's loss."""
+    directory, _, _ = mp_smoke.RESTORES[leg]
+    path = os.path.join(gang["out"], directory)
+    state, _ = ckpt.restore_checkpoint(path, "latest")
+    got = torch.load(os.path.join(gang["out"], f"{leg}.pt"))
+    for part in ("encoder", "compression"):
+        for k, v in state[part].items():
+            assert torch.equal(got[f"{part}.{k}"], v), k
+    if leg == "restore_fsdp":
+        for k, v in gang["single"].items():
+            assert torch.equal(got[k], v), k
+    want = mp_smoke.restore(leg, gang["out"], None, "cpu")
+    for r in gang["two"][leg]:
+        assert r["loss"] == pytest.approx(want["loss"], rel=2e-5)
+
+
+def test_preemption_flag_agreement_across_processes(gang):
+    """The flag is raised on rank 0 only; the guard's all-reduce every 2
+    steps stops both ranks at step 2, and the mid-epoch save from there
+    is a working collective, restorable in one process."""
+    for r in gang["two"]["smoke"]:
+        assert r["preempted"] is True and r["preempt_step"] == 2
+    directory = os.path.join(gang["out"], "ckpt", "preempt")
+    m = ckpt.load_sidecar(directory, "latest")["metrics"]
+    assert m["preempted"] is True and m["batches_done"] == 2
+    trainer = Stage1Trainer.from_checkpoint(directory, "latest",
+                                            device="cpu")
+    assert trainer.step == 2
+    assert ckpt.resume_cursor(m) == (1, 2)
+
+
+def test_train_stage1_cli_under_torchrun_variables(tmp_path):
+    """Two processes with torchrun's variables run `train_stage1` for an
+    epoch as one fsdp gang; rank 0 writes the checkpoints."""
+    root, save = str(tmp_path / "corpus"), str(tmp_path / "save")
+    write_corpus(root, 16, seed=0, seconds=1.0)
+    cmd = [sys.executable, "-m", "wav2vec_contr_loss_torch.cli.train_stage1",
+           "--device", "cpu", "--model_name", "test/tiny-wav2vec2",
+           "--encoder_init", "random", "--compute_dtype", "float32",
+           "--train_root", root, "--train_protocol",
+           os.path.join(root, "protocol.txt"), "--epochs", "1",
+           "--batch_size", "8", "--max_duration_seconds", "1",
+           "--input_dim", "32", "--hidden_dim", "16", "--num_workers", "1",
+           "--param_sharding", "fsdp", "--save_dir", save]
+    logs = mp_smoke.spawn(cmd, 2, timeout=300, threads=1)
+    assert "Stage-1 training complete" in logs[0]
+    assert "=== CONFIG ===" not in logs[1]     # rank 0 alone logs
+    directory = os.path.join(save, "test__tiny-wav2vec2")
+    m = ckpt.load_sidecar(directory, "latest")
+    assert m["metrics"]["epoch"] == 1
+    assert m["extra"]["stage1_config"]["param_sharding"] == "fsdp"
+    assert ckpt.checkpoint_exists(directory, "best")
+
+
+def test_single_process_cli_ignores_a_gang_of_one(tmp_path):
+    """Without torchrun's variables (or with --multihost 0) the CLI trains
+    as one process: no process group is joined."""
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import torch.distributed as d\n"
+         "from wav2vec_contr_loss_torch.utils import distributed as u\n"
+         "import argparse\n"
+         "a = argparse.Namespace(multihost=0)\n"
+         "assert u.init_from_args(a, device='cpu') is False\n"
+         "assert u.maybe_initialize(device='cpu') is False\n"
+         "assert not d.is_initialized() and u.world_size() == 1\n"],
+        env={k: v for k, v in os.environ.items()
+             if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR")},
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -145,4 +145,7 @@ def test_port_imports_no_jax():
         # from features
         "train.baseline", "data.cache", "cli.train_baseline",
         "cli.score_baseline", "cli.score_famous_figures",
-        "cli.extract_encoder_features", "cli.cache_waveforms")} <= walked
+        "cli.extract_encoder_features", "cli.cache_waveforms",
+        # multi-process training
+        "parallel.mesh", "parallel.collectives", "parallel.mp_smoke",
+        "parallel.gloo_probe", "utils.distributed")} <= walked

@@ -14,7 +14,7 @@ from ..config import LARGE_960H, XLSR_300M, Wav2Vec2Config, run_tag
 from ..data import AudioConfig, parse_asvspoof2019, parse_in_the_wild
 
 __all__ = ["TINY_TEST", "KNOWN_ARCHS", "add_asv_paths", "add_encoder_args",
-           "add_cache_args",
+           "add_cache_args", "add_layout_args", "join_gang", "rank_log",
            "load_encoder_init", "save_dir_for", "asv_dataset", "itw_dataset",
            "parse_num_samples"]
 
@@ -76,6 +76,68 @@ def add_cache_args(p: argparse.ArgumentParser,
                    choices=["int16", "float32"],
                    help="cache storage (int16: exact for PCM sources, "
                         "half the disk; float32: bit-exact)")
+
+
+def add_layout_args(p: argparse.ArgumentParser, model: bool = True) -> None:
+    """--multihost and --param_sharding, and with `model` the flags of
+    tensor, pipeline and sequence parallelism (stage 1)."""
+    from ..utils.distributed import add_multihost_arg
+
+    add_multihost_arg(p)
+    p.add_argument("--param_sharding", type=str, default=None,
+                   choices=["replicated", "fsdp", "pp"],
+                   help="a gang's parameter layout (parallel/mesh.py): "
+                        "'replicated' (data parallel) or 'fsdp' (ZeRO-3 "
+                        "over the encoder layers); 'pp' is not ported yet")
+    if not model:
+        return
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="the mesh 'model' axis: > 1 splits each layer's "
+                        "attention and FFN over that many ranks (tensor "
+                        "parallelism); the other ranks form 'data'")
+    p.add_argument("--pipeline_microbatches", type=int, default=None,
+                   help="GPipe microbatches under --param_sharding pp "
+                        "(not ported yet: any value exits 2)")
+    p.add_argument("--sequence_parallel", type=int, default=None,
+                   choices=[0, 1],
+                   help="frame-shard the residual stream over 'model' "
+                        "(not ported yet)")
+
+
+def join_gang(args, parser: argparse.ArgumentParser):
+    """Apply --multihost and the layout flags before any device use.
+    -> (this rank's device, the ('data', 'model') mesh or None for a
+    single process). 'pp', its --pipeline_microbatches and sequence
+    parallelism exit 2 (ROADMAP A10b), as does a 'model' axis without a
+    gang to hold it."""
+    from ..parallel.mesh import UNPORTED, make_mesh
+    from ..utils import distributed
+
+    if (getattr(args, "param_sharding", None) == "pp"
+            or getattr(args, "pipeline_microbatches", None) is not None
+            or getattr(args, "sequence_parallel", None)):
+        parser.error(f"--param_sharding pp, --pipeline_microbatches and "
+                     f"--sequence_parallel 1 are {UNPORTED}")
+    n_model = getattr(args, "mesh_model", 1)
+    if not distributed.init_from_args(args, device=args.device):
+        if n_model > 1:
+            parser.error(f"--mesh_model {n_model} needs a gang of processes: "
+                         f"launch with torchrun --nproc_per_node N")
+        return args.device, None
+    device = distributed.gang_device(args.device)
+    try:
+        mesh = make_mesh(n_model=n_model, device_type=device.type)
+    except ValueError as e:
+        parser.error(str(e))
+    return device, mesh
+
+
+def rank_log(*args, **kw) -> None:
+    """print on rank 0 of a gang (every rank computes the same lines)."""
+    from ..utils import distributed
+
+    if distributed.is_primary():
+        print(*args, **kw)
 
 
 def load_encoder_init(encoder_init: str, model_name: str

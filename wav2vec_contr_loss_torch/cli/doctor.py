@@ -5,8 +5,8 @@ starts: the card (name and power limit, CUDA, nvcc, triton), the builds
 of the port's CUDA sources and of the native audio decoder with a decode
 round trip, an eval forward of a tiny encoder on the card that must
 launch exactly one attention kernel a layer and one LN+GELU kernel a
-conv, a checkpoint round trip and a decode-once waveform cache round
-trip. One `[ ok ]` or `[FAIL]` line a check;
+conv, torch.distributed's backends (and the gang, under torchrun), a
+checkpoint round trip and a decode-once waveform cache round trip. One `[ ok ]` or `[FAIL]` line a check;
 the exit code is 1 if any check fails. `--device cpu` runs the forward on
 the CPU and reports the card's checks as absent, which fails them.
 """
@@ -124,6 +124,32 @@ def _forward(dev) -> str:
                            f"expected {want}")
     return (f"{dev}: layer_mean{tuple(out.shape)} sum={got:.3f}, launches "
             f"attention {counts[0]}, LN+GELU {counts[1]}")
+
+
+@check("torch.distributed")
+def _distributed(dev) -> str:
+    """The backends a gang needs (NCCL on the card, Gloo on the CPU), and
+    the gang this process is in under torchrun (the JAX doctor's
+    "N device(s), P process(es)")."""
+    import torch.distributed as dist
+
+    from ..utils import distributed
+
+    if not dist.is_available():
+        raise RuntimeError("this torch build has no torch.distributed")
+    nccl, gloo = dist.is_nccl_available(), dist.is_gloo_available()
+    need = "NCCL" if dev.type == "cuda" else "Gloo"
+    if not (nccl if dev.type == "cuda" else gloo):
+        raise RuntimeError(f"{need} is not available: a gang on {dev.type} "
+                           f"needs it")
+    if distributed.launched():
+        gang = (f"launched under torchrun: world size "
+                f"{os.environ['WORLD_SIZE']}, rank {os.environ['RANK']}, "
+                f"local rank {os.environ.get('LOCAL_RANK', '?')}")
+    else:
+        gang = "not launched under torchrun (one process)"
+    return (f"NCCL {'available' if nccl else 'absent'}, Gloo "
+            f"{'available' if gloo else 'absent'}; {gang}")
 
 
 @check("checkpoint write/restore")

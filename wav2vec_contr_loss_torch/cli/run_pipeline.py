@@ -22,7 +22,9 @@ The port of wav2vec_contr_loss_tpu/cli/run_pipeline.py over the port's
 CLIs. --device goes to every leg that touches the card. The stage-1
 checkpoint is the port's <work_dir>/<exp>/checkpoints_stage1/<run_tag>/
 best.pt pair. --cache_waveforms and --cache_dtype go to the training
-leg. Not ported yet: the multi-host flags.
+leg. Under torchrun (or --multihost 1) every rank joins the stage-1
+training gang; extraction and the later legs run single-process on rank
+0, the other ranks stop after stage 1.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import argparse
 import os
 
 from ..config import EXPERIMENT_PRESETS
+from ..utils import distributed
 from . import (eval_scores, extract_embeddings, generate_scores, plot_umap,
                train_stage1, train_stage2)
 from .common import save_dir_for
@@ -89,6 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu', for every leg that "
                         "touches the card")
+    distributed.add_multihost_arg(p)
     return p
 
 
@@ -140,7 +144,14 @@ def main(argv=None) -> None:
             s1 += ["--cache_dtype", args.cache_dtype]
         if args.resume:
             s1 += ["--resume"]
+        if args.multihost is not None:
+            s1 += ["--multihost", str(args.multihost)]
         train_stage1.main(s1)
+    if distributed.world_size() > 1:
+        # extraction onwards is single-process: rank 0 alone goes on
+        distributed.barrier()
+        if not distributed.is_primary():
+            return
 
     # 2) extraction (train/dev/eval/itw as provided); --num_samples
     # subsets every leg, not just training

@@ -13,6 +13,9 @@ SIGTERM saves the full state mid-epoch and exits 75 (EX_TEMPFAIL);
 rerunning with --resume continues from `baseline_latest` past its batch
 cursor, with its best EER and patience count. The encoder starts from
 seeded random weights or from a port checkpoint; nothing is downloaded.
+A gang trains one run as train_stage1's does (`torchrun --nproc_per_node
+N -m wav2vec_contr_loss_torch.cli.train_baseline ... [--param_sharding
+fsdp]`, `--multihost`).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from ..train import BaselineTrainer
 from ..train.checkpoint import checkpoint_exists, resume_cursor
 from ..utils.preemption import PreemptionGuard
 from .common import (add_asv_paths, add_cache_args, add_encoder_args,
-                     asv_dataset, load_encoder_init, save_dir_for)
+                     add_layout_args, asv_dataset, join_gang,
+                     load_encoder_init, rank_log, save_dir_for)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,11 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continue from <save_dir>/baseline_latest (also a "
                         "mid-epoch preemption save)")
     add_cache_args(p)
+    add_layout_args(p, model=False)
     return p
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    device, mesh = join_gang(args, parser)
     enc_config, encoder = load_encoder_init(args.encoder_init,
                                             args.model_name)
     cfg = BaselineConfig(
@@ -86,7 +93,8 @@ def main(argv=None) -> None:
         finetune_encoder=bool(args.finetune_encoder),
         remat_encoder=bool(args.remat_encoder),
         use_pos_weight=bool(args.use_pos_weight),
-        wire_dtype=args.wire_dtype, compute_dtype=args.compute_dtype)
+        wire_dtype=args.wire_dtype, compute_dtype=args.compute_dtype,
+        param_sharding=args.param_sharding or "replicated")
     save_dir = save_dir_for(args.save_dir, cfg.model_name)
 
     datasets = {"train": asv_dataset(args.train_root, args.train_protocol,
@@ -103,7 +111,7 @@ def main(argv=None) -> None:
                          dtype=args.cache_dtype,
                          num_workers=args.num_workers)
     pos_weight = pos_weight_from_labels(datasets["train"].labels)
-    print(f"pos_weight (neg/pos) = {pos_weight:.4f}")
+    rank_log(f"pos_weight (neg/pos) = {pos_weight:.4f}")
 
     weights = jax_params_to_torch(enc_config, *random_jax_trees(
         enc_config, comp_dim=cfg.hidden_dim, seed=cfg.seed))
@@ -111,8 +119,8 @@ def main(argv=None) -> None:
         random_dense(cfg.hidden_dim, 1, seed=cfg.seed))
     if encoder:
         weights["encoder"] = encoder
-    trainer = BaselineTrainer(cfg, enc_config, weights, device=args.device,
-                              pos_weight=pos_weight)
+    trainer = BaselineTrainer(cfg, enc_config, weights, device=device,
+                              pos_weight=pos_weight, mesh=mesh)
     start_epoch, skip_steps = 1, 0
     best_eer, epochs_no_improve = float("inf"), 0
     if args.resume:
@@ -121,11 +129,11 @@ def main(argv=None) -> None:
             best_eer = float(m.get("best_eer", float("inf")))
             epochs_no_improve = int(m.get("epochs_no_improve", 0))
             start_epoch, skip_steps = resume_cursor(m)
-            print(f"[RESUME] continuing from epoch {start_epoch}"
-                  + (f" batch {skip_steps}" if skip_steps else ""))
+            rank_log(f"[RESUME] continuing from epoch {start_epoch}"
+                     + (f" batch {skip_steps}" if skip_steps else ""))
         else:
-            print("[RESUME] no 'baseline_latest' checkpoint found; "
-                  "starting fresh")
+            rank_log("[RESUME] no 'baseline_latest' checkpoint found; "
+                     "starting fresh")
 
     rawboost = (cfg.rawboost_params()
                 if cfg.use_rawboost and cfg.rawboost_mode == "host" else None)
@@ -140,13 +148,14 @@ def main(argv=None) -> None:
         history = trainer.fit(train_pipe, dev_pipe, save_dir=save_dir,
                               preemption=guard, start_epoch=start_epoch,
                               skip_steps=skip_steps, best_eer=best_eer,
-                              epochs_no_improve=epochs_no_improve)
+                              epochs_no_improve=epochs_no_improve,
+                              log_fn=rank_log)
     if history.get("preempted"):
-        print(f"==> Baseline training PREEMPTED; state saved in {save_dir} "
-              f"(rerun with --resume)")
+        rank_log(f"==> Baseline training PREEMPTED; state saved in "
+                 f"{save_dir} (rerun with --resume)")
         # EX_TEMPFAIL: callers must not go on as if training had finished
         raise SystemExit(75)
-    print(f"==> Baseline training complete. Checkpoints in {save_dir}")
+    rank_log(f"==> Baseline training complete. Checkpoints in {save_dir}")
 
 
 if __name__ == "__main__":

@@ -11,7 +11,14 @@ waveform cache, `--resume` and `--num_workers`, plus `--device` and
 `--compute_dtype`. SIGTERM saves the full state mid-epoch and exits 75
 (EX_TEMPFAIL); rerunning with `--resume` continues past the saved batch
 cursor. The encoder starts from seeded random weights or from a port
-checkpoint; nothing is downloaded. `--features_dir DIR` trains the
+checkpoint; nothing is downloaded.
+
+A gang of N processes trains one run: `torchrun --nproc_per_node N -m
+wav2vec_contr_loss_torch.cli.train_stage1 ... [--param_sharding fsdp]
+[--mesh_model M]` (each rank on `cuda:LOCAL_RANK`, NCCL; `--device cpu`
+runs Gloo). `--multihost 1` / `0` forces / suppresses joining the
+process group; `--param_sharding pp`, `--pipeline_microbatches` and
+`--sequence_parallel 1` exit 2 (not ported yet, ROADMAP A10b). `--features_dir DIR` trains the
 compression head alone on the (N, F, 250) features that
 extract_encoder_features wrote there (train_features.npy and, when
 present, dev_features.npy), with no audio and no encoder.
@@ -34,8 +41,9 @@ from ..train import Stage1Trainer
 from ..train.checkpoint import checkpoint_exists, resume_cursor
 from ..utils.preemption import PreemptionGuard
 from .common import (KNOWN_ARCHS, add_asv_paths, add_cache_args,
-                     add_encoder_args, asv_dataset, load_encoder_init,
-                     parse_num_samples, save_dir_for)
+                     add_encoder_args, add_layout_args, asv_dataset,
+                     join_gang, load_encoder_init, parse_num_samples,
+                     rank_log, save_dir_for)
 
 # config fields taken as they are, and those given as 0/1
 _VALUE_FIELDS = ("supcon_similarity", "temperature", "uniformity_weight",
@@ -44,9 +52,10 @@ _VALUE_FIELDS = ("supcon_similarity", "temperature", "uniformity_weight",
                  "alpha_end", "alpha_ramp_epochs", "rawboost_prob",
                  "rawboost_mode", "rawboost_fir_impl", "rawboost_isd_mode",
                  "max_duration_seconds", "hidden_dim", "input_dim",
-                 "wire_dtype", "grad_dtype", "compute_dtype")
+                 "wire_dtype", "grad_dtype", "compute_dtype",
+                 "param_sharding", "pipeline_microbatches")
 _FLAG_FIELDS = ("use_rawboost", "finetune_encoder", "remat_encoder",
-                "freeze_feature_extractor")
+                "freeze_feature_extractor", "sequence_parallel")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,8 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
               "input_dim"):
         p.add_argument(f"--{f}", type=int, default=None)
     p.add_argument("--num_samples", type=str, default=None)
-    for f in _FLAG_FIELDS:
+    for f in _FLAG_FIELDS[:-1]:
         p.add_argument(f"--{f}", type=int, default=None, choices=[0, 1])
+    add_layout_args(p)
     p.add_argument("--rawboost_mode", type=str, default=None,
                    choices=["device", "host", "off"])
     p.add_argument("--rawboost_fir_impl", type=str, default=None,
@@ -110,9 +120,9 @@ def config_from_args(args) -> Stage1Config:
 
 
 def _banner(cfg: Stage1Config) -> None:
-    print("=== CONFIG ===")
+    rank_log("=== CONFIG ===")
     for k, v in dataclasses.asdict(cfg).items():
-        print(f"{k.upper()}={v}")
+        rank_log(f"{k.upper()}={v}")
 
 
 def train_from_features(args, cfg: Stage1Config, save_dir: str) -> None:
@@ -139,10 +149,15 @@ def train_from_features(args, cfg: Stage1Config, save_dir: str) -> None:
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    device, mesh = join_gang(args, parser)
     cfg = config_from_args(args)
     save_dir = save_dir_for(args.save_dir, cfg.model_name)
     if args.features_dir is not None:
+        if mesh is not None:
+            parser.error("--features_dir trains single-process; launch it "
+                         "without a gang")
         train_from_features(args, cfg, save_dir)
         return
     enc_config, encoder = load_encoder_init(args.encoder_init,
@@ -156,18 +171,19 @@ def main(argv=None) -> None:
         enc_config, comp_dim=cfg.hidden_dim, seed=cfg.seed))
     if encoder:
         weights["encoder"] = encoder
-    trainer = Stage1Trainer(cfg, enc_config, weights, device=args.device,
-                            loss_mode=args.loss_mode)
+    trainer = Stage1Trainer(cfg, enc_config, weights, device=device,
+                            loss_mode=args.loss_mode, mesh=mesh)
     start_epoch, skip_steps, best_dev = 1, 0, float("inf")
     if args.resume:
         if checkpoint_exists(save_dir, "latest"):
             m = trainer.restore(save_dir, "latest")["metrics"]
             best_dev = float(m.get("best_dev", float("inf")))
             start_epoch, skip_steps = resume_cursor(m)
-            print(f"[RESUME] continuing from epoch {start_epoch}"
-                  + (f" batch {skip_steps}" if skip_steps else ""))
+            rank_log(f"[RESUME] continuing from epoch {start_epoch}"
+                     + (f" batch {skip_steps}" if skip_steps else ""))
         else:
-            print("[RESUME] no 'latest' checkpoint found; starting fresh")
+            rank_log("[RESUME] no 'latest' checkpoint found; starting "
+                     "fresh")
 
     rawboost = (cfg.rawboost_params()
                 if cfg.use_rawboost and cfg.rawboost_mode == "host" else None)
@@ -199,13 +215,13 @@ def main(argv=None) -> None:
         history = trainer.fit(train_pipe, dev_pipe, save_dir=save_dir,
                               start_epoch=start_epoch, skip_steps=skip_steps,
                               best_dev=best_dev, preemption=guard,
-                              profile_dir=args.profile_dir)
+                              profile_dir=args.profile_dir, log_fn=rank_log)
     if history.get("preempted"):
-        print(f"==> Stage-1 training PREEMPTED; state saved in {save_dir} "
-              f"(rerun with --resume)")
+        rank_log(f"==> Stage-1 training PREEMPTED; state saved in "
+                 f"{save_dir} (rerun with --resume)")
         # EX_TEMPFAIL: callers must not go on as if training had finished
         raise SystemExit(75)
-    print(f"==> Stage-1 training complete. Checkpoints in {save_dir}")
+    rank_log(f"==> Stage-1 training complete. Checkpoints in {save_dir}")
 
 
 if __name__ == "__main__":

@@ -113,13 +113,19 @@ class Stage1Config:
     CLI read the clip length, `epochs`, `batch_size`, `num_samples`, the
     alpha ramp and `wire_dtype`; checkpoints record `model_name`.
 
+    `param_sharding` ('replicated' | 'fsdp'), `pipeline_microbatches`
+    and `sequence_parallel` say how a gang of several processes trains
+    (parallel/mesh.py; the trainer's `mesh=`); 'pp' and sequence
+    parallelism are refused until ROADMAP A10b ports them, and the
+    microbatch count is read by 'pp' alone.
+
     Left out, because they only pick an XLA path or a TPU schedule:
     `attention_impl`, `conv_ln_impl`, `supcon_impl` (the port always runs
     its kernels, which compute what the 'pallas' settings compute),
     `softmax_dtype` (the attention kernels keep fp32 scores),
     `dropout_impl` (always the murmur hashes), `scan_unroll`,
-    `attention_layout`, `remat_policy`, `fused_qkv`, `layer_mean_dtype`,
-    `param_sharding`, `pipeline_microbatches` and `sequence_parallel`."""
+    `attention_layout`, `remat_policy`, `fused_qkv` and
+    `layer_mean_dtype`."""
 
     model_name: str = "facebook/wav2vec2-xls-r-300m"
     target_sample_rate: int = 16000
@@ -161,6 +167,10 @@ class Stage1Config:
     adam_mu_dtype: str = "bfloat16"     # AdamW moment storage; math fp32
     adam_nu_dtype: str = "bfloat16"
     grad_dtype: str = "auto"            # 'auto' | 'float32' | 'bfloat16'
+    # multi-process layouts (parallel/mesh.py)
+    param_sharding: str = "replicated"  # 'replicated' | 'fsdp'
+    pipeline_microbatches: int = 2      # GPipe, 'pp' only (not ported)
+    sequence_parallel: bool = False     # not ported (ROADMAP A10b)
 
     def replace(self, **kw) -> "Stage1Config":
         return dataclasses.replace(self, **kw)
@@ -208,10 +218,13 @@ class BaselineConfig:
     norm of every trainable gradient (head and encoder together), as the
     reference's baseline does.
 
+    `param_sharding` ('replicated' | 'fsdp') lays a gang's parameters
+    out as in `Stage1Config`.
+
     Left out, because they only pick an XLA path or a TPU schedule (as in
     `Stage1Config`): `remat_policy`, `scan_unroll`, `softmax_dtype` (the
-    attention kernels keep fp32 scores), `dropout_impl` (always the
-    murmur hashes) and `param_sharding`."""
+    attention kernels keep fp32 scores) and `dropout_impl` (always the
+    murmur hashes)."""
 
     wire_dtype: str = "float32"         # 'float32' | 'int16'
     model_name: str = "facebook/wav2vec2-xls-r-300m"
@@ -244,6 +257,7 @@ class BaselineConfig:
     grad_dtype: str = "auto"            # 'auto' | 'float32' | 'bfloat16'
     rawboost_fir_impl: str = "fft"
     rawboost_isd_mode: str = "exact"
+    param_sharding: str = "replicated"  # 'replicated' | 'fsdp'
 
     def replace(self, **kw) -> "BaselineConfig":
         return dataclasses.replace(self, **kw)

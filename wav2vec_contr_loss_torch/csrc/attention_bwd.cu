@@ -130,7 +130,7 @@ attention_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const float2* __restrict__ stats,
                     float* __restrict__ dbuf, uint32_t* __restrict__ keep_out,
                     __nv_bfloat16* __restrict__ dq, Strides dqs, int H, int T,
-                    unsigned seed,
+                    unsigned seed, unsigned seed_stride,
                     unsigned threshold, float scale) {
   extern __shared__ unsigned char smem_raw[];
   DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
@@ -169,7 +169,8 @@ attention_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // ---- consumer warpgroup: 64 query rows ----
-  const DropoutMask mask(seed + (unsigned)(b * H + h), threshold, scale);
+  const DropoutMask mask(seed + (unsigned)b * seed_stride + (unsigned)h,
+                         threshold, scale);
   const int r_lo = qt * kTile + 16 * warp + (lane >> 2);
   const int c_lane = 2 * (lane & 3);
   const size_t bh_rows = (size_t)(b * H + h) * n_tiles * kTile;
@@ -286,7 +287,8 @@ attention_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
                       const uint32_t* __restrict__ keep_in,
                       __nv_bfloat16* __restrict__ dk, Strides dks,
                       __nv_bfloat16* __restrict__ dv, Strides dvs, int H,
-                      int T, unsigned seed, unsigned threshold, float scale) {
+                      int T, unsigned seed, unsigned seed_stride,
+                      unsigned threshold, float scale) {
   extern __shared__ unsigned char smem_raw[];
   DkvSmem& sm = aligned_smem<DkvSmem>(smem_raw);
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -336,7 +338,8 @@ attention_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // ---- consumer warpgroup: 64 key rows ----
-  const DropoutMask mask(seed + (unsigned)(b * H + h), threshold, scale);
+  const DropoutMask mask(seed + (unsigned)b * seed_stride + (unsigned)h,
+                         threshold, scale);
   const int r_lo = kt * kTile + 16 * warp + (lane >> 2);  // key rows
   const int c_lane = 2 * (lane & 3);
   float kb[2];
@@ -415,8 +418,8 @@ cudaError_t launch(const CUtensorMap* maps, const void* g, const long long* gs,
                    const float2* stats, float* dbuf, uint32_t* keep, void* dq,
                    const long long* dqs, void* dk, const long long* dks,
                    void* dv, const long long* dvs, int B, int H, int T,
-                   unsigned seed, unsigned threshold, float scale,
-                   cudaStream_t stream) {
+                   unsigned seed, unsigned seed_stride, unsigned threshold,
+                   float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       attention_dq_kernel<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kDqSmem);
@@ -431,14 +434,14 @@ cudaError_t launch(const CUtensorMap* maps, const void* g, const long long* gs,
       static_cast<const __nv_bfloat16*>(g), strides_of(gs),
       static_cast<const __nv_bfloat16*>(out_exact), strides_of(os), bias, stats,
       dbuf, keep, static_cast<__nv_bfloat16*>(dq), strides_of(dqs), H, T, seed,
-      threshold, scale);
+      seed_stride, threshold, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attention_dkdv_kernel<kDrop><<<grid, kThreads, kDkvSmem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], bias, stats, dbuf, keep,
       static_cast<__nv_bfloat16*>(dk), strides_of(dks),
       static_cast<__nv_bfloat16*>(dv), strides_of(dvs), H, T, seed,
-      threshold, scale);
+      seed_stride, threshold, scale);
   return cudaGetLastError();
 }
 
@@ -452,7 +455,8 @@ extern "C" {
 // forward's (B, H, Tp, 2) row statistics; dbuf an fp32 (B, H, Tp) scratch
 // that takes D (Tp = T rounded up to 64); keep a uint32 scratch of
 // B * H * (Tp / 64)^2 * 128 words for the dropout mask (may be null at
-// threshold 0); seed, threshold and scale as for attention_fwd. Launches
+// threshold 0); seed, seed_stride, threshold and scale as for
+// attention_fwd. Launches
 // the dq kernel, then the dk/dv kernel.
 int attention_bwd(const void* q, const void* k, const void* v, const void* g,
                   const void* out_exact, const void* bias,
@@ -462,8 +466,8 @@ int attention_bwd(const void* q, const void* k, const void* v, const void* g,
                   const long long* vs, const long long* gs,
                   const long long* os, const long long* dqs,
                   const long long* dks, const long long* dvs, int B, int H,
-                  int T, int D, unsigned seed, unsigned threshold,
-                  float scale, void* stream) {
+                  int T, int D, unsigned seed, unsigned seed_stride,
+                  unsigned threshold, float scale, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || D != 64) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
   const void* src[4] = {q, k, v, g};
@@ -481,10 +485,10 @@ int attention_bwd(const void* q, const void* k, const void* v, const void* g,
   return (int)(threshold != 0u
                    ? launch<true>(maps, g, gs, out_exact, os, b, sp, d, kp, dq,
                                   dqs, dk, dks, dv, dvs, B, H, T, seed,
-                                  threshold, scale, s)
+                                  seed_stride, threshold, scale, s)
                    : launch<false>(maps, g, gs, out_exact, os, b, sp, d, kp, dq,
                                    dqs, dk, dks, dv, dvs, B, H, T, seed,
-                                   threshold, scale, s));
+                                   seed_stride, threshold, scale, s));
 }
 
 }  // extern "C"

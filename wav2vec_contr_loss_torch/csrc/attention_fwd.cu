@@ -186,8 +186,8 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                      __nv_bfloat16* __restrict__ out,
                      __nv_bfloat16* __restrict__ out_exact, long long osb,
                      long long osh, long long ost, float* __restrict__ stats,
-                     int H, int T, unsigned seed, unsigned threshold,
-                     float scale) {
+                     int H, int T, unsigned seed, unsigned seed_stride,
+                     unsigned threshold, float scale) {
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -234,7 +234,8 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // ---- consumer warpgroup: 64 query rows ----
-  const DropoutMask mask(seed + (unsigned)(b * H + h), threshold, scale);
+  const DropoutMask mask(seed + (unsigned)b * seed_stride + (unsigned)h,
+                         threshold, scale);
   Ctx cx{&sm, bias + (size_t)b * T, T,
          qt * kTile + 16 * warp + (lane >> 2),  // rows r_lo and r_lo + 8
          2 * (lane & 3), 0};
@@ -310,8 +311,9 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
                    const CUtensorMap& vm, const float* bias,
                    __nv_bfloat16* out, __nv_bfloat16* out_exact,
                    const long long* os, float* stats,
-                   int B, int H, int T, unsigned seed, unsigned threshold,
-                   float scale, cudaStream_t stream) {
+                   int B, int H, int T, unsigned seed,
+                   unsigned seed_stride, unsigned threshold, float scale,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_kernel<kDrop, kResid>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
@@ -320,7 +322,7 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
   attention_fwd_kernel<kDrop, kResid>
       <<<grid, kThreads, kSmemBytes, stream>>>(
       qm, km, vm, bias, out, out_exact, os[0], os[1], os[2], stats, H, T, seed,
-      threshold, scale);
+      seed_stride, threshold, scale);
   return cudaGetLastError();
 }
 
@@ -332,15 +334,17 @@ extern "C" {
 // (batch, head, row); bias (B, T) fp32 contiguous; stats: fp32
 // (B, H, Tp, 2) contiguous, Tp = T rounded up to 64, or null; out_exact:
 // null with stats, or a bf16 tensor of out's strides that takes
-// (p mask) . v with p unrounded (the backward's D reads it); seed: the
-// dropout seed (the mask of (b, h) uses seed + b*H + h); threshold:
+// (p mask) . v with p unrounded (the backward's D reads it); seed and
+// seed_stride: the dropout seed (the mask of (b, h) uses
+// seed + b*seed_stride + h; seed_stride is H unless this call holds a
+// shard of the heads or of the batch); threshold:
 // min(rate * 2^32, 2^32 - 1), 0 for rate 0; scale: 1/(1-rate).
 int attention_fwd(const void* q, const void* k, const void* v,
                   const void* bias, void* out, void* out_exact, void* stats,
                   const long long* qs, const long long* ks,
                   const long long* vs, const long long* os, int B, int H,
-                  int T, int D, unsigned seed, unsigned threshold,
-                  float scale, void* stream) {
+                  int T, int D, unsigned seed, unsigned seed_stride,
+                  unsigned threshold, float scale, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || D != 64) return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
   cudaError_t err = bind_device();
@@ -356,7 +360,8 @@ int attention_fwd(const void* q, const void* k, const void* v,
   if ((ox == nullptr) != (st == nullptr)) return (int)cudaErrorInvalidValue;
   const bool drop = threshold != 0u, resid = st != nullptr;
 #define W2V_LAUNCH(D, R) \
-  launch<D, R>(qm, km, vm, b, o, ox, os, st, B, H, T, seed, threshold, scale, s)
+  launch<D, R>(qm, km, vm, b, o, ox, os, st, B, H, T, seed, seed_stride, \
+               threshold, scale, s)
   return (int)(drop ? (resid ? W2V_LAUNCH(true, true) : W2V_LAUNCH(true, false))
                     : (resid ? W2V_LAUNCH(false, true)
                              : W2V_LAUNCH(false, false)));

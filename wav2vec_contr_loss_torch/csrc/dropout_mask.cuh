@@ -2,7 +2,10 @@
 // `_dropout_mask`, `_head_seed` in
 // wav2vec_contr_loss_tpu/ops/attention_pallas.py), computed in registers:
 // the murmur3 finalizer over (query row, key column) with the per-(batch,
-// head) seed `seed + b*H + h`, all in uint32 arithmetic. An element is
+// head) seed `seed + b*S + h` (S, the seed stride, is H, the head count,
+// unless a call holds a shard of the batch or of the heads: then the
+// caller's seed names its first (batch, head) and S is the global H), all
+// in uint32 arithmetic. An element is
 // kept when its bits reach `threshold` (= min(rate * 2^32, 2^32 - 1)) and
 // then scaled by 1 / (1 - rate); the forward and backward kernels both
 // call this, so the backward regenerates the forward's mask.

@@ -5,7 +5,9 @@ LeakyReLU(0.01), then Linear(input_dim -> hidden_dim) per frame on the
 encoder's fp32 layer-mean, and `clip_embedding` (time-mean, then L2
 norm). In train mode the dropout is the port's murmur dropout with a seed
 drawn from the caller's generator (the JAX module draws flax's threefry
-bits, which cannot be reproduced, so only the rate carries over).
+bits, which cannot be reproduced, so only the rate carries over). In a
+parallel gang the dropout mask is the global batch's, at the rank's
+batch offset (its `shard`, parallel/collectives.py).
 """
 
 from __future__ import annotations
@@ -17,11 +19,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import draw_seed, murmur_dropout
+from ..parallel.collectives import SINGLE
 
 __all__ = ["CompressionModule", "clip_embedding"]
 
 
 class CompressionModule(nn.Module):
+    shard = SINGLE
+
     def __init__(self, input_dim: int = 1024, hidden_dim: int = 256,
                  dropout_rate: float = 0.0):
         super().__init__()
@@ -37,7 +42,8 @@ class CompressionModule(nn.Module):
             if gen is None:
                 raise ValueError("train-mode dropout draws its seed from "
                                  "`gen`, a torch.Generator")
-            x = murmur_dropout(x, draw_seed(gen), self.dropout_rate)
+            x = murmur_dropout(x, draw_seed(gen), self.dropout_rate,
+                               (self.shard.batch_offset(x.shape[0]), 0, 0))
         return self.proj(F.leaky_relu(x, 0.01))
 
 

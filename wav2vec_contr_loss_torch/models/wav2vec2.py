@@ -33,8 +33,22 @@ the FFN output, as at the JAX call sites) and the SpecAugment uniforms.
 So `remat` (`torch.utils.checkpoint` around each layer) and `remat_conv`
 (around the conv tower) recompute the same masks; they change the
 schedule, not the values. `freeze_feature_extractor` runs the conv tower
-without gradients (the JAX `stop_gradient`). The parallel layouts are not
-ported.
+without gradients (the JAX `stop_gradient`).
+
+In a parallel gang (parallel/mesh.py `apply_layout`) each module holds
+the gang's `Shard`: its batch is the data rank's slice of the global
+batch, and under tensor parallelism its attention and FFN linears hold
+Megatron's column (q, k, v, intermediate_dense) or row (out_proj,
+output_dense) slices as plain parameters, their widths and head counts
+read from the local weights, with `copy_to_model` before the column
+linears and `reduce_from_model` after the row ones (the row bias is
+added after the sum). Every random draw is made in global coordinates
+and sliced: the SpecAugment uniforms for the global batch, the murmur
+dropouts at the rank's batch offset (and, for the activation dropout on
+a column-parallel FFN, its feature offset), the attention dropout from
+the seed of the rank's first (batch, head) with the global head count as
+the seed stride. So a gang computes what one process at the global batch
+computes.
 
 Parameter names follow HuggingFace's `Wav2Vec2Model`; `bridge.py` maps
 the JAX trees onto them.
@@ -54,6 +68,8 @@ from ..ops.attention import fused_attention
 from ..ops.conv_ln import fused_ln_gelu
 from ..ops.dropout import draw_seed, murmur_dropout
 from ..ops.quant import QuantLinear
+from ..parallel.collectives import (SINGLE, Shard, copy_to_model,
+                                    reduce_from_model)
 
 __all__ = ["Wav2Vec2Encoder", "time_mask_spans", "max_mask_spans"]
 
@@ -62,11 +78,16 @@ _LAYER_SITES = ("attention", "attention_out", "activation", "ffn_out")
 
 
 def _drop(x: torch.Tensor, seeds: Optional[Dict[str, int]], site: str,
-          rate: float) -> torch.Tensor:
-    """Murmur dropout at `site` when its seed was drawn (train mode)."""
+          rate: float, shard: Shard = SINGLE,
+          feature_offset: int = 0) -> torch.Tensor:
+    """Murmur dropout at `site` when its seed was drawn (train mode), over
+    the global (B, ..., F) tensor: x sits at the shard's batch offset and
+    at `feature_offset` on the last axis."""
     if seeds is None or seeds.get(site) is None:
         return x
-    return murmur_dropout(x, seeds[site], rate)
+    offsets = ((shard.batch_offset(x.shape[0]),) + (0,) * (x.dim() - 2)
+               + (feature_offset,))
+    return murmur_dropout(x, seeds[site], rate, offsets)
 
 
 def max_mask_spans(t_frames: int, cfg: Wav2Vec2Config) -> int:
@@ -114,6 +135,15 @@ def _linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     if isinstance(m, QuantLinear):
         return m(x)
     return F.linear(x, m.weight.to(x.dtype), m.bias.to(x.dtype))
+
+
+def _row_linear(m: nn.Module, x: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """A row-parallel linear: the partial products summed over 'model',
+    then the (replicated) bias; `_linear` without a 'model' axis."""
+    if shard.n_model == 1:
+        return _linear(m, x)
+    y = reduce_from_model(F.linear(x, m.weight.to(x.dtype)), shard)
+    return y + m.bias.to(x.dtype)
 
 
 def _transformer_linear(cfg: Wav2Vec2Config, din: int, dout: int
@@ -192,6 +222,8 @@ class FeatureExtractor(nn.Module):
 
 
 class FeatureProjection(nn.Module):
+    shard = SINGLE
+
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.cfg = cfg
@@ -202,7 +234,7 @@ class FeatureProjection(nn.Module):
                 seeds: Optional[Dict[str, int]] = None) -> torch.Tensor:
         x = _layer_norm(self.layer_norm, x, self.cfg.torch_dtype)
         return _drop(_linear(self.projection, x), seeds, "feat_proj",
-                     self.cfg.feat_proj_dropout)
+                     self.cfg.feat_proj_dropout, self.shard)
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -224,11 +256,14 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
+    shard = SINGLE
+
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         d = cfg.hidden_size
         self.rate = cfg.attention_dropout
         self.num_heads = cfg.num_heads
+        self.head_dim = d // cfg.num_heads
         self.q_proj = _transformer_linear(cfg, d, d)
         self.k_proj = _transformer_linear(cfg, d, d)
         self.v_proj = _transformer_linear(cfg, d, d)
@@ -236,13 +271,16 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:
-        b, t, d = x.shape
-        h = self.num_heads
-        hd = d // h
+        sh = self.shard
+        b, t, _ = x.shape
+        hd = self.head_dim
+        x = copy_to_model(x, sh)
         # q is scaled before the kernel, in the compute dtype, as in JAX
         q = _linear(self.q_proj, x) * (hd ** -0.5)
         k = _linear(self.k_proj, x)
         v = _linear(self.v_proj, x)
+        d = q.shape[-1]        # this rank's heads under tensor parallelism
+        h = d // hd
 
         # (B, H, T, hd) views of the (B, T, H, hd) projections: the CUDA
         # kernels take them by strides and write out in the same layout,
@@ -251,12 +289,19 @@ class SelfAttention(nn.Module):
             return a.view(b, t, h, hd).transpose(1, 2)
 
         rate = 0.0 if seed is None else self.rate
+        # the seed of this rank's first (batch, head) of the global
+        # (B, H) grid; the kernels step it by H a batch row
+        first = sh.batch_offset(b) * self.num_heads + sh.model_rank * h
         out = fused_attention(heads(q), heads(k), heads(v), key_bias,
-                              seed or 0, rate, h)
-        return _linear(self.out_proj, out.transpose(1, 2).reshape(b, t, d))
+                              (seed or 0) + first, rate, h,
+                              seed_stride=self.num_heads)
+        return _row_linear(self.out_proj,
+                           out.transpose(1, 2).reshape(b, t, d), sh)
 
 
 class FeedForward(nn.Module):
+    shard = SINGLE
+
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.cfg = cfg
@@ -267,15 +312,19 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 seeds: Optional[Dict[str, int]] = None) -> torch.Tensor:
-        x = F.gelu(_linear(self.intermediate_dense, x))
-        x = _drop(x, seeds, "activation", self.cfg.activation_dropout)
-        return _drop(_linear(self.output_dense, x), seeds, "ffn_out",
-                     self.cfg.hidden_dropout)
+        sh = self.shard
+        x = F.gelu(_linear(self.intermediate_dense, copy_to_model(x, sh)))
+        x = _drop(x, seeds, "activation", self.cfg.activation_dropout, sh,
+                  sh.model_rank * x.shape[-1])
+        return _drop(_row_linear(self.output_dense, x, sh), seeds, "ffn_out",
+                     self.cfg.hidden_dropout, sh)
 
 
 class EncoderLayer(nn.Module):
     """One transformer block; `do_stable_layer_norm` picks pre-LN (XLS-R)
     or post-LN (large-960h). LN input and output are in the compute dtype."""
+
+    shard = SINGLE
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
@@ -296,7 +345,7 @@ class EncoderLayer(nn.Module):
 
         def attend(y):
             return _drop(self.attention(y, key_bias, attn_seed), seeds,
-                         "attention_out", self.hidden_dropout)
+                         "attention_out", self.hidden_dropout, self.shard)
 
         if self.pre_ln:
             x = x + attend(_layer_norm(self.layer_norm, x, self.dtype))
@@ -333,6 +382,8 @@ class Wav2Vec2Encoder(nn.Module):
     `freeze_feature_extractor` are the trainer's knobs of the same names.
     """
 
+    shard = SINGLE
+
     def __init__(self, cfg: Wav2Vec2Config, *, remat: bool = False,
                  remat_conv: bool = False,
                  freeze_feature_extractor: bool = False):
@@ -349,7 +400,8 @@ class Wav2Vec2Encoder(nn.Module):
 
     def _draw(self, gen: torch.Generator, batch: int, t_frames: int):
         """Every random number of one train-mode forward, in a fixed
-        order: (global seeds, per-layer seeds, SpecAugment uniforms)."""
+        order: (global seeds, per-layer seeds, SpecAugment uniforms of
+        the global batch, then this rank's rows of them)."""
         cfg = self.cfg
 
         def seed(rate):
@@ -365,9 +417,12 @@ class Wav2Vec2Encoder(nn.Module):
                   for _ in range(cfg.num_layers)]
         spans = None
         if cfg.apply_spec_augment and cfg.mask_time_prob > 0:
-            spans = (torch.rand(batch, generator=gen),
-                     torch.rand(batch, max_mask_spans(t_frames, cfg),
-                                generator=gen))
+            n = batch * self.shard.n_data
+            rows = slice(self.shard.batch_offset(batch),
+                         self.shard.batch_offset(batch) + batch)
+            spans = (torch.rand(n, generator=gen)[rows],
+                     torch.rand(n, max_mask_spans(t_frames, cfg),
+                                generator=gen)[rows])
         return glob, layers, spans
 
     def _features(self, waveforms: torch.Tensor) -> torch.Tensor:
@@ -421,7 +476,8 @@ class Wav2Vec2Encoder(nn.Module):
         hidden = hidden + stack.pos_conv_embed(hidden)
         if not cfg.do_stable_layer_norm:
             hidden = _layer_norm(stack.layer_norm, hidden, dt)
-        hidden = _drop(hidden, glob, "encoder_in", cfg.hidden_dropout)
+        hidden = _drop(hidden, glob, "encoder_in", cfg.hidden_dropout,
+                       self.shard)
 
         remat = self.training and self.remat and torch.is_grad_enabled()
         acc = hidden.float()

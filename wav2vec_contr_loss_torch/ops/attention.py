@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -63,17 +64,20 @@ _D = 64           # the head dim the kernels take
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor, seed: int = 0,
-                          rate: float = 0.0) -> torch.Tensor:
+                          rate: float = 0.0,
+                          seed_stride: Optional[int] = None) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: fp32 logits and softmax, the
     dropout mask of `attention_dropout_mask` applied to the fp32 p, p
     rounded to q's dtype before p . v, fp32 accumulation, output in q's
-    dtype. q/k/v: (B, H, T, D); bias: (B, T) fp32."""
+    dtype. q/k/v: (B, H, T, D); bias: (B, T) fp32; seed_stride as for
+    `fused_attention`."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     logits = logits + bias.float()[:, None, None, :]
     p = torch.softmax(logits, dim=-1)
     if rate > 0.0:
         b, h, t, _ = q.shape
-        p = p * attention_dropout_mask(b, h, t, seed, rate, q.device)
+        p = p * attention_dropout_mask(b, h, t, seed, rate, q.device,
+                                       seed_stride)
     return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
 
 
@@ -87,8 +91,8 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("attention_fwd")
     lib.attention_fwd.argtypes = ([_P] * 7 + [_P] * 4 + [_I] * 4
-                                  + [ctypes.c_uint, ctypes.c_uint,
-                                     ctypes.c_float, _P])
+                                  + [ctypes.c_uint] * 3
+                                  + [ctypes.c_float, _P])
     lib.attention_fwd.restype = _I
     return lib
 
@@ -99,8 +103,8 @@ def _bwd_lib() -> ctypes.CDLL:
 
     lib = load("attention_bwd")
     lib.attention_bwd.argtypes = ([_P] * 12 + [_P] * 8 + [_I] * 4
-                                  + [ctypes.c_uint, ctypes.c_uint,
-                                     ctypes.c_float, _P])
+                                  + [ctypes.c_uint] * 3
+                                  + [ctypes.c_float, _P])
     lib.attention_bwd.restype = _I
     return lib
 
@@ -146,19 +150,21 @@ def _strides(x: torch.Tensor):
     return (ctypes.c_longlong * 3)(*x.stride()[:3])
 
 
-def _dropout_args(seed: int, rate: float):
-    """(seed as uint32, threshold, scale) for the kernels; threshold 0
-    means no dropout."""
+def _dropout_args(seed: int, rate: float, seed_stride: int):
+    """(seed as uint32, seed stride, threshold, scale) for the kernels;
+    threshold 0 means no dropout."""
     if rate <= 0.0:
-        return 0, 0, 1.0
-    return seed & 0xFFFFFFFF, threshold(rate), 1.0 / (1.0 - rate)
+        return 0, seed_stride, 0, 1.0
+    return (seed & 0xFFFFFFFF, seed_stride, threshold(rate),
+            1.0 / (1.0 - rate))
 
 
 def _padded_rows(t: int) -> int:
     return -(-t // _TILE) * _TILE
 
 
-def _launch_fwd(q, k, v, bias, seed, rate, with_residuals: bool):
+def _launch_fwd(q, k, v, bias, seed, rate, seed_stride,
+                with_residuals: bool):
     """-> (out, out_exact, stats): out in q's layout; with
     `with_residuals` (else None) what the backward reads: out_exact, the
     output with p not rounded to bf16 (in bf16, out's layout), and stats,
@@ -182,13 +188,14 @@ def _launch_fwd(q, k, v, bias, seed, rate, with_residuals: bool):
             None if out_exact is None else out_exact.data_ptr(),
             None if stats is None else stats.data_ptr(),
             *(ctypes.addressof(s) for s in ss), b, h, t, d,
-            *_dropout_args(seed, rate), stream)
+            *_dropout_args(seed, rate, seed_stride), stream)
     check(lib, "attention_fwd", err)
     launches += 1
     return out, out_exact, stats
 
 
-def _launch_bwd(q, k, v, g, out_exact, bias, stats, seed, rate):
+def _launch_bwd(q, k, v, g, out_exact, bias, stats, seed, rate,
+                seed_stride):
     global bwd_launches
     b, h, t, d = q.shape
     if not _tma_ok(g):
@@ -210,7 +217,7 @@ def _launch_bwd(q, k, v, g, out_exact, bias, stats, seed, rate):
             dbuf.data_ptr(), None if keep is None else keep.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *(ctypes.addressof(s) for s in ss), b, h, t, d,
-            *_dropout_args(seed, rate), stream)
+            *_dropout_args(seed, rate, seed_stride), stream)
     check(lib, "attention_bwd", err)
     bwd_launches += 1
     return dq, dk, dv
@@ -222,44 +229,50 @@ class FusedAttention(torch.autograd.Function):
     and the seed, so no probability is stored."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed: int, rate: float):
+    def forward(ctx, q, k, v, bias, seed: int, rate: float,
+                seed_stride: int):
         out, out_exact, stats = _launch_fwd(q, k, v, bias, seed, rate,
+                                            seed_stride,
                                             any(ctx.needs_input_grad[:3]))
         ctx.save_for_backward(q, k, v, bias, out_exact, stats)
-        ctx.seed, ctx.rate = seed, rate
+        ctx.seed, ctx.rate, ctx.seed_stride = seed, rate, seed_stride
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, out_exact, stats = ctx.saved_tensors
         dq, dk, dv = _launch_bwd(q, k, v, g, out_exact, bias, stats,
-                                 ctx.seed, ctx.rate)
-        return dq, dk, dv, None, None, None
+                                 ctx.seed, ctx.rate, ctx.seed_stride)
+        return dq, dk, dv, None, None, None, None
 
 
 @torch.library.custom_op("w2v_torch::attention_fwd", mutates_args=())
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  bias: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+                  bias: torch.Tensor, seed: int, rate: float,
+                  seed_stride: int) -> torch.Tensor:
     """The attention forward with no gradient, in q's layout: the kernel
     (no residuals) for CUDA tensors, the plain version for CPU ones."""
     if q.device.type == "cuda":
-        return _launch_fwd(q, k, v, bias, seed, rate, False)[0]
+        return _launch_fwd(q, k, v, bias, seed, rate, seed_stride, False)[0]
     return torch.empty_like(q).copy_(
-        fused_attention_plain(q, k, v, bias, seed, rate))
+        fused_attention_plain(q, k, v, bias, seed, rate, seed_stride))
 
 
 @attention_fwd.register_fake
-def _attention_fwd_fake(q, k, v, bias, seed, rate):
+def _attention_fwd_fake(q, k, v, bias, seed, rate, seed_stride):
     return torch.empty_like(q)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, seed: int = 0, rate: float = 0.0,
-                    heads: int = 1) -> torch.Tensor:
+                    heads: int = 1,
+                    seed_stride: Optional[int] = None) -> torch.Tensor:
     """q, k, v: (B, H, T, D), any strides the kernels take (see
     `_check_cuda`; e.g. the (B, H, T, D) view of a (B, T, H, D) tensor);
     bias: (B, T) fp32 additive key mask (-1e30 masked); seed: the dropout
-    seed (a Python int; the mask of (b, h) uses seed + b*H + h); rate:
+    seed (a Python int; the mask of (b, h) uses seed + b*S + h, S =
+    `seed_stride`, H when None: a shard of a gang's (B', H') attention at
+    batch b0 and head h0 passes seed + b0*H' + h0 and S = H'); rate:
     attention-probability dropout. -> (B, H, T, D), in q's layout on the
     card. q must arrive pre-scaled (1/sqrt(D)). Same contract as the JAX
     `fused_attention`; `heads` must equal H. Differentiable in q, k and
@@ -271,9 +284,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"dropout rate must be in [0, 1); got {rate}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
+    stride = heads if seed_stride is None else int(seed_stride)
     if not (torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        return attention_fwd(q, k, v, bias, int(seed), float(rate))
+        return attention_fwd(q, k, v, bias, int(seed), float(rate), stride)
     if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, bias, seed, rate)
-    return FusedAttention.apply(q, k, v, bias, int(seed), float(rate))
+        return fused_attention_plain(q, k, v, bias, seed, rate, stride)
+    return FusedAttention.apply(q, k, v, bias, int(seed), float(rate),
+                                stride)

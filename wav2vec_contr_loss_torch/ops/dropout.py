@@ -14,6 +14,13 @@ Two hashes, as in the JAX package:
     (csrc/dropout_mask.cuh) compute the same bits in registers; this is
     their plain version.
 
+Both hashes see a tensor's coordinates only through per-axis index
+terms, so the mask of a shard is the slice of the global mask: a rank of
+a parallel gang passes the offsets of its slice (`murmur_bits`
+`offsets`; for attention, the seed of its first (batch, head) and the
+global head count as `seed_stride`) and draws exactly what one process
+at the global batch draws.
+
 torch on the CPU has no uint32 `>>`, `>=` or `arange`, so the hash runs in
 int64 with every product reduced modulo 2^32 (`_mul32` splits the
 multiplier so no intermediate leaves int64). The seed is a Python int,
@@ -23,7 +30,7 @@ that seed (fast_dropout.py:67) is not reproduced.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -60,42 +67,57 @@ def _fmix(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def murmur_bits(shape: Sequence[int], seed: int,
-                device=None) -> torch.Tensor:
+def murmur_bits(shape: Sequence[int], seed: int, device=None,
+                offsets: Optional[Sequence[int]] = None) -> torch.Tensor:
     """int64 tensor of uint32 values, indexed by element coordinates and
-    seed; equal to fast_dropout.murmur_bits(shape, seed)."""
+    seed; equal to fast_dropout.murmur_bits(shape, seed). With `offsets`
+    (one per axis) the coordinates start there: the bits of the slice
+    at those offsets of a larger tensor."""
     shape = tuple(shape)
+    offsets = tuple(offsets) if offsets is not None else (0,) * len(shape)
+    if len(offsets) != len(shape):
+        raise ValueError(f"{len(offsets)} offsets for a {len(shape)}-d shape")
     h = torch.full((1,) * len(shape),
                    ((seed & _M32) * 0x9E3779B9 + 0x85EBCA6B) & _M32,
                    dtype=torch.int64, device=device)
-    for axis, dim in enumerate(shape):
-        if dim == 1:
+    for axis, (dim, off) in enumerate(zip(shape, offsets)):
+        if dim == 1 and off == 0:   # the JAX hash skips a unit axis
             continue
         view = [1] * len(shape)
         view[axis] = dim
-        iota = torch.arange(dim, dtype=torch.int64, device=device).view(view)
+        iota = torch.arange(off, off + dim, dtype=torch.int64,
+                            device=device).view(view)
         h = h ^ _mul32(iota, _AXIS_MULTS[axis % len(_AXIS_MULTS)])
     return _fmix(h.expand(shape))
 
 
-def murmur_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def murmur_dropout(x: torch.Tensor, seed: int, rate: float,
+                   offsets: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Inverted dropout with counter-based bits: x / (1 - rate) where the
-    bits of an element reach the rate's threshold, else 0."""
+    bits of an element reach the rate's threshold, else 0. `offsets`:
+    where x sits in the tensor the mask is defined over (murmur_bits)."""
     if rate <= 0.0:
         return x
-    keep = murmur_bits(x.shape, seed, x.device) >= threshold(rate)
+    keep = murmur_bits(x.shape, seed, x.device, offsets) >= threshold(rate)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def attention_dropout_mask(batch: int, heads: int, t: int, seed: int,
-                           rate: float, device=None) -> torch.Tensor:
+                           rate: float, device=None,
+                           seed_stride: Optional[int] = None
+                           ) -> torch.Tensor:
     """(B, H, T, T) fp32 mask of the attention kernels: 1/(1-rate) where
-    the murmur hash of (query, key, seed + b*H + h) reaches the threshold,
-    else 0 (attention_pallas.py:54-81)."""
+    the murmur hash of (query, key, seed + b*S + h) reaches the threshold,
+    else 0 (attention_pallas.py:54-81). S, `seed_stride`, is H by
+    default; a shard of a (B', H') mask at batch b0 and head h0 passes
+    seed + b0*H' + h0 and S = H'."""
     r = _mul32(torch.arange(t, dtype=torch.int64, device=device), 2654435761)
     c = _mul32(torch.arange(t, dtype=torch.int64, device=device), 0x9E3779B9)
-    bh = (seed + torch.arange(batch * heads, dtype=torch.int64,
-                              device=device)) & _M32
+    stride = heads if seed_stride is None else seed_stride
+    bh = (seed + (torch.arange(batch, dtype=torch.int64,
+                               device=device) * stride)[:, None]
+          + torch.arange(heads, dtype=torch.int64, device=device)[None, :]
+          ).reshape(-1) & _M32
     s = (_mul32(bh, 2246822519) + 0x85EBCA6B) & _M32
     h = (r[:, None] ^ c[None, :])[None] ^ s[:, None, None]
     keep = _fmix(h) >= threshold(rate)

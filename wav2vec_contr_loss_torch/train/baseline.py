@@ -22,6 +22,15 @@ patience count. As in `Stage1Trainer`, every random number (dropout
 seeds, SpecAugment uniforms, each step's RawBoost seed) comes from one
 CPU `torch.Generator` seeded with cfg.seed, where the JAX trainer splits
 a threefry key; a resumed run continues bit for bit.
+
+`mesh=` makes the trainer one rank of a gang, as `Stage1Trainer`'s
+(JAX baseline.py:245-287): `cfg.param_sharding` 'replicated' or 'fsdp',
+tensor parallelism on a 'model' axis > 1, this rank's rows of each
+global batch, every draw made for the global batch. The BCE is a mean
+over equal local batches, so the gradients averaged over 'data' are the
+global batch's; the step's loss is averaged over 'data' too, and the dev
+EER is computed on every rank from logits gathered over 'data'
+(`fetch_global`).
 """
 
 from __future__ import annotations
@@ -42,10 +51,13 @@ from ..losses.bce import bce_logits_loss
 from ..models.compression import CompressionModule, clip_embedding
 from ..models.wav2vec2 import Wav2Vec2Encoder
 from ..ops.wire import quantize_wire
+from ..parallel.collectives import SINGLE, gather_rows
+from ..parallel.mesh import apply_layout, local_batch
 from . import checkpoint as ckpt
 from .optim import build_baseline_optimizer
-from .stage1 import (_device_rawboost, _load, _pinned, _to_device,
-                     check_config)
+from .stage1 import (_device_rawboost, _load, _load_states, _module_states,
+                     _norm_group_fn, _optimizer_state, _pinned,
+                     _ported_layout, _to_device, check_config)
 
 __all__ = ["BaselineTrainer"]
 
@@ -57,11 +69,11 @@ class BaselineTrainer:
     (`weight` (1, hidden_dim), `bias` (1,)) state dicts; the trainer
     trains copies of them on `device`. `pos_weight` (the neg/pos ratio of
     the train labels) weights the positive class when
-    cfg.use_pos_weight."""
+    cfg.use_pos_weight. `mesh`: one rank of a gang (module docstring)."""
 
     def __init__(self, cfg: BaselineConfig, enc_config: Wav2Vec2Config,
                  weights: Mapping[str, Mapping[str, torch.Tensor]],
-                 device="cuda", pos_weight: float = 1.0):
+                 device="cuda", pos_weight: float = 1.0, mesh=None):
         check_config(cfg, enc_config)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -75,10 +87,16 @@ class BaselineTrainer:
         for name in ("encoder", "compression", "classifier"):
             _load(getattr(self, name), weights[name], self.device)
         self.encoder.requires_grad_(cfg.finetune_encoder)
+        self._parts = {"encoder": self.encoder,
+                       "compression": self.compression,
+                       "classifier": self.classifier}
+        self.layout = (None if mesh is None else
+                       apply_layout(self._parts, mesh, cfg.param_sharding))
         self.optimizer = build_baseline_optimizer(
             cfg, list(self.compression.parameters())
             + list(self.classifier.parameters()),
-            list(self.encoder.parameters()) if cfg.finetune_encoder else [])
+            list(self.encoder.parameters()) if cfg.finetune_encoder else [],
+            _norm_group_fn(self.layout, self._parts))
         self.pos_weight = pos_weight if cfg.use_pos_weight else None
         self.rawboost_params = cfg.rawboost_params()
         self.gen = torch.Generator().manual_seed(cfg.seed)
@@ -102,23 +120,32 @@ class BaselineTrainer:
         pooled = clip_embedding(seq, l2_normalize=False)
         return self.classifier(pooled)[..., 0]
 
+    @property
+    def shard(self):
+        return SINGLE if self.layout is None else self.layout.shard
+
     def train_step(self, batch: Mapping) -> Dict[str, torch.Tensor]:
         """One BCE step on `batch` ({'waveforms': (B, T) float32 or int16
-        wire, 'labels': (B,) 0/1}). -> {'loss': scalar tensor on the
-        device} (no host sync)."""
+        wire, 'labels': (B,) 0/1}; in a gang, this rank's slice of the
+        global batch). -> {'loss': scalar tensor on the device, averaged
+        over 'data' in a gang} (no host sync)."""
         b = _to_device(batch, self.device, ("waveforms", "labels"))
         waves = b["waveforms"]
         if self._rawboost_gen is not None:
             waves = _device_rawboost(waves, self.gen, self._rawboost_gen,
                                      self.cfg.rawboost_prob,
-                                     self.rawboost_params)
+                                     self.rawboost_params, self.shard)
         loss = bce_logits_loss(self._logits(waves, train=True), b["labels"],
                                self.pos_weight)
         self.optimizer.zero_grad()
         loss.backward()
+        loss = loss.detach()
+        if self.layout is not None:
+            self.layout.average_gradients(self.optimizer.parameters())
+            loss = gather_rows(loss[None], self.shard).mean()
         self.optimizer.step()
         self.step += 1
-        return {"loss": loss.detach()}
+        return {"loss": loss}
 
     @torch.no_grad()
     def logits_step(self, waves) -> torch.Tensor:
@@ -129,18 +156,25 @@ class BaselineTrainer:
 
     # --------------------------------------------------------------- data
     def _put(self, b: Batch) -> Dict[str, torch.Tensor]:
-        return _pinned({
-            "waveforms": quantize_wire(b.waveforms)
-            if self.cfg.wire_dtype == "int16" else b.waveforms,
-            "labels": b.labels.astype(np.int64)}, self.device)
+        """Pinned wire tensors; in a gang, this rank's rows."""
+        arrays = {"waveforms": quantize_wire(b.waveforms)
+                  if self.cfg.wire_dtype == "int16" else b.waveforms,
+                  "labels": b.labels.astype(np.int64)}
+        if self.layout is not None:
+            arrays = local_batch(arrays, self.layout.shard)
+        return _pinned(arrays, self.device)
 
     def _scored_batches(self, pipe: BatchPipeline
                         ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """(valid-row logits, valid-row labels) per sequential batch, with
-        decode, compute and the copy back overlapped."""
+        decode, compute and the copy back overlapped; in a gang each rank
+        scores its rows and the logits are gathered over 'data'."""
+        def logits(waves):
+            return gather_rows(self.logits_step(waves), self.shard)
+
         for lg, b in stream_through_device(
                 pipe.sequential(), lambda b: self._put(b)["waveforms"],
-                self.logits_step):
+                logits):
             yield lg[b.valid], b.labels[b.valid]
 
     def score_dataset(self, pipe: BatchPipeline
@@ -254,17 +288,16 @@ class BaselineTrainer:
 
     # -------------------------------------------------------------- state
     def state_dict(self) -> Dict:
-        """The full train state; its tensors are the live ones."""
-        return {"encoder": self.encoder.state_dict(),
-                "compression": self.compression.state_dict(),
-                "classifier": self.classifier.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+        """The full train state; its tensors are the live ones. In a
+        gang: full tensors gathered from the shards (collective)."""
+        return {**_module_states(self.layout, self._parts),
+                "optimizer": _optimizer_state(self.layout, self.optimizer,
+                                              self._parts),
                 "step": self.step, "gen": self.gen.get_state()}
 
     def load_state_dict(self, state: Mapping) -> None:
-        self.optimizer.load_state_dict(state["optimizer"])   # checks first
-        for name in ("encoder", "compression", "classifier"):
-            getattr(self, name).load_state_dict(state[name], strict=True)
+        """Load a full train state (in a gang, each rank its shards)."""
+        _load_states(self.layout, self.optimizer, self._parts, state)
         self.step = int(state["step"])
         self.gen.set_state(state["gen"])
 
@@ -281,18 +314,25 @@ class BaselineTrainer:
 
     @classmethod
     def from_checkpoint(cls, save_dir: str, name: str = BEST,
-                        device="cuda") -> "BaselineTrainer":
+                        device="cuda", mesh=None,
+                        param_sharding: Optional[str] = None
+                        ) -> "BaselineTrainer":
         """Rebuild the trainer and its state from a checkpoint directory
         alone; a JAX sidecar's extra fields (the XLA-path and TPU knobs)
-        are dropped."""
+        are dropped. On `mesh`, each rank its shards, in
+        `param_sharding` (the sidecar's when None)."""
         state, sidecar = ckpt.restore_checkpoint(save_dir, name)
         extra = sidecar["extra"]
         names = {f.name for f in dataclasses.fields(BaselineConfig)}
         cfg = BaselineConfig(**{k: v for k, v in
                                 extra["baseline_config"].items()
                                 if k in names})
+        cfg = cfg.replace(**_ported_layout(cfg))
+        if param_sharding is not None:
+            cfg = cfg.replace(param_sharding=param_sharding)
         trainer = cls(cfg, config_from_dict(extra["enc_config"]),
                       {k: state[k] for k in ("encoder", "compression",
-                                             "classifier")}, device=device)
+                                             "classifier")}, device=device,
+                      mesh=mesh)
         trainer.load_state_dict(state)
         return trainer

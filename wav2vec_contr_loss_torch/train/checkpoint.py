@@ -24,9 +24,16 @@ optimizer updates parameters in place, so the copy must be taken before
 the next step) and hands the file writes to one ordered writer thread:
 saves and aliases commit in call order, readers in this process drain
 the queue first, and a failed background write re-raises on the next
-checkpoint call or `wait_for_saves()`. Single process only; the
-multi-process semantics of the JAX module come with the port's parallel
-training.
+checkpoint call or `wait_for_saves()`.
+
+In a gang of several processes (utils/distributed.py) a save is
+collective, as in the JAX module (`_host_tree`, `_is_primary`,
+`_barrier`): every rank calls it with the same full, layout-free state
+(the trainers gather their shards into HF-named tensors first), rank 0
+alone writes the files, and every rank waits for the write before going
+on, so a save under several processes always blocks. Every rank
+restores, each re-sharding into its own layout; a gang's checkpoint
+loads in one process and the reverse.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from ..utils import distributed
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "restore_parts",
            "load_sidecar",
@@ -149,6 +158,10 @@ def _commit_save(base: str, host_state: Any, sidecar: Dict) -> None:
     os.replace(tmp_side, base + _SIDECAR)
 
 
+def _gang() -> bool:
+    return distributed.world_size() > 1
+
+
 def _host(tree: Any, copy: bool) -> Any:
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=copy)
@@ -161,7 +174,10 @@ def _host(tree: Any, copy: bool) -> Any:
 
 def snapshot_for_save(state: Any) -> Any:
     """A host copy of `state` that later in-place updates cannot touch,
-    shareable by several saves of the same state ('latest' and 'best')."""
+    shareable by several saves of the same state ('latest' and 'best').
+    In a gang only rank 0 writes, so the others keep no copy (None)."""
+    if _gang() and not distributed.is_primary():
+        return None
     return _host(state, copy=True)
 
 
@@ -173,13 +189,20 @@ def save_checkpoint(directory: str, name: str, state: Any,
                     host_state: Optional[Any] = None) -> str:
     """Write <directory>/<name>.pt and its sidecar, crash-safe (module
     docstring). `block=False` returns once the state is copied to host
-    memory; `host_state` (from snapshot_for_save) skips that copy.
+    memory; `host_state` (from snapshot_for_save) skips that copy. In a
+    gang the save is collective and blocks (module docstring).
     -> the checkpoint's base path (without suffix)."""
     _raise_failed_saves()
     base = _base(directory, name)
     sidecar = {"config": config or {}, "metrics": metrics or {},
                "extra": extra or {}}
-    if block:
+    if _gang():
+        if distributed.is_primary():
+            wait_for_saves()
+            _commit_save(base, host_state if host_state is not None
+                         else _host(state, copy=False), sidecar)
+        distributed.barrier()
+    elif block:
         wait_for_saves()   # total order with in-flight async writes
         _commit_save(base, host_state if host_state is not None
                      else _host(state, copy=False), sidecar)
@@ -205,10 +228,15 @@ def alias_checkpoint(directory: str, name: str, target: str) -> str:
     """Make <directory>/<name> an alias (symlinks, else copies) of
     <directory>/<target>: a run with no dev set keeps 'best' = 'latest'
     without writing the state twice. Queued behind async saves in
-    flight, so it only ever points at a committed target."""
+    flight, so it only ever points at a committed target; collective in
+    a gang (rank 0 writes)."""
     _raise_failed_saves()
     base = _base(directory, name)
-    if _PENDING:
+    if _gang():
+        if distributed.is_primary():
+            _commit_alias(base, target)
+        distributed.barrier()
+    elif _PENDING:
         _PENDING.append(_writer().submit(_commit_alias, base, target))
     else:
         _commit_alias(base, target)

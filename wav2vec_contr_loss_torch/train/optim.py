@@ -22,6 +22,13 @@ Both moments are stored in `adam_mu_dtype` / `adam_nu_dtype` and the
 moment and step math runs in fp32; with fp32 storage it is optax.adamw's
 arithmetic. Parameters, moments and gradients are updated in place (the
 JAX package builds new trees), which keeps one copy of each on the card.
+
+In a parallel gang (parallel/mesh.py) a parameter may be an FSDP2
+DTensor or a tensor-parallel slice: the update runs on the local shard
+(`to_local()`), with moments of the shard's shape, and a clip's global
+norm adds the squared norms of sharded gradients over the process group
+their shards are spread across (`norm_groups`, one small all-reduce a
+group, no host sync).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["resolve_grad_bf16", "clip_scale", "AdamWGroup", "GroupedAdamW",
+__all__ = ["resolve_grad_bf16", "global_norm", "clip_scale", "AdamWGroup", "GroupedAdamW",
            "build_optimizer", "build_baseline_optimizer"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -53,11 +60,41 @@ def resolve_grad_bf16(cfg) -> bool:
     return gd == "bfloat16"
 
 
-def clip_scale(grads: List[torch.Tensor], clip: float) -> torch.Tensor:
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The local shard of an FSDP2 DTensor, else the tensor."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def global_norm(grads: List[torch.Tensor],
+                groups: Optional[List] = None) -> torch.Tensor:
+    """The global L2 norm of `grads`, a 0-d fp32 tensor on their device,
+    computed without a host sync. `groups[i]` is the process group over
+    which the shards of grads[i] are spread (None: a whole, replicated
+    gradient): each group's squared norms are summed over its ranks."""
+    if groups is None or all(g is None for g in groups):
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+    import torch.distributed as dist
+
+    total = None
+    for group in dict.fromkeys(groups):   # first-seen order
+        part = torch.stack(torch._foreach_norm(
+            [g for g, k in zip(grads, groups) if k is group])
+        ).square().sum()
+        if group is not None:
+            dist.all_reduce(part, group=group)
+        total = part if total is None else total + part
+    return total.sqrt()
+
+
+def clip_scale(grads: List[torch.Tensor], clip: float,
+               groups: Optional[List] = None) -> torch.Tensor:
     """optax.clip_by_global_norm as a factor: 1 where the global norm of
-    `grads` is below `clip`, else clip / norm; a 0-d fp32 tensor on the
-    gradients' device, computed without a host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    `grads` (`global_norm`, over `groups`) is below `clip`, else
+    clip / norm; a 0-d fp32 tensor, computed without a host sync."""
+    norm = global_norm(grads, groups)
     return torch.where(norm < clip, torch.ones_like(norm), clip / norm)
 
 
@@ -68,18 +105,24 @@ class AdamWGroup:
     def __init__(self, params: List[torch.nn.Parameter], lr: float,
                  weight_decay: float, mu_dtype: torch.dtype,
                  nu_dtype: torch.dtype, clip: Optional[float] = None,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 norm_groups: Optional[List] = None):
         self.params = list(params)
         self.lr, self.weight_decay, self.clip = lr, weight_decay, clip
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=nu_dtype) for p in self.params]
+        self.norm_groups = (list(norm_groups) if norm_groups is not None
+                            else [None] * len(self.params))
+        self.mu = [torch.zeros_like(_local(p), dtype=mu_dtype)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(_local(p), dtype=nu_dtype)
+                   for p in self.params]
         self.count = 0
 
     def gradients(self) -> List[torch.Tensor]:
-        """fp32 gradients, zeros for a parameter that got none."""
-        return [torch.zeros_like(p) if p.grad is None else p.grad.float()
-                for p in self.params]
+        """fp32 gradients (local shards), zeros for a parameter that got
+        none."""
+        return [torch.zeros_like(_local(p)) if p.grad is None
+                else _local(p.grad).float() for p in self.params]
 
     @torch.no_grad()
     def step(self, grads: Optional[List[torch.Tensor]] = None,
@@ -90,12 +133,13 @@ class AdamWGroup:
         if grads is None:
             grads = self.gradients()
             if self.clip is not None and grads:
-                scale = clip_scale(grads, self.clip)
+                scale = clip_scale(grads, self.clip, self.norm_groups)
         self.count += 1
         f32 = torch.float32
         bc1 = float(1 - torch.tensor(self.b1, dtype=f32) ** self.count)
         bc2 = float(1 - torch.tensor(self.b2, dtype=f32) ** self.count)
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            p = _local(p)
             if scale is not None:
                 g = g * scale
             m32 = mu.float().mul_(self.b1).add_(g, alpha=1 - self.b1)
@@ -116,6 +160,9 @@ class GroupedAdamW:
         self.groups = groups
         self.clip = clip   # over the gradients of every group
 
+    def parameters(self) -> List[torch.nn.Parameter]:
+        return [p for grp in self.groups.values() for p in grp.params]
+
     def zero_grad(self) -> None:
         for grp in self.groups.values():
             for p in grp.params:
@@ -128,7 +175,9 @@ class GroupedAdamW:
             return
         grads = {name: grp.gradients() for name, grp in self.groups.items()}
         scale = clip_scale([g for gs in grads.values() for g in gs],
-                           self.clip)
+                           self.clip,
+                           [k for grp in self.groups.values()
+                            for k in grp.norm_groups])
         for name, grp in self.groups.items():
             grp.step(grads[name], scale)
 
@@ -163,32 +212,43 @@ class GroupedAdamW:
             grp.count = int(state[name]["count"])
 
 
+def _norm_groups(params, norm_group):
+    return None if norm_group is None else [norm_group(p) for p in params]
+
+
 def build_optimizer(cfg, head: List[torch.nn.Parameter],
-                    encoder: List[torch.nn.Parameter]) -> GroupedAdamW:
+                    encoder: List[torch.nn.Parameter],
+                    norm_group=None) -> GroupedAdamW:
     """Head clipped at cfg.grad_clip + AdamW(head_lr); encoder
     AdamW(enc_lr) when it trains; shared weight decay. Frozen parameters
-    are in neither list."""
+    are in neither list. `norm_group(p)`: the process group of a sharded
+    parameter's shards (a gang's Layout), None in one process."""
     mu = _DTYPES[cfg.adam_mu_dtype]
     nu = _DTYPES[cfg.adam_nu_dtype]
     groups = {"head": AdamWGroup(head, cfg.head_lr, cfg.weight_decay, mu, nu,
-                                 clip=cfg.grad_clip)}
+                                 clip=cfg.grad_clip,
+                                 norm_groups=_norm_groups(head, norm_group))}
     if encoder:
-        groups["encoder"] = AdamWGroup(encoder, cfg.enc_lr, cfg.weight_decay,
-                                       mu, nu)
+        groups["encoder"] = AdamWGroup(
+            encoder, cfg.enc_lr, cfg.weight_decay, mu, nu,
+            norm_groups=_norm_groups(encoder, norm_group))
     return GroupedAdamW(groups)
 
 
 def build_baseline_optimizer(cfg, head: List[torch.nn.Parameter],
-                             encoder: List[torch.nn.Parameter]
-                             ) -> GroupedAdamW:
+                             encoder: List[torch.nn.Parameter],
+                             norm_group=None) -> GroupedAdamW:
     """The baseline's optimizer: one clip at cfg.grad_clip over head and
     encoder gradients together, then AdamW(head_lr) on the head
     (compression and classifier) and AdamW(enc_lr) on the encoder when
-    it trains; shared weight decay."""
+    it trains; shared weight decay; `norm_group` as for
+    `build_optimizer`."""
     mu = _DTYPES[cfg.adam_mu_dtype]
     nu = _DTYPES[cfg.adam_nu_dtype]
-    groups = {"head": AdamWGroup(head, cfg.head_lr, cfg.weight_decay, mu, nu)}
+    groups = {"head": AdamWGroup(head, cfg.head_lr, cfg.weight_decay, mu, nu,
+                                 norm_groups=_norm_groups(head, norm_group))}
     if encoder:
-        groups["encoder"] = AdamWGroup(encoder, cfg.enc_lr, cfg.weight_decay,
-                                       mu, nu)
+        groups["encoder"] = AdamWGroup(
+            encoder, cfg.enc_lr, cfg.weight_decay, mu, nu,
+            norm_groups=_norm_groups(encoder, norm_group))
     return GroupedAdamW(groups, clip=cfg.grad_clip)

@@ -29,6 +29,22 @@ RawBoost seed) comes from one CPU `torch.Generator` seeded with
 a generator seeded with that step's seed. The trainer holds its state
 (parameters, optimizer, step, generator) and `state_dict` /
 `load_state_dict` move all of it, so a resumed run continues bit for bit.
+
+`mesh=` (parallel/mesh.py `make_mesh`) makes the trainer one rank of a
+gang (the port of JAX `Stage1Trainer(mesh=...)`, stage1.py:161-286 and
+:421-448): `cfg.param_sharding` 'replicated' or 'fsdp', tensor
+parallelism when the mesh's 'model' axis is > 1 (`apply_layout`). Every
+rank seeds its generators alike and draws for the global batch, keeping
+its slice; each rank's batch is its data rank's rows of the global batch
+(`_device_batches` slices, `train_step` takes the slice). The clip
+embeddings are gathered over 'data' and every rank computes the binary
+SupCon kernel (or the multiclass loss) on the global batch, so the loss,
+the dev loss and every decision `fit` takes from them are the same bits
+on every rank; the gradients are averaged over 'data' (FSDP2 reduces
+the layers' itself). `state_dict` gathers the shards into full HF-named
+tensors (collective) and `load_state_dict` takes full tensors, so a
+checkpoint is layout-free. Extraction (`embed_dataset`) and
+`fit_from_features` stay single-process.
 """
 
 from __future__ import annotations
@@ -48,7 +64,10 @@ from ..data.pipeline import (Batch, BatchPipeline, prefetch_to_device,
 from ..device import resolve_device
 from ..models.compression import CompressionModule, clip_embedding
 from ..models.wav2vec2 import Wav2Vec2Encoder
-from ..ops.rawboost import rawboost_batch, rawboost_draws
+from ..ops.rawboost import RawBoostDraws, rawboost_batch, rawboost_draws
+from ..parallel.collectives import SINGLE, Shard, gather_rows
+from ..parallel.mesh import (PARAM_SHARDINGS, UNPORTED, apply_layout,
+                             local_batch)
 from ..data.sampler import BalancedBatchSampler
 from ..losses.supcon import supcon_multiclass_loss
 from ..ops.supcon import supcon_binary_loss_fused
@@ -84,6 +103,14 @@ def check_config(cfg, enc_config: Wav2Vec2Config) -> None:
     if cfg.wire_dtype not in ("float32", "int16"):
         raise ValueError(f"wire_dtype must be 'float32' or 'int16'; got "
                          f"{cfg.wire_dtype!r}")
+    if cfg.param_sharding == "pp" or getattr(cfg, "sequence_parallel", False):
+        raise ValueError(f"param_sharding={cfg.param_sharding!r}, "
+                         f"sequence_parallel="
+                         f"{getattr(cfg, 'sequence_parallel', False)}: "
+                         + UNPORTED)
+    if cfg.param_sharding not in PARAM_SHARDINGS:
+        raise ValueError(f"param_sharding must be one of {PARAM_SHARDINGS}; "
+                         f"got {cfg.param_sharding!r}")
 
 
 def _to_device(batch: Mapping, device: torch.device,
@@ -117,12 +144,18 @@ def _pinned(arrays: Mapping[str, np.ndarray], device: torch.device
 
 def _device_rawboost(waves: torch.Tensor, gen: torch.Generator,
                      device_gen: torch.Generator, prob: float,
-                     params) -> torch.Tensor:
+                     params, shard: Shard = SINGLE) -> torch.Tensor:
     """In-step device RawBoost: a seed from the trainer's CPU generator
-    seeds the device generator, which draws the batch's numbers."""
+    seeds the device generator, which draws the numbers of the global
+    batch; a gang's rank keeps its rows of every draw."""
     seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
     device_gen.manual_seed(seed)
-    draws = rawboost_draws(device_gen, *waves.shape, params)
+    b, t = waves.shape
+    draws = rawboost_draws(device_gen, b * shard.n_data, t, params)
+    if shard.n_data > 1:
+        rows = slice(shard.batch_offset(b), shard.batch_offset(b) + b)
+        draws = RawBoostDraws(**{f.name: getattr(draws, f.name)[rows]
+                                 for f in dataclasses.fields(draws)})
     return rawboost_batch(waves, draws, prob, params)
 
 
@@ -139,13 +172,14 @@ class Stage1Trainer:
     """`weights` holds the 'encoder' and 'compression' state dicts, as
     `bridge.jax_params_to_torch` returns them (a 'head' entry is
     ignored; a `from_features` trainer needs no 'encoder'); the trainer
-    trains copies of them on `device`."""
+    trains copies of them on `device`. `mesh`: one rank of a gang
+    (module docstring); None, the single-process trainer."""
 
     def __init__(self, cfg: Stage1Config, enc_config: Wav2Vec2Config,
                  weights: Mapping[str, Mapping[str, torch.Tensor]],
                  device="cuda", loss_mode: str = "binary",
                  from_features: bool = False,
-                 multiclass_temperature: float = 0.1):
+                 multiclass_temperature: float = 0.1, mesh=None):
         check_config(cfg, enc_config)
         if loss_mode not in ("binary", "multiclass"):
             raise ValueError(f"loss_mode must be 'binary' or 'multiclass'; "
@@ -164,19 +198,29 @@ class Stage1Trainer:
                 remat_conv=cfg.remat_conv,
                 freeze_feature_extractor=cfg.freeze_feature_extractor)
         _load(self.compression, weights["compression"], self.device)
-        enc = []
         if self.encoder is not None:
             _load(self.encoder, weights["encoder"], self.device)
             # the 'frozen' group of the JAX trainer: no gradient, no update
             fx = set(self.encoder.feature_extractor.parameters())
             for p in self.encoder.parameters():
-                train = cfg.finetune_encoder and not (
-                    cfg.freeze_feature_extractor and p in fx)
-                p.requires_grad_(train)
-                if train:
-                    enc.append(p)
+                p.requires_grad_(cfg.finetune_encoder and not (
+                    cfg.freeze_feature_extractor and p in fx))
+        self.layout = None
+        if mesh is not None:
+            if from_features:
+                raise ValueError("fit_from_features runs single-process: "
+                                 "build the from_features trainer without "
+                                 "a mesh")
+            self.layout = apply_layout({"encoder": self.encoder,
+                                        "compression": self.compression},
+                                       mesh, cfg.param_sharding)
+        self._parts = {"encoder": self.encoder,
+                       "compression": self.compression}
         self.optimizer = build_optimizer(
-            cfg, list(self.compression.parameters()), enc)
+            cfg, list(self.compression.parameters()),
+            [] if self.encoder is None else
+            [p for p in self.encoder.parameters() if p.requires_grad],
+            _norm_group_fn(self.layout, self._parts))
         self.supcon_cfg = SupConConfig(
             temperature=cfg.temperature, similarity=cfg.supcon_similarity,
             topk_neg=cfg.topk_neg, uniformity_weight=cfg.uniformity_weight,
@@ -217,6 +261,13 @@ class Stage1Trainer:
 
     def _loss(self, z: torch.Tensor, b: Mapping[str, torch.Tensor],
               alpha) -> torch.Tensor:
+        """The loss of the global batch: in a gang, z and the labels
+        gathered over 'data' (differentiably for z)."""
+        if self.layout is not None:
+            sh = self.layout.shard
+            z = gather_rows(z, sh)
+            b = {k: gather_rows(b[k], sh) for k in ("labels", "multi_labels")
+                 if k in b}
         if self.loss_mode == "multiclass":
             return supcon_multiclass_loss(z, b["multi_labels"],
                                           self.multiclass_temperature)
@@ -224,20 +275,27 @@ class Stage1Trainer:
                                         self.supcon_cfg)
 
     # -------------------------------------------------------------- steps
+    @property
+    def shard(self) -> Shard:
+        return SINGLE if self.layout is None else self.layout.shard
+
     def train_step(self, batch: Mapping, alpha) -> Dict[str, torch.Tensor]:
         """One SupCon step on `batch` ({'waveforms': (B, T) float32 or
         int16 wire, or 'features': (B, T, F) for a from_features trainer;
         'labels': (B,) ints; 'multi_labels' for the multiclass loss} at
-        mining weight `alpha`. -> {'loss': scalar tensor on the device}
-        (no host sync)."""
+        mining weight `alpha`; in a gang, this rank's slice of the global
+        batch, as `local_batch` cuts it). -> {'loss': scalar tensor on
+        the device, the global batch's} (no host sync)."""
         b = self._batch(batch)
         if self._rawboost_gen is not None:
             b["waveforms"] = _device_rawboost(
                 b["waveforms"], self.gen, self._rawboost_gen,
-                self.cfg.rawboost_prob, self.rawboost_params)
+                self.cfg.rawboost_prob, self.rawboost_params, self.shard)
         loss = self._loss(self._embed(b, train=True), b, alpha)
         self.optimizer.zero_grad()
         loss.backward()
+        if self.layout is not None:
+            self.layout.average_gradients(self.optimizer.parameters())
         self.optimizer.step()
         self.step += 1
         return {"loss": loss.detach()}
@@ -257,31 +315,32 @@ class Stage1Trainer:
     # -------------------------------------------------------------- state
     def state_dict(self) -> Dict:
         """The full train state; its tensors are the live ones. A
-        from_features trainer has no 'encoder'."""
-        state = {"compression": self.compression.state_dict(),
-                 "optimizer": self.optimizer.state_dict(),
-                 "step": self.step, "gen": self.gen.get_state()}
-        if self.encoder is not None:
-            state["encoder"] = self.encoder.state_dict()
-        return state
+        from_features trainer has no 'encoder'. In a gang: full tensors
+        gathered from the shards (collective: every rank calls it)."""
+        return {**_module_states(self.layout, self._parts),
+                "optimizer": _optimizer_state(self.layout, self.optimizer,
+                                              self._parts),
+                "step": self.step, "gen": self.gen.get_state()}
 
     def load_state_dict(self, state: Mapping) -> None:
-        self.optimizer.load_state_dict(state["optimizer"])   # checks first
-        if self.encoder is not None:
-            self.encoder.load_state_dict(state["encoder"], strict=True)
-        self.compression.load_state_dict(state["compression"], strict=True)
+        """Load a full train state (in a gang, each rank its shards)."""
+        _load_states(self.layout, self.optimizer, self._parts, state)
         self.step = int(state["step"])
         self.gen.set_state(state["gen"])
 
     # --------------------------------------------------------------- data
     def _put(self, b: Batch) -> Dict[str, torch.Tensor]:
         """A host batch as tensors in the wire dtype, pinned on the card
-        (run in the prefetch thread)."""
-        return _pinned({
+        (run in the prefetch thread); in a gang, this rank's rows of the
+        global batch."""
+        arrays = {
             "waveforms": quantize_wire(b.waveforms)
             if self.cfg.wire_dtype == "int16" else b.waveforms,
             "labels": b.labels.astype(np.int64),
-            "multi_labels": b.multi_labels.astype(np.int64)}, self.device)
+            "multi_labels": b.multi_labels.astype(np.int64)}
+        if self.layout is not None:
+            arrays = local_batch(arrays, self.layout.shard)
+        return _pinned(arrays, self.device)
 
     def _device_batches(self, batches: Iterator[Batch]) -> Iterator[Dict]:
         """Prefetch two batches ahead: the producer thread decodes and, on
@@ -295,7 +354,12 @@ class Stage1Trainer:
         """Eval-mode forward over `pipe`'s dataset in order -> ((N, D)
         float32 embeddings, (N,) labels) of its valid rows. The batches
         ride the int16 wire when cfg.wire_dtype says so; decode, compute
-        and the copy back overlap (stream_through_device)."""
+        and the copy back overlap (stream_through_device). Single-process:
+        a gang's checkpoint is restored without a mesh to extract."""
+        if self.layout is not None:
+            raise ValueError("embed_dataset runs single-process: restore "
+                             "the checkpoint with from_checkpoint(..., "
+                             "mesh=None)")
         zs, ys = [], []
         for z, b in stream_through_device(pipe.sequential(), self._put,
                                           self.embed_step):
@@ -314,6 +378,9 @@ class Stage1Trainer:
         -> history {'train_loss', 'dev_loss', 'alpha', 'clips_per_sec'}
         (one entry an epoch), plus 'preempted': True after a stop.
 
+        In a gang every rank runs it in lockstep: the losses are the
+        global batch's on every rank (so is the best-by-dev decision),
+        the preemption flag is agreed, and every save is collective.
         The step losses stay on the device and are read once an epoch.
         `metrics_logger` (anything with `.log(epoch, dict)`) receives the
         epoch's scalars. `preemption` (utils/preemption.PreemptionGuard or
@@ -532,9 +599,13 @@ class Stage1Trainer:
 
     @classmethod
     def from_checkpoint(cls, save_dir: str, name: str = "best",
-                        device="cuda") -> "Stage1Trainer":
+                        device="cuda", mesh=None,
+                        param_sharding: Optional[str] = None
+                        ) -> "Stage1Trainer":
         """Rebuild the trainer and its state from a checkpoint directory
-        alone: the configs from the sidecar, the rest from the state."""
+        alone: the configs from the sidecar, the rest from the state; on
+        `mesh`, each rank its shards (a checkpoint is layout-free), in
+        `param_sharding` (the sidecar's when None)."""
         state, sidecar = ckpt.restore_checkpoint(save_dir, name)
         extra = sidecar["extra"]
         # a JAX sidecar also carries the fields the port leaves out
@@ -542,13 +613,89 @@ class Stage1Trainer:
         names = {f.name for f in dataclasses.fields(Stage1Config)}
         cfg = Stage1Config(**{k: v for k, v in extra["stage1_config"].items()
                               if k in names})
+        cfg = cfg.replace(**_ported_layout(cfg))
+        if param_sharding is not None:
+            cfg = cfg.replace(param_sharding=param_sharding)
         trainer = cls(cfg, config_from_dict(extra["enc_config"]),
                       {k: state[k] for k in ("encoder", "compression")
                        if k in state}, device=device,
                       loss_mode=extra.get("loss_mode", "binary"),
-                      from_features=extra.get("from_features", False))
+                      from_features=extra.get("from_features", False),
+                      mesh=mesh)
         trainer.load_state_dict(state)
         return trainer
+
+
+def _ported_layout(cfg) -> Dict:
+    """A checkpoint is layout-free: a sidecar's layout the port does not
+    run ('pp', sequence parallelism) restores as 'replicated'."""
+    out = {"param_sharding": cfg.param_sharding
+           if cfg.param_sharding in PARAM_SHARDINGS else "replicated"}
+    if getattr(cfg, "sequence_parallel", False):
+        out["sequence_parallel"] = False
+    return out
+
+
+def _named(modules: Mapping[str, Optional[torch.nn.Module]]):
+    """{id(parameter): (module key, parameter name)} over `modules`."""
+    return {id(p): (key, n) for key, m in modules.items() if m is not None
+            for n, p in m.named_parameters()}
+
+
+def _norm_group_fn(layout, modules):
+    """The optimizer's `norm_group` of a gang's layout (None in one
+    process)."""
+    if layout is None:
+        return None
+    names = _named(modules)
+    return lambda p: layout.norm_group(names[id(p)][1], p)
+
+
+def _module_states(layout, modules) -> Dict:
+    """{key: state dict} of the modules; a gang's gathered to full."""
+    return {key: (m.state_dict() if layout is None
+                  else layout.full_state_dict(m))
+            for key, m in modules.items() if m is not None}
+
+
+def _optimizer_state(layout, optimizer, modules) -> Dict:
+    """The optimizer's state; a gang's moments gathered to full."""
+    state = optimizer.state_dict()
+    if layout is None:
+        return state
+    names = _named(modules)
+    for gname, grp in optimizer.groups.items():
+        for key in ("mu", "nu"):
+            state[gname][key] = [
+                layout.full(names[id(p)][1], m, p)
+                for p, m in zip(grp.params, state[gname][key])]
+    return state
+
+
+def _load_states(layout, optimizer, modules, state: Mapping) -> None:
+    """Load a full state into the modules and the optimizer (in a gang,
+    each rank its shards); the optimizer checks first."""
+    opt = state["optimizer"]
+    if layout is not None:
+        names = _named(modules)
+        opt = {g: dict(s) for g, s in opt.items()}
+        for gname, grp in optimizer.groups.items():
+            if gname not in opt:
+                continue
+            for key in ("mu", "nu"):
+                if len(opt[gname][key]) != len(grp.params):
+                    continue   # load_state_dict names the mismatch
+                opt[gname][key] = [
+                    layout.local(names[id(p)][1], m.to(p.device), p)
+                    for p, m in zip(grp.params, opt[gname][key])]
+    optimizer.load_state_dict(opt)
+    for key, m in modules.items():
+        if m is None:
+            continue
+        if layout is None:
+            m.load_state_dict(state[key], strict=True)
+        else:
+            layout.load_full_state_dict(m, state[key])
 
 
 def _start_profile(device: torch.device):
