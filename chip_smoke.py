@@ -2584,12 +2584,25 @@ PARALLEL_UPDATE_COS = 0.99
 PARALLEL_NORM_RTOL = 1e-2
 # leg B's layouts: Gloo takes CUDA tensors in every collective the
 # layouts use, reduce_scatter_tensor and all_gather_into_tensor (FSDP2)
-# included (parallel/gloo_probe.py on the card, PERF.md PR 10)
-LEG_B = ["dp", "tp", "fsdp"]
+# included (parallel/gloo_probe.py on the card, PERF.md); 'tp_sp'
+# adds sequence parallelism to tp (the 99 frames of 2 s clips, padded to
+# 100), and leg B4 runs 'fsdp_tp_sp' on (2, 2), four Gloo ranks
+LEG_B = ["dp", "tp", "fsdp", "tp_sp"]
+LEG_B4 = ["fsdp_tp_sp"]
+# the pipeline leg: 'pp' at XLS-R-300M's full depth on two Gloo ranks
+# (two stages of 12 layers, M = 4 microbatches), then gang extraction on
+# the same ranks; Gloo refuses point-to-point transfers of CUDA tensors
+# (parallel/gloo_probe.py, PERF.md), so the hand-offs ride host
+# memory
+LEG_PP = ["pp", "extract"]
+# gang extraction against one process: both bf16, the same kernels on
+# the same rows; measured 7.45e-8 on an H100 (PERF.md), so the
+# limit is 1e-3, under the 5e-2 of bf16 against fp32: a row split that
+# changed cuBLAS's choice of kernel could move bf16 outputs by ~1e-3
+EXTRACT_TOL = 1e-3
 # parameter groups of leg B's update cosine, by a word of the name
 UPDATE_GROUPS = ("feature_extractor", "feature_projection", "pos_conv_embed",
                  "attention", "feed_forward", "layer_norm", "compression")
-
 
 def _grouped(start, got: dict, want: dict, device) -> dict:
     """{group: (got's, want's flat float64 vectors on `device`)} of two
@@ -2705,74 +2718,72 @@ def parallel_leg_a(dev) -> dict:
             "parallel_launches": launches}
 
 
-def start_leg_b(dev, tmp: str, width: str = "wide"):
-    """Leg B's gang, started in a thread: its two ranks (Gloo: NCCL
-    refuses two ranks on one card) join their group, then wait for
-    <tmp>/go before their first step. -> (the future of launch_gang's
-    results, the go file)."""
+def start_gang(dev, tmp: str, legs: list, n: int = 2, width: str = "wide",
+               save=(), timeout: float = 300):
+    """A gang of `n` ranks running `legs`, started in a thread: the ranks
+    (Gloo: NCCL refuses two ranks on one card) join their group, make
+    their weights, then wait for <tmp>/go before their first step; the
+    gang must end within `timeout` s of its start, the wait included.
+    -> (the future of launch_gang's results, the go file)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from wav2vec_contr_loss_torch.parallel import mp_smoke
 
+    os.makedirs(tmp, exist_ok=True)
     go = os.path.join(tmp, "go")
     pool = ThreadPoolExecutor(1)
-    fut = pool.submit(mp_smoke.launch_gang, tmp, LEG_B, n=2,
+    fut = pool.submit(mp_smoke.launch_gang, tmp, legs, n=n,
                       device=dev.type,
                       backend="gloo" if dev.type == "cuda" else None,
-                      width=width, timeout=300, save=["tp"], grads=True,
-                      go=go)
+                      width=width, timeout=timeout, save=list(save),
+                      grads=True, go=go)
     pool.shutdown(wait=False)
     return fut, go
 
 
-def parallel_leg_b(dev, tmp: str, width: str = "wide", started=None) -> dict:
-    """Leg B: two Gloo ranks on this one card, XLS-R-300M widths at 4
-    layers, B = 16 x 2 s, bf16, every dropout, SpecAugment and device
-    RawBoost on: LEG_B's layouts, 3 steps each (parallel/mp_smoke.py),
-    against one process at the global batch with the same seeds (loss,
-    first-step gradients, 3-step updates); the tensor-parallel gang's
-    checkpoint restored into one process; the first step's gradient
-    norms, by name group and as the clip computes them, within
-    PARALLEL_NORM_RTOL of one process's. `started`: start_leg_b's
-    (future, go file), else it starts here. (`width` 'tiny' on the CPU
-    rehearses it, where no kernel launches.)"""
-    from wav2vec_contr_loss_torch import Stage1Trainer
-    from wav2vec_contr_loss_torch.parallel import mp_smoke
-
-    job = mp_smoke.Job.named(width)
-    on_card = dev.type == "cuda"
-    fut, go = started or start_leg_b(dev, tmp, width)
+def _run_gang(started) -> tuple:
+    """Release a started gang and wait for it. -> (its results, seconds)."""
+    fut, go = started
     t0 = time.perf_counter()
     open(go, "w").close()
-    gang = fut.result()
-    t_gang = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ref = mp_smoke.run_leg("dp", None, dev, job, grads=True)
-    print(f"parallel leg B: the gang's run {t_gang:.1f} s (legs "
-          f"{ {leg: round(r[0]['seconds'], 1) for leg, r in gang.items()} } "
-          f"s), one process {time.perf_counter() - t0:.1f} s")
-    cfg = mp_smoke.encoder_config(True, width)
+    return fut.result(), time.perf_counter() - t0
+
+
+def hold_legs(dev, tmp: str, gang: dict, legs: list, job, refs: dict,
+              want: dict, label: str, weights=None) -> dict:
+    """Each leg of `gang` against one process at the global batch
+    (`refs[leg]`, run_leg's result with grads): the loss within
+    PARALLEL_LOSS_RTOL on every rank, the exact launches `want` a rank,
+    the first-step gradient and 3-step update cosines by name group, and
+    the gradient norms by name group and as each rank's clip computes
+    them within PARALLEL_NORM_RTOL. `weights`: the legs' initial
+    weights, when the caller has made them. -> {leg: its numbers};
+    raises on a miss."""
+    from wav2vec_contr_loss_torch.parallel import mp_smoke
+
+    cfg = mp_smoke.encoder_config(True, job.width)
     scfg = mp_smoke.stage1_config(job, True, "replicated")
-    start = {f"{part}.{k}": v for part, sd in mp_smoke.initial_weights(
-        cfg, scfg.hidden_dim).items() for k, v in sd.items()}
-    want = {k: v * job.steps * on_card
-            for k, v in expected_train_launches(scfg, cfg).items()}
+    start = {f"{part}.{k}": v for part, sd in (
+        weights or mp_smoke.initial_weights(cfg, scfg.hidden_dim)).items()
+        for k, v in sd.items()}
     out, low = {}, []
-    for leg in LEG_B:
+    for leg in legs:
+        ref = refs[leg]
         state = torch.load(os.path.join(tmp, f"{leg}.pt"))
         for rank, r in enumerate(gang[leg]):
             rel = [abs(a - b) / abs(b) for a, b in
                    zip(r["losses"], ref["losses"])]
-            print(f"parallel leg B {leg} rank {rank}: losses {r['losses']} "
-                  f"(one process {ref['losses']}, relative {max(rel):.2e}), "
-                  f"ms a step {[round(x, 1) for x in r['ms']]}, peak "
-                  f"{r['peak_gib']} GiB, launches {r['launches']}")
+            print(f"parallel leg {label} {leg} rank {rank}: losses "
+                  f"{r['losses']} (one process {ref['losses']}, relative "
+                  f"{max(rel):.2e}), ms a step "
+                  f"{[round(x, 1) for x in r['ms']]}, peak {r['peak_gib']} "
+                  f"GiB, launches {r['launches']} [{CARD}]")
             if max(rel) > PARALLEL_LOSS_RTOL:
-                raise RuntimeError(f"leg B {leg}: loss off the single "
+                raise RuntimeError(f"leg {label} {leg}: loss off the single "
                                    f"process's")
-            if r["launches"] != want:
-                raise RuntimeError(f"leg B {leg}: launches "
-                                   f"{r['launches']}, expected {want}")
+            if r["launches"] != want[leg]:
+                raise RuntimeError(f"leg {label} {leg}: launches "
+                                   f"{r['launches']}, expected {want[leg]}")
         grads = torch.load(os.path.join(tmp, f"{leg}.grad.pt"))
         grad = update_cosines(None, grads, ref["grads"], dev)
         cos = update_cosines(start, state, ref["state"], dev)
@@ -2780,10 +2791,11 @@ def parallel_leg_b(dev, tmp: str, width: str = "wide", started=None) -> dict:
         ratio.update({f"clip {rank} {g}": r["grad_norms"][g] / n
                       for rank, r in enumerate(gang[leg])
                       for g, n in ref["grad_norms"].items()})
-        print(f"parallel leg B {leg}: first-step gradient cosines "
+        print(f"parallel leg {label} {leg}: first-step gradient cosines "
               f"{ {g: round(c, 6) for g, c in grad.items()} }; norm ratios "
-              f"{ {g: round(c, 6) for g, c in ratio.items()} }; 3-step "
-              f"update cosines { {g: round(c, 6) for g, c in cos.items()} }")
+              f"{ {g: round(c, 6) for g, c in ratio.items()} }; "
+              f"{len(ref['losses'])}-step update cosines "
+              f"{ {g: round(c, 6) for g, c in cos.items()} }")
         low += [(leg, "gradient", g) for g, c in grad.items()
                 if c < PARALLEL_GRAD_COS]
         low += [(leg, "update", g) for g, c in cos.items()
@@ -2793,37 +2805,159 @@ def parallel_leg_b(dev, tmp: str, width: str = "wide", started=None) -> dict:
         out[leg] = dict(losses=gang[leg][0]["losses"],
                         ms=float(np.median(gang[leg][0]["ms"][1:])),
                         peak_gib=gang[leg][0]["peak_gib"],
+                        launches=gang[leg][0]["launches"],
                         min_grad_cos=min(grad.values()),
                         min_update_cos=min(cos.values()),
                         max_norm_dev=max(abs(c - 1)
                                          for c in ratio.values()))
     if low:
-        raise RuntimeError(f"leg B: cosines or norms beyond their limits "
-                           f"({PARALLEL_GRAD_COS} gradient, "
+        raise RuntimeError(f"leg {label}: cosines or norms beyond their "
+                           f"limits ({PARALLEL_GRAD_COS} gradient, "
                            f"{PARALLEL_UPDATE_COS} update, "
                            f"{PARALLEL_NORM_RTOL} norm): {low}")
-    # the tensor-parallel gang's checkpoint restores into one process
-    tp = torch.load(os.path.join(tmp, "tp.pt"))
-    one = Stage1Trainer.from_checkpoint(os.path.join(tmp, "ckpt", "tp"),
-                                        "latest", device=dev)
-    back = mp_smoke.model_state(one)
-    if set(back) != set(tp) or not all(torch.equal(back[k], tp[k])
-                                       for k in tp):
-        raise RuntimeError("leg B: the tensor-parallel checkpoint did not "
-                           "restore bit for bit")
+    return out
+
+
+def parallel_leg_b(dev, tmp: str, width: str = "wide", started=None,
+                   legs=LEG_B, n: int = 2, label: str = "B") -> dict:
+    """Leg B: two Gloo ranks on this one card, XLS-R-300M widths at 4
+    layers, B = 16 x 2 s (99 frames), bf16, every dropout, SpecAugment
+    and device RawBoost on: LEG_B's layouts, 3 steps each
+    (parallel/mp_smoke.py), against one process at the global batch
+    with the same seeds (`hold_legs`); the tensor-parallel gang's
+    checkpoint restored into one process. With `legs` LEG_B4 and `n` 4,
+    leg B4. `started`: start_gang's (future, go file), else it starts
+    here. (`width` 'tiny' on the CPU rehearses it, where no kernel
+    launches.)"""
+    from wav2vec_contr_loss_torch import Stage1Trainer
+    from wav2vec_contr_loss_torch.parallel import mp_smoke
+
+    job = mp_smoke.Job.named(width)
+    on_card = dev.type == "cuda"
+    gang, t_gang = _run_gang(started or start_gang(
+        dev, tmp, legs, n, width, save=["tp"] if "tp" in legs else ()))
+    t0 = time.perf_counter()
+    runs = {}   # one reference per job (a tiny sp leg's clips differ)
+    for leg in legs:
+        if job.for_leg(leg) not in runs:
+            runs[job.for_leg(leg)] = mp_smoke.run_leg(
+                "dp", None, dev, job.for_leg(leg), grads=True)
+    refs = {leg: runs[job.for_leg(leg)] for leg in legs}
+    print(f"parallel leg {label}: the gang's run {t_gang:.1f} s (legs "
+          f"{ {leg: round(r[0]['seconds'], 1) for leg, r in gang.items()} } "
+          f"s), one process {time.perf_counter() - t0:.1f} s")
+    cfg = mp_smoke.encoder_config(True, width)
+    scfg = mp_smoke.stage1_config(job, True, "replicated")
+    want = {leg: {k: v * job.steps * on_card for k, v in
+                  expected_train_launches(scfg, cfg).items()} for leg in legs}
+    out = hold_legs(dev, tmp, gang, legs, job, refs, want, label)
+    single_ms = float(np.median(refs[legs[0]]["ms"][1:]))
+    if "tp" in legs:   # the tensor-parallel gang's checkpoint
+        tp = torch.load(os.path.join(tmp, "tp.pt"))
+        one = Stage1Trainer.from_checkpoint(os.path.join(tmp, "ckpt", "tp"),
+                                            "latest", device=dev)
+        back = mp_smoke.model_state(one)
+        if set(back) != set(tp) or not all(torch.equal(back[k], tp[k])
+                                           for k in tp):
+            raise RuntimeError("leg B: the tensor-parallel checkpoint did "
+                               "not restore bit for bit")
+        print(f"parallel leg B: the tp gang's checkpoint restored into one "
+              f"process bit for bit ({len(tp)} tensors)")
+    print(f"parallel leg {label}: the gang's run {t_gang:.1f} s; one "
+          f"process at B = {job.batch}: {single_ms:.1f} ms a step, peak "
+          f"{refs[legs[0]]['peak_gib']} GiB [{CARD}]")
+    key = "leg_b" if label == "B" else f"leg_{label.lower()}"
+    return {key: out, f"{key}_single_ms": single_ms, f"{key}_gang_s": t_gang}
+
+
+def pp_launches(scfg, cfg, stages: int) -> dict:
+    """Kernel launches of one pipelined step on one stage's rank: its
+    L / S layers on each of the M microbatches (twice with remat), the
+    replicated conv tower once, SupCon once on the gathered batch."""
+    per = cfg.num_layers // stages * scfg.pipeline_microbatches
+    return dict(expected_train_launches(scfg, cfg),
+                attention_fwd=per * (2 if scfg.remat_encoder else 1),
+                attention_bwd=per)
+
+
+def parallel_leg_pp(dev, tmp: str, width: str = "full",
+                    started=None) -> dict:
+    """The pipeline leg: two Gloo ranks on this one card, XLS-R-300M at
+    24 layers ('full': B = 32 x 5 s, bf16, remat, every draw on), two
+    stages, M = 4, 3 steps, held against one process with the same seeds
+    (`hold_legs`: loss, first-step gradient cosines and norms by group,
+    3-step updates) and the exact launches a rank (`pp_launches`); then
+    gang extraction on the same two ranks (48 clips at batch 32, the last
+    batch half padded) against one process's embeddings in corpus order
+    within EXTRACT_TOL. (`width` 'tiny' on the CPU rehearses it.)"""
+    from wav2vec_contr_loss_torch.parallel import mp_smoke
+
+    job = mp_smoke.Job.named(width)
+    on_card = dev.type == "cuda"
+    gang, t_gang = _run_gang(started or start_gang(dev, tmp, LEG_PP, 2,
+                                                   width, save=()))
+    cfg = mp_smoke.encoder_config(True, width)
+    scfg = mp_smoke.stage1_config(job, True, "pp", **mp_smoke.PP)
+    t0 = time.perf_counter()
+    weights = mp_smoke.initial_weights(cfg, scfg.hidden_dim)
+    ref = mp_smoke.run_leg("pp", None, dev, job, weights, grads=True)
+    if on_card:
+        torch.cuda.empty_cache()
+    ref_extract = mp_smoke.extract_leg(None, dev, job, weights)
+    print(f"parallel leg pp: the gang's run {t_gang:.1f} s (legs "
+          f"{ {leg: round(r[0]['seconds'], 1) for leg, r in gang.items()} } "
+          f"s), one process {time.perf_counter() - t0:.1f} s")
+    want = {"pp": {k: v * job.steps * on_card
+                   for k, v in pp_launches(scfg, cfg, 2).items()}}
+    out = hold_legs(dev, tmp, gang, ["pp"], job, {"pp": ref}, want, "pp",
+                    weights)
+    del weights
     single_ms = float(np.median(ref["ms"][1:]))
-    print(f"parallel leg B: the tp gang's checkpoint restored into one "
-          f"process bit for bit ({len(tp)} tensors); the gang's run "
-          f"{t_gang:.1f} s; one process at B = {job.batch}: "
-          f"{single_ms:.1f} ms a step [{CARD}]")
-    return {"leg_b": out, "leg_b_single_ms": single_ms,
-            "leg_b_gang_s": t_gang}
+    print(f"parallel leg pp: 2 stages x M = {scfg.pipeline_microbatches}, "
+          f"{cfg.num_layers} layers, B = {job.batch}: "
+          f"{out['pp']['ms']:.1f} ms a step, peak {out['pp']['peak_gib']} "
+          f"GiB a rank (rank 1 {np.median(gang['pp'][1]['ms'][1:]):.1f} "
+          f"ms, {gang['pp'][1]['peak_gib']} GiB); one process "
+          f"{single_ms:.1f} ms, {ref['peak_gib']} GiB [{CARD}]")
+    n_clips, batch = mp_smoke.EXTRACT[width]
+    want_ex = {k: v * on_card for k, v in expected_extract_launches(
+        cfg, -(-n_clips // batch)).items()}
+    want_z = np.asarray(ref_extract["embeddings"])
+    worst = 0.0
+    for rank, r in enumerate(gang["extract"]):
+        z = np.asarray(r["embeddings"])
+        if z.shape != want_z.shape or r["labels"] != ref_extract["labels"]:
+            raise RuntimeError(f"gang extraction rank {rank}: {z.shape} "
+                               f"rows, not one process's {want_z.shape} "
+                               f"in corpus order")
+        worst = max(worst, float(np.abs(z - want_z).max()))
+        if r["launches"] != want_ex:
+            raise RuntimeError(f"gang extraction rank {rank}: launches "
+                               f"{r['launches']}, expected {want_ex}")
+    print(f"parallel leg pp: gang extraction of {n_clips} clips at batch "
+          f"{batch} on 2 ranks: {gang['extract'][0]['ms']:.1f} ms (one "
+          f"process {ref_extract['ms']:.1f} ms), embeddings within "
+          f"{worst:.3e} of one process's in corpus order (limit "
+          f"{EXTRACT_TOL}), launches a rank {gang['extract'][0]['launches']}"
+          f" [{CARD}]")
+    if not worst <= EXTRACT_TOL:
+        raise RuntimeError("gang extraction off one process's embeddings")
+    return {"leg_pp": out, "leg_pp_single_ms": single_ms,
+            "leg_pp_single_peak_gib": ref["peak_gib"],
+            "leg_pp_gang_s": t_gang, "extract_max_abs_err": worst,
+            "extract_ms": gang["extract"][0]["ms"],
+            "extract_single_ms": ref_extract["ms"],
+            "parallel_launches": {
+                k: gang["pp"][0]["launches"][k]
+                + gang["extract"][0]["launches"][k] for k in want_ex}}
 
 
 def parallel_main() -> int:
     """The parallel phase in a process of its own (`--parallel`, with
     CUBLAS_WORKSPACE_CONFIG=:4096:8 for leg A's deterministic
-    algorithms): leg A in this process, leg B's two ranks spawned."""
+    algorithms): leg A in this process; the gangs of leg B, leg B4 and
+    the pipeline leg spawned at the start (their ranks start up during
+    leg A) and released one after another."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -2837,24 +2971,36 @@ def parallel_main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
-    started = None
+    dirs = {k: os.path.join(tmp, k) for k in ("b", "b4", "pp")}
+    started = {}
     try:
-        # leg B's ranks start up (imports, the process group) while leg A
-        # runs; they take their first step after it
-        started = start_leg_b(dev, tmp)
+        started = {"b": start_gang(dev, dirs["b"], LEG_B, 2, save=["tp"]),
+                   "b4": start_gang(dev, dirs["b4"], LEG_B4, 4),
+                   "pp": start_gang(dev, dirs["pp"], LEG_PP, 2, "full",
+                                    timeout=500)}
         t0 = time.perf_counter()
         torch.use_deterministic_algorithms(True)
         res = parallel_leg_a(dev)
         torch.use_deterministic_algorithms(False)
         print(f"parallel leg A: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        res.update(parallel_leg_b(dev, tmp, started=started))
+        res.update(parallel_leg_b(dev, dirs["b"], started=started["b"]))
+        print(f"parallel leg B: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        res.update(parallel_leg_b(dev, dirs["b4"], started=started["b4"],
+                                  legs=LEG_B4, n=4, label="B4"))
+        print(f"parallel leg B4: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pp = parallel_leg_pp(dev, dirs["pp"], started=started["pp"])
+        print(f"parallel leg pp: {time.perf_counter() - t0:.1f} s")
+        for k, v in pp.pop("parallel_launches").items():
+            res["parallel_launches"][k] += v
+        res.update(pp)
     finally:
-        if started is not None:   # never leave a rank waiting
-            open(started[1], "w").close()
-            started[0].exception()
+        for fut, go in started.values():   # never leave a rank waiting
+            open(go, "w").close()
+            fut.exception()
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"parallel leg B: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"parallel": res}))
     return 0
 
@@ -2863,7 +3009,7 @@ def run_parallel_child() -> dict:
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     child = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--parallel"], env=env, capture_output=True,
-                           text=True, timeout=400)
+                           text=True, timeout=700)
     lines = child.stdout.splitlines()
     if child.returncode != 0:
         print("\n".join(lines))

@@ -15,10 +15,11 @@ import torch
 
 import jax
 
-from chip_smoke import (LEG_B, PARALLEL_GRAD_COS, PARALLEL_NORM_RTOL,
+from chip_smoke import (LEG_B, LEG_PP, PARALLEL_GRAD_COS, PARALLEL_NORM_RTOL,
                         PARALLEL_UPDATE_COS, norm_ratios,
                         QUANT_REL_TOL, _rel,
-                        baseline_weights, parallel_leg_b, update_cosines,
+                        baseline_weights, parallel_leg_b,
+                        pp_launches, update_cosines,
                         client_requests, compare_converted,
                         convert_front_door, expected_extract_launches,
                         expected_train_launches, int8_bytes,
@@ -237,6 +238,17 @@ def test_parallel_leg_configs():
     # gathered batch
     assert expected_train_launches(scfg, cfg) == {
         "attention_fwd": 8, "attention_bwd": 4, "ln_gelu_fwd": 7,
+        "ln_gelu_bwd": 7, "supcon": 1}
+    # the pipeline leg: XLS-R-300M whole at B = 32 x 5 s, 3 steps, two
+    # stages; per rank a step 12 layers x 4 microbatches, twice with remat
+    assert set(LEG_PP) <= {"extract", *mp_smoke.LEGS}
+    job = mp_smoke.Job.named("full")
+    assert (job.batch, job.sr * job.seconds, job.steps) == (32, 80000, 3)
+    cfg = mp_smoke.encoder_config(True, "full")
+    assert (cfg.num_layers, cfg.hidden_size, cfg.num_heads) == (24, 1024, 16)
+    scfg = mp_smoke.stage1_config(job, True, "pp", **mp_smoke.PP)
+    assert pp_launches(scfg, cfg, 2) == {
+        "attention_fwd": 96, "attention_bwd": 48, "ln_gelu_fwd": 7,
         "ln_gelu_bwd": 7, "supcon": 1}
 
 

@@ -8,10 +8,17 @@ tolerances of tests/test_sharding.py::test_dp_tp_train_step; measured
 AdamW steps (enc_lr 1e-5) sit near that atol and Adam is blind to a
 gradient's scale, so the first step's gradients are also held, each
 parameter's by cosine >= 0.999 and norm within 1e-3, and each optimizer
-group's norm as the clip computes it over the shards within 1e-3. Also the
-global-batch SupCon, collective checkpoints across layouts both ways,
-preemption agreement, `fit` in lockstep, the baseline under fsdp, and
-`train_stage1` launched with torchrun's variables."""
+group's norm as the clip computes it over the shards within 1e-3. The
+legs: data parallel, fsdp, tensor parallel, GPipe pipeline ('pp' on
+(1, 2), 'dp_pp' on (2, 2)) and sequence parallel ('tp_sp' on (1, 2),
+'tp4_sp' on (1, 4), 'fsdp_tp_sp' on (2, 2); the frame padding runs, on
+1 kHz clips' 99 frames over 2 'model' ranks and 399 over 4,
+mp_smoke.Job.for_leg). Also the
+global-batch SupCon, collective checkpoints across layouts both ways
+(a pipeline's too), preemption agreement, `fit` in lockstep, the
+baseline under fsdp, extraction and `fit_from_features` across a gang,
+and `train_stage1` launched with torchrun's variables, under 'pp', with
+sequence parallelism and from features."""
 
 import os
 import subprocess
@@ -32,8 +39,12 @@ from wav2vec_contr_loss_torch.train import checkpoint as ckpt
 
 cap_torch_threads()
 
-LEGS2 = ["dp", "fsdp", "tp", "baseline_smoke", "supcon", "smoke",
-         "restore_tp", "restore_fsdp"]
+LEGS2 = ["dp", "fsdp", "tp", "pp", "tp_sp", "baseline_smoke", "supcon",
+         "smoke", "restore_tp", "restore_fsdp", "restore_pp",
+         "restore_fsdp_pp", "restore_pp_tp", "extract", "features"]
+LEGS4 = ["fsdp_tp", "dp_pp", "fsdp_tp_sp", "tp4_sp"]
+STEP_LEGS = ["dp", "fsdp", "tp", "fsdp_tp", "pp", "dp_pp", "tp_sp",
+             "fsdp_tp_sp", "tp4_sp"]
 LOSS_RTOL = 1e-5
 PARAM_TOL = dict(rtol=2e-4, atol=2e-5)
 GRAD_COS = 0.999
@@ -52,14 +63,18 @@ def gang(tmp_path_factory):
     single = mp_smoke.write_single_checkpoint(os.path.join(out2, "single"))
     with ThreadPoolExecutor(2) as pool:
         two = pool.submit(mp_smoke.launch_gang, out2, LEGS2, 2, timeout=300,
-                          grads=True)
-        four = pool.submit(mp_smoke.launch_gang, out4, ["fsdp_tp"], 4,
+                          grads=True, save=["pp"])
+        four = pool.submit(mp_smoke.launch_gang, out4, LEGS4, 4,
                            timeout=300, grads=True)
         refs = {"ref": mp_smoke.run_leg("dp", None, "cpu", grads=True),
+                "ref_sp": mp_smoke.run_leg("tp_sp", None, "cpu",
+                                           grads=True),
                 "baseline": mp_smoke.baseline_smoke(
                     None, "cpu", str(root / "baseline_ref")),
                 "smoke": mp_smoke.run_smoke(None, "cpu",
-                                            str(root / "smoke_ref"))}
+                                            str(root / "smoke_ref")),
+                "extract": mp_smoke.extract_leg(None, "cpu"),
+                "features": mp_smoke.features_leg(None, "cpu")}
         two, four = two.result(), four.result()
     return dict(refs, out=out2, two=two, out4=out4, four=four, single=single)
 
@@ -70,29 +85,42 @@ def _close(got, want):
         torch.testing.assert_close(got[k], want[k], **PARAM_TOL, msg=k)
 
 
-@pytest.mark.parametrize("leg", ["dp", "fsdp", "tp", "fsdp_tp"])
+def _run(gang, leg):
+    """(ranks, output directory, each rank's result, the single-process
+    reference) of a stage-1 leg (the sequence-parallel legs' on their
+    1 kHz clips)."""
+    ref = gang["ref" if mp_smoke.Job().for_leg(leg) == mp_smoke.Job()
+               else "ref_sp"]
+    if leg in LEGS4:
+        return 4, gang["out4"], gang["four"][leg], ref
+    return 2, gang["out"], gang["two"][leg], ref
+
+
+@pytest.mark.parametrize("leg", STEP_LEGS)
 def test_gang_steps_equal_the_single_process_port(gang, leg):
-    n, out = (4, gang["out4"]) if leg == "fsdp_tp" else (2, gang["out"])
-    results = gang["four" if n == 4 else "two"][leg]
+    n, out, results, ref = _run(gang, leg)
     assert len(results) == n
     for r in results:   # every rank reports the global batch's loss
         assert r["losses"] == results[0]["losses"]
-        np.testing.assert_allclose(r["losses"], gang["ref"]["losses"],
+        np.testing.assert_allclose(r["losses"], ref["losses"],
                                    rtol=LOSS_RTOL)
         # the plain versions run on the CPU: no kernel launches
         assert set(r["launches"].values()) == {0}
-    _close(torch.load(os.path.join(out, f"{leg}.pt")), gang["ref"]["state"])
+    _close(torch.load(os.path.join(out, f"{leg}.pt")), ref["state"])
 
 
-@pytest.mark.parametrize("leg", ["dp", "fsdp", "tp", "fsdp_tp"])
+@pytest.mark.parametrize("leg", STEP_LEGS)
 def test_gang_first_step_gradients_equal_the_single_process_port(gang, leg):
     """The first step's gradients, averaged over 'data' and gathered to
     full, against one process's at the global batch, by direction and by
     size: a missing or doubled average, or a shard's square counted
-    twice in the clip's norm, moves a norm by a factor of 2 or more."""
-    n, out = (4, gang["out4"]) if leg == "fsdp_tp" else (2, gang["out"])
+    twice in the clip's norm, moves a norm by a factor of 2 or more.
+    Under 'pp' that holds for what lies outside the stack too (its
+    gradient crosses the pipe's input once), under sequence parallelism
+    for the layers' LayerNorms and row biases (summed over 'model')."""
+    n, out, results, ref = _run(gang, leg)
     got = torch.load(os.path.join(out, f"{leg}.grad.pt"))
-    want = gang["ref"]["grads"]
+    want = ref["grads"]
     assert set(got) == set(want)
     for k in want:
         # k_proj's bias adds q.b_k to all of a query's scores, which the
@@ -105,10 +133,9 @@ def test_gang_first_step_gradients_equal_the_single_process_port(gang, leg):
         assert cos >= GRAD_COS, f"{k}: gradient cosine {cos}"
         assert float(a.norm() / b.norm()) == pytest.approx(
             1.0, rel=NORM_RTOL), k
-    results = gang["four" if n == 4 else "two"][leg]
     for r in results:
-        assert set(r["grad_norms"]) == set(gang["ref"]["grad_norms"])
-        for name, norm in gang["ref"]["grad_norms"].items():
+        assert set(r["grad_norms"]) == set(ref["grad_norms"])
+        for name, norm in ref["grad_norms"].items():
             assert r["grad_norms"][name] == pytest.approx(
                 norm, rel=NORM_RTOL), name
 
@@ -204,12 +231,17 @@ def test_gang_checkpoint_restores_single_process(gang):
     assert [m.shape for m in opt.mu] == [p.shape for p in opt.params]
 
 
-@pytest.mark.parametrize("leg", ["restore_tp", "restore_fsdp"])
+@pytest.mark.parametrize("leg", ["restore_tp", "restore_fsdp",
+                                 "restore_pp", "restore_fsdp_pp",
+                                 "restore_pp_tp"])
 def test_checkpoint_restores_across_mesh_shapes(gang, leg):
     """restore_tp: the fsdp gang's checkpoint on a (1, 2) tensor-parallel
     mesh; restore_fsdp: a single-process checkpoint on a (2, 1) fsdp
-    mesh. The restored state gathered back is the file's, bit for bit,
-    and one step there gives the single-process restore's loss."""
+    mesh; restore_pp and restore_fsdp_pp: a single-process and the fsdp
+    gang's checkpoint on a (1, 2) pipeline; restore_pp_tp: the pipeline
+    gang's checkpoint on a (1, 2) tensor-parallel mesh. The restored
+    state gathered back is the file's, bit for bit, and one step there
+    gives the single-process restore's loss."""
     directory, _, _ = mp_smoke.RESTORES[leg]
     path = os.path.join(gang["out"], directory)
     state, _ = ckpt.restore_checkpoint(path, "latest")
@@ -217,12 +249,78 @@ def test_checkpoint_restores_across_mesh_shapes(gang, leg):
     for part in ("encoder", "compression"):
         for k, v in state[part].items():
             assert torch.equal(got[f"{part}.{k}"], v), k
-    if leg == "restore_fsdp":
+    if leg in ("restore_fsdp", "restore_pp"):
         for k, v in gang["single"].items():
             assert torch.equal(got[k], v), k
     want = mp_smoke.restore(leg, gang["out"], None, "cpu")
     for r in gang["two"][leg]:
         assert r["loss"] == pytest.approx(want["loss"], rel=2e-5)
+
+
+def test_pipeline_checkpoint_restores_single_process(gang):
+    """The pp gang's collective checkpoint (each layer broadcast from its
+    stage, rank 0 writes) restores in one process, parameters and
+    moments in their full shapes, and equals the gang's gathered
+    state."""
+    directory = os.path.join(gang["out"], "ckpt", "pp")
+    trainer = Stage1Trainer.from_checkpoint(directory, "latest",
+                                            device="cpu")
+    assert trainer.cfg.param_sharding == "pp"
+    got = mp_smoke.model_state(trainer)
+    want = torch.load(os.path.join(gang["out"], "pp.pt"))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    opt = trainer.optimizer.groups["encoder"]
+    assert [m.shape for m in opt.mu] == [p.shape for p in opt.params]
+    assert all(m.numel() for m in opt.mu)
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_sequence_parallel_pads_the_frames(gang, n_model):
+    """'tp_sp' on (1, 2) takes T' = 99 frames and 'tp4_sp' on (1, 4)
+    T' = 399 (mp_smoke.Job.for_leg): neither divides, so both pad with
+    masked frames, and still compute one process's step."""
+    from wav2vec_contr_loss_torch.config import feature_frame_length
+
+    leg = {2: "tp_sp", 4: "tp4_sp"}[n_model]
+    job = mp_smoke.Job().for_leg(leg)
+    frames = int(feature_frame_length(torch.tensor(job.sr * job.seconds),
+                                      mp_smoke.encoder_config(True)))
+    assert frames == {2: 99, 4: 399}[n_model] and frames % n_model
+    n, out, results, ref = _run(gang, leg)
+    assert n == n_model
+    for r in results:
+        np.testing.assert_allclose(r["losses"], ref["losses"],
+                                   rtol=LOSS_RTOL)
+    _close(torch.load(os.path.join(out, f"{leg}.pt")), ref["state"])
+
+
+def test_gang_extraction_equals_one_process(gang):
+    """`embed_dataset` across 2 ranks (each decodes and embeds its rows of
+    every batch of 6, the last padded with 2 invalid clips) gives every
+    rank one process's embeddings and labels in corpus order."""
+    want = gang["extract"]
+    for r in gang["two"]["extract"]:
+        assert len(r["embeddings"]) == mp_smoke.N_CLIPS
+        assert r["labels"] == want["labels"]
+        np.testing.assert_allclose(r["embeddings"], want["embeddings"],
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["binary", "multiclass"])
+def test_gang_fit_from_features_equals_one_process(gang, mode):
+    """`fit_from_features` across 2 ranks (each its rows of the global
+    balanced batches, the loss on the gathered embeddings): every rank's
+    train and dev losses, and the head, are one process's."""
+    want = gang["features"]
+    for r in gang["two"]["features"]:
+        for key in ("train_loss", "dev_loss"):
+            np.testing.assert_allclose(r[mode][key], want[mode][key],
+                                       rtol=LOSS_RTOL)
+    got = torch.load(os.path.join(gang["out"], "features.pt"))
+    _close({k: v for k, v in got.items() if k.startswith(mode)},
+           {k: v for k, v in want["state"].items() if k.startswith(mode)})
 
 
 def test_preemption_flag_agreement_across_processes(gang):

@@ -1,8 +1,12 @@
 """A 2-rank Gloo gang of the port against the JAX `Stage1Trainer` on a
 JAX CPU mesh of the same shape, from the same bridged parameters, with
 every dropout, SpecAugment and RawBoost off so both compute the same
-deterministic step: (2, 1) data parallel and (1, 2) tensor parallel,
-one step (parallel/mp_smoke.py legs 'dp_nodrop' and 'tp_nodrop'), within
+deterministic step: (2, 1) data parallel, (1, 2) tensor parallel, the
+(1, 2) GPipe pipeline (param_sharding='pp', 2 microbatches; JAX's pipe
+draws a schedule of its own, so only a step without draws compares) and
+(1, 2) tensor parallel with sequence parallelism (on the 99 frames of
+1 kHz clips), one step (parallel/mp_smoke.py legs 'dp_nodrop',
+'tp_nodrop', 'pp_nodrop' and 'tp_sp_nodrop'), within
 tests/test_sharding.py::test_dp_tp_train_step's tolerances (loss rel
 1e-4, parameters rtol 2e-4 / atol 2e-5). The encoder's first AdamW step
 moves each element by about enc_lr (1e-5), below that atol, so each
@@ -10,6 +14,7 @@ leaf's update (after - initial) is also held to JAX's: cosine >= 0.999
 and norms within 1e-2."""
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +46,11 @@ JAX_KW = dict(batch_size=8, max_duration_seconds=1, target_sample_rate=4000,
               finetune_encoder=True, compute_dtype="float32",
               grad_dtype="float32", adam_mu_dtype="float32",
               adam_nu_dtype="float32", dropout=0.0, seed=0)
-MESHES = {"dp_nodrop": dict(n_model=1), "tp_nodrop": dict(n_model=2)}
+# leg -> (the JAX mesh's 'model' axis, the JAX config's layout fields)
+MESHES = {"dp_nodrop": (1, {}), "tp_nodrop": (2, {}),
+          "pp_nodrop": (2, dict(param_sharding="pp",
+                                pipeline_microbatches=2)),
+          "tp_sp_nodrop": (2, dict(sequence_parallel=True))}
 
 
 def test_port_config_is_the_smoke_config():
@@ -51,29 +60,38 @@ def test_port_config_is_the_smoke_config():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(initial JAX params, {leg: (JAX step loss, JAX params after)},
-    the gang's results, its output directory)."""
+    the gang's results, its output directory). The gang runs while the
+    JAX steps compile and run."""
     out = str(tmp_path_factory.mktemp("gang_jax"))
-    batch = mp_smoke.fixed_batches(mp_smoke.Job(), 1)[0]
-    jax_batch = dict(batch, labels=batch["labels"].astype(np.int32),
-                     multi_labels=batch["labels"].astype(np.int32))
-    want = {}
-    init = None
-    for leg, shape in MESHES.items():
-        mesh = make_mesh(devices=np.array(jax.devices()[:2]), **shape)
-        trainer = JaxTrainer(JaxStage1Config(**JAX_KW), enc_config=TINY,
-                             mesh=mesh)
-        state = trainer.init_state(jax.random.PRNGKey(0))
-        if init is None:
-            init = jax.device_get(state.params)
-        dev_batch = {k: jax.device_put(v, batch_sharding(mesh))
-                     for k, v in jax_batch.items()}
-        state, m = trainer.train_step(state, dev_batch, jnp.float32(1.0))
-        want[leg] = (float(m["loss"]), jax.device_get(state.params))
+
+    def trainer_for(leg):
+        n_model, layout = MESHES[leg]
+        job = mp_smoke.Job().for_leg(leg)
+        mesh = make_mesh(devices=np.array(jax.devices()[:2]), n_model=n_model)
+        return job, mesh, JaxTrainer(JaxStage1Config(
+            **dict(JAX_KW, target_sample_rate=job.sr), **layout),
+            enc_config=TINY, mesh=mesh)
+
+    init = jax.device_get(trainer_for("dp_nodrop")[2].init_state(
+        jax.random.PRNGKey(0)).params)
     weights = os.path.join(out, "weights.pt")
     torch.save(jax_params_to_torch(port_config(TINY), init["encoder"],
                                    init["compression"], {}), weights)
-    gang = mp_smoke.launch_gang(out, list(MESHES), n=2, weights=weights,
-                                timeout=300)
+    with ThreadPoolExecutor(1) as pool:
+        gang = pool.submit(mp_smoke.launch_gang, out, list(MESHES), n=2,
+                           weights=weights, timeout=300)
+        want = {}
+        for leg in MESHES:
+            job, mesh, trainer = trainer_for(leg)
+            batch = mp_smoke.fixed_batches(job, 1)[0]
+            jax_batch = dict(batch, labels=batch["labels"].astype(np.int32),
+                             multi_labels=batch["labels"].astype(np.int32))
+            state = trainer.init_state(jax.random.PRNGKey(0))
+            dev_batch = {k: jax.device_put(v, batch_sharding(mesh))
+                         for k, v in jax_batch.items()}
+            state, m = trainer.train_step(state, dev_batch, jnp.float32(1.0))
+            want[leg] = (float(m["loss"]), jax.device_get(state.params))
+        gang = gang.result()
     return init, want, gang, out
 
 

@@ -1,8 +1,9 @@
 """The port's parallel layer in one process: the dropout hashes in global
 coordinates, the shard-aware encoder draws, the Megatron rules over the
-port's HF names, the mesh checks, the per-rank batch slice, the layout
-config fields and the CLI flags (the multi-process runs are
-tests/test_torch_multiprocess.py)."""
+port's HF names, the mesh checks, the per-rank batch slice, the GPipe
+executor with one stage against the plain layer loop, the layout
+refusals the JAX package makes, the layout config fields and the CLI
+flags (the multi-process runs are tests/test_torch_multiprocess.py)."""
 
 import dataclasses
 
@@ -28,8 +29,10 @@ from wav2vec_contr_loss_torch.ops.dropout import (attention_dropout_mask,
                                                   murmur_dropout)
 from wav2vec_contr_loss_torch.parallel import mp_smoke
 from wav2vec_contr_loss_torch.parallel.collectives import Shard, set_shard
-from wav2vec_contr_loss_torch.parallel.mesh import (local_batch, make_mesh,
+from wav2vec_contr_loss_torch.parallel.mesh import (check_layout, local_batch,
+                                                    make_mesh,
                                                     param_sharding_rules)
+from wav2vec_contr_loss_torch.parallel.pipeline import gpipe_stack
 from wav2vec_contr_loss_torch.train.stage1 import _device_rawboost
 
 cap_torch_threads()
@@ -217,18 +220,23 @@ def test_layout_config_fields_round_trip_through_the_sidecar(tmp_path):
     # a sidecar naming a layout the port does not run restores replicated
     extra = trainer._sidecar_extra()
     extra["stage1_config"] = dataclasses.asdict(
-        s1.replace(param_sharding="replicated")) | {
-            "param_sharding": "pp", "sequence_parallel": True}
+        s1.replace(param_sharding="replicated")) | {"param_sharding": "pp"}
     ckpt.save_checkpoint(str(tmp_path), "jax", trainer.state_dict(),
                          s1.ckpt_config(), {}, extra)
     back = Stage1Trainer.from_checkpoint(str(tmp_path), "jax", device="cpu")
+    # the port runs 'pp' now: the sidecar's layout comes back as it was
+    # (the JAX package would refuse pp with sequence parallelism)
     assert (back.cfg.param_sharding, back.cfg.sequence_parallel) == (
-        "replicated", False)
-    with pytest.raises(ValueError, match="ROADMAP A10b"):
-        Stage1Trainer(s1.replace(param_sharding="pp"), cfg,
-                      mp_smoke.initial_weights(cfg, 16), device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A10b"):
-        Stage1Trainer(s1.replace(sequence_parallel=True), cfg,
+        "pp", False)
+    # the JAX package's refusals: pp with sequence parallelism, and a
+    # batch that the microbatches do not divide
+    with pytest.raises(ValueError, match="pick one"):
+        Stage1Trainer(s1.replace(param_sharding="pp", sequence_parallel=True),
+                      cfg, mp_smoke.initial_weights(cfg, 16), device="cpu")
+    with pytest.raises(ValueError, match="not divisible by "
+                                         "pipeline_microbatches=3"):
+        Stage1Trainer(s1.replace(param_sharding="pp",
+                                 pipeline_microbatches=3), cfg,
                       mp_smoke.initial_weights(cfg, 16), device="cpu")
 
 
@@ -245,16 +253,76 @@ def test_cli_layout_flags_parse():
     assert (args.param_sharding, args.multihost) == ("fsdp", 0)
 
 
-@pytest.mark.parametrize("cli,argv", [
-    (train_stage1, ["--param_sharding", "pp"]),
-    (train_stage1, ["--sequence_parallel", "1"]),
-    (train_stage1, ["--pipeline_microbatches", "4"]),
-    (train_baseline, ["--param_sharding", "pp"]),
-    (train_stage1, ["--mesh_model", "2"]),
+@pytest.mark.parametrize("cli,argv,why", [
+    # the JAX package's own refusals (pp with sequence parallelism, a
+    # batch of 32 that 3 microbatches do not divide, and pp with fsdp,
+    # which one --param_sharding cannot name: the fsdp-only baseline)
+    (train_stage1, ["--param_sharding", "pp", "--sequence_parallel", "1"],
+     "pick one"),
+    (train_stage1, ["--param_sharding", "pp", "--pipeline_microbatches",
+                    "3"], "not divisible by pipeline_microbatches=3"),
+    (train_stage1, ["--param_sharding", "pp", "--pipeline_microbatches",
+                    "0"], "must be >= 1"),
+    (train_baseline, ["--param_sharding", "pp"], "no pipeline layout"),
+    (train_stage1, ["--mesh_model", "2"], "needs a gang"),
 ])
-def test_cli_refuses_unported_layouts_with_exit_2(cli, argv, capsys):
+def test_cli_refuses_unported_layouts_with_exit_2(cli, argv, why, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--device", "cpu"])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP A10b" in err or "needs a gang" in err
+    assert why in capsys.readouterr().err
+
+
+def test_check_layout_refuses_what_jax_refuses():
+    """The JAX package's refusals of a layout (mesh.py:151-153,
+    wav2vec2.py:619-622, pipeline.py:98-101)."""
+    with pytest.raises(ValueError, match="pipeline and fsdp"):
+        check_layout(fsdp=True, pipeline=True)
+    with pytest.raises(ValueError, match="sequence_parallel"):
+        check_layout(pipeline=True, sequence_parallel=True)
+    with pytest.raises(ValueError, match="batch 8 not divisible"):
+        check_layout(pipeline=True, microbatches=3, batch=8)
+    check_layout(fsdp=True, sequence_parallel=True)   # they compose
+    check_layout(pipeline=True, microbatches=4, batch=8)
+
+
+@pytest.mark.parametrize("n_micro", [1, 2, 4])
+def test_gpipe_stack_toy_linear(n_micro):
+    """The executor with one stage (no 'model' group), as JAX's
+    test_gpipe_stack_toy_linear: elementwise 'layers' h -> h*w give
+    prod(w) through the pipe, the layer sum matches the running sum,
+    and the gradient agrees with the dense formula."""
+    L, D, B = 4, 3, 8
+    W = (torch.arange(1, L * D + 1, dtype=torch.float64).reshape(L, D)
+         / (L * D)).requires_grad_()
+    x = torch.from_numpy(np.random.default_rng(0).normal(1, 0.1, (B, D)))
+    seen = []
+
+    def layer_fn(i, h, consts, m):
+        seen.append((i, m))
+        assert consts[0].shape == (B // n_micro, 1)
+        return h * W[i]
+
+    h, total = gpipe_stack(layer_fn, L, x, (torch.zeros(B, 1),), Shard(),
+                           n_micro, sum_dtype=torch.float64)
+    ref_h = x * W.prod(0)
+    ref_s = sum(x * W[:i + 1].prod(0) for i in range(L))
+    torch.testing.assert_close(h, ref_h, rtol=1e-12, atol=0)
+    torch.testing.assert_close(total, ref_s, rtol=1e-12, atol=0)
+    assert seen == [(i, m) for m in range(n_micro) for i in range(L)]
+    g, = torch.autograd.grad(h.sum(), W)
+    g_ref, = torch.autograd.grad(ref_h.sum(), W)
+    torch.testing.assert_close(g, g_ref, rtol=1e-12, atol=0)
+
+
+def test_gpipe_stack_refusals():
+    """JAX's refusals: layers that the stages do not divide, and a batch
+    that the microbatches do not divide."""
+    fn = lambda i, h, c, m: h   # noqa: E731
+    with pytest.raises(ValueError, match="batch 4 not divisible by "
+                                         "n_micro=3"):
+        gpipe_stack(fn, 4, torch.ones(4, 3), (), Shard(), 3)
+    with pytest.raises(ValueError, match="3 layers not divisible by 2 "
+                                         "pipeline stages"):
+        gpipe_stack(fn, 3, torch.ones(4, 3), (),
+                    Shard(n_model=2, model_group=object()), 2)

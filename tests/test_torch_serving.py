@@ -148,4 +148,6 @@ def test_port_imports_no_jax():
         "cli.extract_encoder_features", "cli.cache_waveforms",
         # multi-process training
         "parallel.mesh", "parallel.collectives", "parallel.mp_smoke",
-        "parallel.gloo_probe", "utils.distributed")} <= walked
+        "parallel.gloo_probe", "utils.distributed",
+        # pipeline and sequence parallelism, metrics and timers
+        "parallel.pipeline", "utils.logging", "utils.timing")} <= walked

@@ -80,44 +80,44 @@ def add_cache_args(p: argparse.ArgumentParser,
 
 def add_layout_args(p: argparse.ArgumentParser, model: bool = True) -> None:
     """--multihost and --param_sharding, and with `model` the flags of
-    tensor, pipeline and sequence parallelism (stage 1)."""
+    tensor, pipeline and sequence parallelism (stage 1; the baseline
+    refuses 'pp')."""
     from ..utils.distributed import add_multihost_arg
 
     add_multihost_arg(p)
     p.add_argument("--param_sharding", type=str, default=None,
                    choices=["replicated", "fsdp", "pp"],
                    help="a gang's parameter layout (parallel/mesh.py): "
-                        "'replicated' (data parallel) or 'fsdp' (ZeRO-3 "
-                        "over the encoder layers); 'pp' is not ported yet")
+                        "'replicated' (data parallel), 'fsdp' (ZeRO-3 "
+                        "over the encoder layers) or 'pp' (GPipe stages "
+                        "over the 'model' axis, stage 1 only)")
     if not model:
         return
     p.add_argument("--mesh_model", type=int, default=1,
                    help="the mesh 'model' axis: > 1 splits each layer's "
                         "attention and FFN over that many ranks (tensor "
-                        "parallelism); the other ranks form 'data'")
+                        "parallelism), or the layer stack into that many "
+                        "pipeline stages under --param_sharding pp; the "
+                        "other ranks form 'data'")
     p.add_argument("--pipeline_microbatches", type=int, default=None,
-                   help="GPipe microbatches under --param_sharding pp "
-                        "(not ported yet: any value exits 2)")
+                   help="GPipe microbatches a step under "
+                        "--param_sharding pp (each rank's batch must "
+                        "divide; more shrink the (S-1)/(M+S-1) bubble)")
     p.add_argument("--sequence_parallel", type=int, default=None,
                    choices=[0, 1],
                    help="frame-shard the residual stream over 'model' "
-                        "(not ported yet)")
+                        "(Megatron sequence parallelism: composes with "
+                        "tensor parallelism and fsdp, excludes pp; a no-op "
+                        "at --mesh_model 1)")
 
 
 def join_gang(args, parser: argparse.ArgumentParser):
     """Apply --multihost and the layout flags before any device use.
     -> (this rank's device, the ('data', 'model') mesh or None for a
-    single process). 'pp', its --pipeline_microbatches and sequence
-    parallelism exit 2 (ROADMAP A10b), as does a 'model' axis without a
-    gang to hold it."""
-    from ..parallel.mesh import UNPORTED, make_mesh
+    single process). A 'model' axis without a gang to hold it exits 2."""
+    from ..parallel.mesh import make_mesh
     from ..utils import distributed
 
-    if (getattr(args, "param_sharding", None) == "pp"
-            or getattr(args, "pipeline_microbatches", None) is not None
-            or getattr(args, "sequence_parallel", None)):
-        parser.error(f"--param_sharding pp, --pipeline_microbatches and "
-                     f"--sequence_parallel 1 are {UNPORTED}")
     n_model = getattr(args, "mesh_model", 1)
     if not distributed.init_from_args(args, device=args.device):
         if n_model > 1:

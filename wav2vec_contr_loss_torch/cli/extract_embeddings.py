@@ -10,7 +10,10 @@ In-The-Wild.
 The port of wav2vec_contr_loss_tpu/cli/extract_embeddings.py over the
 port's `<ckpt_dir>/<ckpt_name>.pt` checkpoints (`Stage1Trainer.fit`
 writes them); the clip length and the wire dtype come from the
-checkpoint's config.
+checkpoint's config. Under torchrun (or `--multihost 1`) the ranks
+extract together, data-parallel whatever layout trained the checkpoint:
+each decodes and embeds its rows of every batch (`--batch_size` must
+divide by the ranks), and rank 0 writes the files in corpus order.
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ import argparse
 from ..data import BatchPipeline
 from ..eval.extract import extract_embeddings
 from ..train import Stage1Trainer
-from .common import add_asv_paths, asv_dataset, itw_dataset, parse_num_samples
+from ..utils.distributed import add_multihost_arg
+from .common import (add_asv_paths, asv_dataset, itw_dataset, join_gang,
+                     parse_num_samples)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,14 +43,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "here so extraction matches the training subset")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
+    add_multihost_arg(p)
     return p
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     num_samples = parse_num_samples(args.num_samples)
-    trainer = Stage1Trainer.from_checkpoint(args.ckpt_dir, args.ckpt_name,
-                                            device=args.device)
+    device, mesh = join_gang(args, parser)
+    trainer = Stage1Trainer.from_checkpoint(
+        args.ckpt_dir, args.ckpt_name, device=device, mesh=mesh,
+        param_sharding=None if mesh is None else "replicated")
     seconds = trainer.cfg.max_duration_seconds
     sr = trainer.cfg.target_sample_rate
 

@@ -23,14 +23,17 @@ CLIs. --device goes to every leg that touches the card. The stage-1
 checkpoint is the port's <work_dir>/<exp>/checkpoints_stage1/<run_tag>/
 best.pt pair. --cache_waveforms and --cache_dtype go to the training
 leg. Under torchrun (or --multihost 1) every rank joins the stage-1
-training gang; extraction and the later legs run single-process on rank
-0, the other ranks stop after stage 1.
+training gang and the extraction, each rank embedding its rows of every
+batch; stage 2, the scores and the EER run on rank 0, the other ranks
+stop after the extraction.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import torch.distributed
 
 from ..config import EXPERIMENT_PRESETS
 from ..utils import distributed
@@ -147,21 +150,25 @@ def main(argv=None) -> None:
         if args.multihost is not None:
             s1 += ["--multihost", str(args.multihost)]
         train_stage1.main(s1)
-    if distributed.world_size() > 1:
-        # extraction onwards is single-process: rank 0 alone goes on
-        distributed.barrier()
-        if not distributed.is_primary():
-            return
 
-    # 2) extraction (train/dev/eval/itw as provided); --num_samples
-    # subsets every leg, not just training
+    # 2) extraction (train/dev/eval/itw as provided), on every rank of a
+    # gang; --num_samples subsets every leg, not just training
     ex = ["--ckpt_dir", ckpt_dir, "--out_dir", emb_dir] + device
     if args.num_samples is not None:
         ex += ["--num_samples", args.num_samples]
+    if args.multihost is not None:
+        ex += ["--multihost", str(args.multihost)]
     ex += paths("train", "dev")
     ex += paths(*(s for s in ("eval", "itw")
                   if getattr(args, f"{s}_protocol")))
     extract_embeddings.main(ex)
+    if distributed.world_size() > 1:
+        # stage 2 onwards runs on rank 0 alone, out of the gang (its
+        # checkpoints are then no collective)
+        primary = distributed.is_primary()
+        torch.distributed.destroy_process_group()
+        if not primary:
+            return
 
     # 3) plots
     if not args.skip_plots:

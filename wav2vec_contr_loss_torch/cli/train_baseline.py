@@ -15,7 +15,8 @@ cursor, with its best EER and patience count. The encoder starts from
 seeded random weights or from a port checkpoint; nothing is downloaded.
 A gang trains one run as train_stage1's does (`torchrun --nproc_per_node
 N -m wav2vec_contr_loss_torch.cli.train_baseline ... [--param_sharding
-fsdp]`, `--multihost`).
+fsdp]`, `--multihost`); `--param_sharding pp` exits 2, since the JAX
+`BaselineTrainer` has no pipeline layout.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..data import BatchPipeline
 from ..data.cache import attach_cache
 from ..losses import pos_weight_from_labels
 from ..train import BaselineTrainer
+from ..train.baseline import BASELINE_NO_PP
 from ..train.checkpoint import checkpoint_exists, resume_cursor
 from ..utils.preemption import PreemptionGuard
 from .common import (add_asv_paths, add_cache_args, add_encoder_args,
@@ -77,6 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.param_sharding == "pp":
+        parser.error(BASELINE_NO_PP)
     device, mesh = join_gang(args, parser)
     enc_config, encoder = load_encoder_init(args.encoder_init,
                                             args.model_name)

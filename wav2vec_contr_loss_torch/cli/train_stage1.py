@@ -17,11 +17,15 @@ A gang of N processes trains one run: `torchrun --nproc_per_node N -m
 wav2vec_contr_loss_torch.cli.train_stage1 ... [--param_sharding fsdp]
 [--mesh_model M]` (each rank on `cuda:LOCAL_RANK`, NCCL; `--device cpu`
 runs Gloo). `--multihost 1` / `0` forces / suppresses joining the
-process group; `--param_sharding pp`, `--pipeline_microbatches` and
-`--sequence_parallel 1` exit 2 (not ported yet, ROADMAP A10b). `--features_dir DIR` trains the
-compression head alone on the (N, F, 250) features that
-extract_encoder_features wrote there (train_features.npy and, when
-present, dev_features.npy), with no audio and no encoder.
+process group. `--param_sharding pp --mesh_model S
+[--pipeline_microbatches M]` trains the encoder as an S-stage GPipe
+pipeline, and `--mesh_model M --sequence_parallel 1` adds Megatron
+sequence parallelism to tensor parallelism; a layout the JAX package
+refuses (pp with sequence parallelism, a batch that M does not divide)
+exits 2. `--features_dir DIR` trains the compression head alone on the
+(N, F, 250) features that extract_encoder_features wrote there
+(train_features.npy and, when present, dev_features.npy), with no audio
+and no encoder; in a gang, data-parallel over the ranks.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..bridge import (dense_state_dict, jax_params_to_torch, random_dense,
 from ..config import XLSR_300M, EXPERIMENT_PRESETS, Stage1Config, preset
 from ..data import BatchPipeline
 from ..data.cache import attach_cache
+from ..parallel.mesh import check_layout
 from ..train import Stage1Trainer
 from ..train.checkpoint import checkpoint_exists, resume_cursor
 from ..utils.preemption import PreemptionGuard
@@ -125,9 +130,11 @@ def _banner(cfg: Stage1Config) -> None:
         rank_log(f"{k.upper()}={v}")
 
 
-def train_from_features(args, cfg: Stage1Config, save_dir: str) -> None:
+def train_from_features(args, cfg: Stage1Config, save_dir: str,
+                        device, mesh) -> None:
     """The head alone on <features_dir>/{train,dev}_features.npy (memmapped);
-    the compression starts from seeded random weights."""
+    the compression starts from seeded random weights. On `mesh`,
+    data-parallel over the gang."""
     _banner(cfg)
     fdir = args.features_dir
     feats = np.load(os.path.join(fdir, "train_features.npy"), mmap_mode="r")
@@ -142,23 +149,29 @@ def train_from_features(args, cfg: Stage1Config, save_dir: str) -> None:
     trainer = Stage1Trainer(
         cfg, KNOWN_ARCHS.get(cfg.model_name, XLSR_300M),
         {"compression": {f"proj.{k}": v for k, v in proj.items()}},
-        device=args.device, loss_mode=args.loss_mode, from_features=True)
+        device=device, loss_mode=args.loss_mode, from_features=True,
+        mesh=mesh)
     trainer.fit_from_features(feats, labels, dev_feats, dev_labels,
-                              save_dir=save_dir)
-    print(f"==> Stage-1 (from features) complete. Checkpoints in {save_dir}")
+                              save_dir=save_dir, log_fn=rank_log)
+    rank_log(f"==> Stage-1 (from features) complete. Checkpoints in "
+             f"{save_dir}")
 
 
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    device, mesh = join_gang(args, parser)
     cfg = config_from_args(args)
+    try:   # the JAX package's refusals, before any process joins a gang
+        check_layout(pipeline=cfg.param_sharding == "pp",
+                     sequence_parallel=cfg.sequence_parallel,
+                     microbatches=cfg.pipeline_microbatches,
+                     batch=cfg.batch_size)
+    except ValueError as e:
+        parser.error(str(e))
+    device, mesh = join_gang(args, parser)
     save_dir = save_dir_for(args.save_dir, cfg.model_name)
     if args.features_dir is not None:
-        if mesh is not None:
-            parser.error("--features_dir trains single-process; launch it "
-                         "without a gang")
-        train_from_features(args, cfg, save_dir)
+        train_from_features(args, cfg, save_dir, device, mesh)
         return
     enc_config, encoder = load_encoder_init(args.encoder_init,
                                             cfg.model_name)

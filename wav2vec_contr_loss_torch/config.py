@@ -113,11 +113,11 @@ class Stage1Config:
     CLI read the clip length, `epochs`, `batch_size`, `num_samples`, the
     alpha ramp and `wire_dtype`; checkpoints record `model_name`.
 
-    `param_sharding` ('replicated' | 'fsdp'), `pipeline_microbatches`
-    and `sequence_parallel` say how a gang of several processes trains
-    (parallel/mesh.py; the trainer's `mesh=`); 'pp' and sequence
-    parallelism are refused until ROADMAP A10b ports them, and the
-    microbatch count is read by 'pp' alone.
+    `param_sharding` ('replicated' | 'fsdp' | 'pp'),
+    `pipeline_microbatches` and `sequence_parallel` say how a gang of
+    several processes trains (parallel/mesh.py; the trainer's `mesh=`);
+    the microbatch count is read by 'pp' alone, and sequence parallelism
+    by a 'model' axis > 1 without 'pp'.
 
     Left out, because they only pick an XLA path or a TPU schedule:
     `attention_impl`, `conv_ln_impl`, `supcon_impl` (the port always runs
@@ -168,9 +168,9 @@ class Stage1Config:
     adam_nu_dtype: str = "bfloat16"
     grad_dtype: str = "auto"            # 'auto' | 'float32' | 'bfloat16'
     # multi-process layouts (parallel/mesh.py)
-    param_sharding: str = "replicated"  # 'replicated' | 'fsdp'
-    pipeline_microbatches: int = 2      # GPipe, 'pp' only (not ported)
-    sequence_parallel: bool = False     # not ported (ROADMAP A10b)
+    param_sharding: str = "replicated"  # 'replicated' | 'fsdp' | 'pp'
+    pipeline_microbatches: int = 2      # GPipe, 'pp' only
+    sequence_parallel: bool = False     # frames over 'model' (not 'pp')
 
     def replace(self, **kw) -> "Stage1Config":
         return dataclasses.replace(self, **kw)

@@ -24,7 +24,7 @@ import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,7 +101,7 @@ class BatchPipeline:
     def _assemble(self, indices: np.ndarray, pool: ThreadPoolExecutor,
                   rng: Optional[np.random.Generator]) -> Batch:
         t = self.dataset.audio_config.num_samples
-        b = self.batch_size
+        b = len(indices)
         waves = np.zeros((b, t), dtype=np.float32)
         labels = np.zeros(b, dtype=np.int32)
         multi = np.zeros(b, dtype=np.int32)
@@ -142,18 +142,29 @@ class BatchPipeline:
                 rng = np.random.default_rng([self.seed, epoch, i])
                 yield self._assemble(idx, pool, rng)
 
-    def sequential(self, indices: Optional[np.ndarray] = None) -> Iterator[Batch]:
+    def sequential(self, indices: Optional[np.ndarray] = None,
+                   part: Optional[Tuple[int, int]] = None) -> Iterator[Batch]:
         """Dataset-order batches (eval / embedding extraction); the last
-        partial batch is padded with invalid zero clips."""
+        partial batch is padded with invalid zero clips. `part` (i, n):
+        only rows [i*B/n, (i+1)*B/n) of each padded batch are decoded and
+        yielded (a gang's data rank i of n)."""
         n = len(self.dataset) if indices is None else len(indices)
         order = np.arange(n) if indices is None else np.asarray(indices)
+        rows = slice(None)
+        if part is not None:
+            i, parts = part
+            if self.batch_size % parts:
+                raise ValueError(f"batch {self.batch_size} not divisible by "
+                                 f"{parts} parts")
+            per = self.batch_size // parts
+            rows = slice(i * per, (i + 1) * per)
         with ThreadPoolExecutor(self.num_workers) as pool:
             for start in range(0, n, self.batch_size):
                 chunk = order[start : start + self.batch_size]
                 if chunk.size < self.batch_size:
                     pad = np.full(self.batch_size - chunk.size, -1, dtype=np.int64)
                     chunk = np.concatenate([chunk, pad])
-                yield self._assemble(chunk, pool, None)
+                yield self._assemble(chunk[rows], pool, None)
 
 
 def prefetch_to_device(

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from ..data.pipeline import BatchPipeline, stream_through_device
 from ..data.rawboost import RawBoostParams, apply_rawboost_batch
 from ..device import resolve_device
+from ..utils import distributed
 
 __all__ = ["extract_embeddings", "extract_encoder_features",
            "load_embeddings", "FIXED_TIME_DIM"]
@@ -50,7 +51,9 @@ def extract_embeddings(
     its valid rows in dataset order, such as `Stage1Trainer.embed_dataset`.
     Writes <split>_embeddings.npy (float32), _labels.npy (int64),
     _multi_labels.npy (int64 attack ids) and _attack_map.json; skips when
-    the first two already exist and `overwrite` is false."""
+    the first two already exist and `overwrite` is false. In a gang
+    (`embed_dataset` collective, its result on every rank) rank 0 writes
+    and every rank returns once the files are there."""
     os.makedirs(out_dir, exist_ok=True)
     emb_path, lab_path = _paths(out_dir, split_name)
     if not overwrite and os.path.exists(emb_path) and os.path.exists(lab_path):
@@ -58,6 +61,9 @@ def extract_embeddings(
         return emb_path, lab_path
 
     embs, labels = embed_dataset(pipe)
+    if not distributed.is_primary():
+        distributed.barrier()
+        return emb_path, lab_path
     embs = np.asarray(embs, np.float32)
     np.save(emb_path, embs)
     np.save(lab_path, np.asarray(labels).astype(np.int64))
@@ -68,6 +74,7 @@ def extract_embeddings(
     with open(os.path.join(out_dir, f"{split_name}_attack_map.json"), "w") as f:
         json.dump(pipe.dataset.attack_to_idx, f)
     log_fn(f"[OK] {split_name}: {embs.shape} -> {emb_path}")
+    distributed.barrier()
     return emb_path, lab_path
 
 

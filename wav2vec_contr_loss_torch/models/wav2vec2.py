@@ -50,6 +50,29 @@ the seed of the rank's first (batch, head) with the global head count as
 the seed stride. So a gang computes what one process at the global batch
 computes.
 
+With `sequence_parallel` (the counterpart of JAX wav2vec2.py:617-660 and
+`sp_constrain`) the residual stream is frame-sharded over 'model' after
+the encoder-input dropout; the positional conv (kernel 128) reads every
+frame, so it runs before. The frames are padded to a multiple of
+n_model with masked frames (zeroed, key bias -1e30; a clip with no valid
+frame then attends uniformly over the padded frames too). LayerNorm,
+dropout (at global frame offsets) and the residual run on local frames;
+the frames are all-gathered before the column-parallel q/k/v and FFN-in
+linears and reduce-scattered after the row-parallel ones, and the
+stack's outputs are gathered and the padding cut off before they leave
+the encoder. The layers' replicated parameters (LayerNorms, row biases)
+then hold each rank's frames' share of their gradient, which the layout
+sums over 'model' (parallel/mesh.py). At n_model = 1 it changes nothing.
+
+Under `param_sharding='pp'` (a Shard with `pipeline_microbatches`) the
+layer loop is `parallel.pipeline.gpipe_stack` over the 'model' axis's
+stages: each layer keeps its global index's dropout seeds, and each
+microbatch draws at its global rows (its layers run with a Shard whose
+batch offset is the microbatch's first row). So a pipe computes what
+one process computes, dropout included, where JAX's pipe draws a
+schedule of its own. After the pipe every stage applies the final
+LayerNorm. `return_all_hidden_states` is refused under 'pp', as in JAX.
+
 Parameter names follow HuggingFace's `Wav2Vec2Model`; `bridge.py` maps
 the JAX trees onto them.
 """
@@ -69,7 +92,9 @@ from ..ops.conv_ln import fused_ln_gelu
 from ..ops.dropout import draw_seed, murmur_dropout
 from ..ops.quant import QuantLinear
 from ..parallel.collectives import (SINGLE, Shard, copy_to_model,
-                                    reduce_from_model)
+                                    gather_frames, reduce_from_model,
+                                    scatter_frames, split_frames)
+from ..parallel.pipeline import gpipe_stack
 
 __all__ = ["Wav2Vec2Encoder", "time_mask_spans", "max_mask_spans"]
 
@@ -78,16 +103,36 @@ _LAYER_SITES = ("attention", "attention_out", "activation", "ffn_out")
 
 
 def _drop(x: torch.Tensor, seeds: Optional[Dict[str, int]], site: str,
-          rate: float, shard: Shard = SINGLE,
-          feature_offset: int = 0) -> torch.Tensor:
+          rate: float, shard: Shard = SINGLE, feature_offset: int = 0,
+          frame_offset: int = 0) -> torch.Tensor:
     """Murmur dropout at `site` when its seed was drawn (train mode), over
-    the global (B, ..., F) tensor: x sits at the shard's batch offset and
-    at `feature_offset` on the last axis."""
+    the global (B, T, F) tensor: x sits at the shard's batch offset, at
+    `frame_offset` on the frame axis and at `feature_offset` on the last
+    axis."""
     if seeds is None or seeds.get(site) is None:
         return x
-    offsets = ((shard.batch_offset(x.shape[0]),) + (0,) * (x.dim() - 2)
-               + (feature_offset,))
+    offsets = ((shard.batch_offset(x.shape[0]), frame_offset)
+               + (0,) * (x.dim() - 3) + (feature_offset,))
     return murmur_dropout(x, seeds[site], rate, offsets)
+
+
+def _sequence_parallel(shard: Shard) -> bool:
+    return shard.sequence_parallel and shard.n_model > 1
+
+
+def _local_frames(x: torch.Tensor, shard: Shard) -> int:
+    """The global frame of x's first frame (frame-sharded x under
+    sequence parallelism, else 0)."""
+    return shard.model_rank * x.shape[1] if _sequence_parallel(shard) else 0
+
+
+def _column_input(x: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """The input of a column-parallel linear: x itself (one process),
+    `copy_to_model` (tensor parallelism), or every rank's frames gathered
+    (sequence parallelism)."""
+    if _sequence_parallel(shard):
+        return gather_frames(x, shard, reduce_grad=True)
+    return copy_to_model(x, shard)
 
 
 def max_mask_spans(t_frames: int, cfg: Wav2Vec2Config) -> int:
@@ -138,11 +183,14 @@ def _linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 def _row_linear(m: nn.Module, x: torch.Tensor, shard: Shard) -> torch.Tensor:
-    """A row-parallel linear: the partial products summed over 'model',
+    """A row-parallel linear: the partial products summed over 'model'
+    (reduce-scattered to this rank's frames under sequence parallelism),
     then the (replicated) bias; `_linear` without a 'model' axis."""
     if shard.n_model == 1:
         return _linear(m, x)
-    y = reduce_from_model(F.linear(x, m.weight.to(x.dtype)), shard)
+    y = F.linear(x, m.weight.to(x.dtype))
+    y = (scatter_frames(y, shard) if _sequence_parallel(shard)
+         else reduce_from_model(y, shard))
     return y + m.bias.to(x.dtype)
 
 
@@ -270,11 +318,12 @@ class SelfAttention(nn.Module):
         self.out_proj = _transformer_linear(cfg, d, d)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor,
-                seed: Optional[int] = None) -> torch.Tensor:
-        sh = self.shard
+                seed: Optional[int] = None,
+                shard: Optional[Shard] = None) -> torch.Tensor:
+        sh = shard or self.shard
+        x = _column_input(x, sh)
         b, t, _ = x.shape
         hd = self.head_dim
-        x = copy_to_model(x, sh)
         # q is scaled before the kernel, in the compute dtype, as in JAX
         q = _linear(self.q_proj, x) * (hd ** -0.5)
         k = _linear(self.k_proj, x)
@@ -311,13 +360,15 @@ class FeedForward(nn.Module):
             cfg, cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor,
-                seeds: Optional[Dict[str, int]] = None) -> torch.Tensor:
-        sh = self.shard
-        x = F.gelu(_linear(self.intermediate_dense, copy_to_model(x, sh)))
+                seeds: Optional[Dict[str, int]] = None,
+                shard: Optional[Shard] = None) -> torch.Tensor:
+        sh = shard or self.shard
+        frame0 = _local_frames(x, sh)
+        x = F.gelu(_linear(self.intermediate_dense, _column_input(x, sh)))
         x = _drop(x, seeds, "activation", self.cfg.activation_dropout, sh,
                   sh.model_rank * x.shape[-1])
         return _drop(_row_linear(self.output_dense, x, sh), seeds, "ffn_out",
-                     self.cfg.hidden_dropout, sh)
+                     self.cfg.hidden_dropout, sh, frame_offset=frame0)
 
 
 class EncoderLayer(nn.Module):
@@ -338,21 +389,27 @@ class EncoderLayer(nn.Module):
                                              eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor,
-                seeds: Optional[Dict[str, int]] = None) -> torch.Tensor:
+                seeds: Optional[Dict[str, int]] = None,
+                shard: Optional[Shard] = None) -> torch.Tensor:
         """`seeds` holds a dropout seed per site of `_LAYER_SITES` in
-        train mode, None in eval mode."""
+        train mode, None in eval mode. `shard` (the module's when None)
+        places x in the global batch: a pipeline passes each microbatch's
+        (an argument, so a remat recompute draws the same masks)."""
+        sh = shard or self.shard
         attn_seed = None if seeds is None else seeds.get("attention")
+        frame0 = _local_frames(x, sh)
 
         def attend(y):
-            return _drop(self.attention(y, key_bias, attn_seed), seeds,
-                         "attention_out", self.hidden_dropout, self.shard)
+            return _drop(self.attention(y, key_bias, attn_seed, sh), seeds,
+                         "attention_out", self.hidden_dropout, sh,
+                         frame_offset=frame0)
 
         if self.pre_ln:
             x = x + attend(_layer_norm(self.layer_norm, x, self.dtype))
             return x + self.feed_forward(
-                _layer_norm(self.final_layer_norm, x, self.dtype), seeds)
+                _layer_norm(self.final_layer_norm, x, self.dtype), seeds, sh)
         x = _layer_norm(self.layer_norm, x + attend(x), self.dtype)
-        x = x + self.feed_forward(x, seeds)
+        x = x + self.feed_forward(x, seeds, sh)
         return _layer_norm(self.final_layer_norm, x, self.dtype)
 
 
@@ -479,18 +536,46 @@ class Wav2Vec2Encoder(nn.Module):
         hidden = _drop(hidden, glob, "encoder_in", cfg.hidden_dropout,
                        self.shard)
 
+        sh = self.shard
+        pipelined = sh.pipeline_microbatches > 0 and sh.n_model > 1
+        if pipelined and return_all_hidden_states:
+            raise ValueError(
+                "return_all_hidden_states is unsupported with "
+                "param_sharding='pp' (the full (K, B, T, D) stack would "
+                "have to ride the pipe)")
+        first = hidden
+        if _sequence_parallel(sh):
+            pad = -t_frames % sh.n_model
+            hidden = split_frames(F.pad(hidden, (0, 0, 0, pad)), sh)
+            key_bias = F.pad(key_bias, (0, pad), value=-1e30)
+
         remat = self.training and self.remat and torch.is_grad_enabled()
+
+        def run(i, h, kb, layer_shard=None):
+            args = (h, kb, layer_seeds[i], layer_shard)
+            if remat:
+                return checkpoint(stack.layers[i], *args, use_reentrant=False)
+            return stack.layers[i](*args)
+
         acc = hidden.float()
         ys = []
-        h = hidden
-        for layer, seeds in zip(stack.layers, layer_seeds):
-            if remat:
-                h = checkpoint(layer, h, key_bias, seeds, use_reentrant=False)
-            else:
-                h = layer(h, key_bias, seeds)
-            acc = acc + h.float()
-            if return_all_hidden_states:
-                ys.append(h)
+        if pipelined:
+            h, layer_sum = gpipe_stack(
+                lambda i, h, c, m: run(i, h, c[0], _microbatch(sh, m)),
+                cfg.num_layers, copy_to_model(hidden, sh), (key_bias,), sh,
+                sh.pipeline_microbatches)
+            acc = acc + layer_sum
+        else:
+            h = hidden
+            for i in range(cfg.num_layers):
+                h = run(i, h, key_bias)
+                acc = acc + h.float()
+                if return_all_hidden_states:
+                    ys.append(h)
+        if _sequence_parallel(sh):
+            def whole(y):
+                return gather_frames(y, sh, reduce_grad=False)[:, :t_frames]
+            h, acc, ys = whole(h), whole(acc), [whole(y) for y in ys]
 
         if cfg.do_stable_layer_norm:
             final = _layer_norm(stack.layer_norm, h, torch.float32)
@@ -506,5 +591,13 @@ class Wav2Vec2Encoder(nn.Module):
             if cfg.do_stable_layer_norm:
                 ys[-1] = last_hidden
             out["all_hidden"] = torch.stack(
-                [hidden.float()] + [y.float() for y in ys])
+                [first.float()] + [y.float() for y in ys])
         return out
+
+
+def _microbatch(shard: Shard, m: int) -> Shard:
+    """The Shard of a pipeline's layers on microbatch m of this data
+    rank's rows: no 'model' axis, and the batch offset of the
+    microbatch's first global row."""
+    n = shard.pipeline_microbatches
+    return Shard(data_rank=shard.data_rank * n + m, n_data=shard.n_data * n)

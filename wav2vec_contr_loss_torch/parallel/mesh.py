@@ -27,13 +27,27 @@ composed:
     column and row slices of each layer's attention and FFN linears
     (`param_sharding_rules`), held as plain local parameters, so the
     kernels receive plain tensors. FSDP2 then shards those slices over
-    'data', as the JAX fsdp+tp composes (mesh.py:124-132).
+    'data', as the JAX fsdp+tp composes (mesh.py:124-132). With
+    `sequence_parallel` the residual stream's frames are also split
+    over 'model' (models/wav2vec2.py); the layers' replicated parameters
+    (LayerNorms, row biases) then see only their rank's frames, and
+    `average_gradients` sums their gradients over 'model'.
+  * 'pp': GPipe pipeline parallelism (parallel/pipeline.py), the 'model'
+    axis carrying the stages in place of tensor parallelism: stage s
+    keeps layers [s*L/S, (s+1)*L/S) and frees the others' parameters
+    (each becomes an empty placeholder of the same name, so every rank
+    enumerates the same parameters, in one order, for the optimizer and
+    the checkpoints). Everything outside the stack is replicated.
+    Composes with data parallelism on 'data'; excludes fsdp and
+    sequence parallelism (`check_layout`, JAX mesh.py:151-153 and
+    config.py:141-160).
 
 `Layout` carries what the trainers need afterwards: the `Shard`, the
 process group over which each gradient's shards are spread (the global
 norm of a clip), and the way from a parameter's local shard to its full
 HF-named tensor and back (checkpoints are layout-free: gathered to full
-tensors, rank 0 writes, every rank restores into its own layout).
+tensors, a pipeline's layers broadcast from their stage, rank 0 writes,
+every rank restores into its own layout).
 """
 
 from __future__ import annotations
@@ -47,16 +61,17 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from .collectives import Shard, average_gradients, gather_rows, set_shard
+from .collectives import (Shard, average_gradients, gather_rows,
+                          reduce_in_buckets, set_shard)
 
 __all__ = ["make_mesh", "shard_of", "local_batch", "fetch_global",
-           "param_sharding_rules", "apply_layout", "Layout",
-           "PARAM_SHARDINGS", "UNPORTED"]
+           "param_sharding_rules", "apply_layout", "check_layout", "Layout",
+           "PARAM_SHARDINGS"]
 
-# what param_sharding takes; 'pp' (and sequence parallelism) are refused
-PARAM_SHARDINGS = ("replicated", "fsdp")
-UNPORTED = ("not ported yet (ROADMAP A10b: GPipe pipeline parallelism and "
-            "sequence parallelism)")
+# what param_sharding takes
+PARAM_SHARDINGS = ("replicated", "fsdp", "pp")
+# a pipeline stage's layer parameters, by their global layer index
+_LAYER = re.compile(r"(?:^|\.)layers\.(\d+)\.(.+)$")
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
@@ -144,6 +159,27 @@ def param_sharding_rules(name: str, tensor_parallel: bool) -> Optional[int]:
     return None
 
 
+def check_layout(fsdp: bool = False, pipeline: bool = False,
+                 sequence_parallel: bool = False,
+                 microbatches: int = 1, batch: Optional[int] = None) -> None:
+    """The JAX package's refusals of a layout: pipeline with fsdp
+    (mesh.py:151-153) or with sequence parallelism (wav2vec2.py:619-622),
+    and a pipeline whose microbatches do not divide the batch
+    (pipeline.py:98-101)."""
+    if pipeline and fsdp:
+        raise ValueError("pipeline and fsdp shard the layer stack on "
+                         "different axes — pick one")
+    if pipeline and sequence_parallel:
+        raise ValueError("sequence_parallel shards frames over the 'model' "
+                         "axis, which param_sharding='pp' uses for GPipe "
+                         "stages — pick one")
+    if pipeline and microbatches < 1:
+        raise ValueError(f"pipeline_microbatches={microbatches} must be >= 1")
+    if pipeline and batch is not None and batch % microbatches:
+        raise ValueError(f"batch {batch} not divisible by "
+                         f"pipeline_microbatches={microbatches}")
+
+
 def _is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
 
@@ -162,14 +198,35 @@ class Layout:
     shard: Shard
     fsdp: bool
     tensor_parallel: bool
+    # under 'pp': the layers a stage holds, and the shapes of a layer's
+    # parameters by their name inside the layer
+    stage_layers: int = 0
+    layer_shapes: Dict[str, torch.Size] = dataclasses.field(
+        default_factory=dict)
+    # under sequence parallelism: the parameters whose gradients are
+    # summed over 'model' (each rank's share from its frames)
+    frame_partial: list = dataclasses.field(default_factory=list)
 
     def tp_dim(self, name: str) -> Optional[int]:
         return param_sharding_rules(name, self.tensor_parallel)
+
+    def owner(self, name: str) -> Optional[int]:
+        """The stage that holds parameter `name` under 'pp' (None outside
+        the stack, or without a pipeline)."""
+        if not self.stage_layers:
+            return None
+        hit = _LAYER.search(name)
+        return None if hit is None else int(hit.group(1)) // self.stage_layers
+
+    def _full_shape(self, name: str) -> torch.Size:
+        return self.layer_shapes[_LAYER.search(name).group(2)]
 
     def norm_group(self, name: str, p: torch.Tensor):
         """The process group over which the shards of parameter `name`
         (p, as the module holds it) are spread, or None for a
         replicated one: a global norm sums its squares over that group."""
+        if self.owner(name) is not None:
+            return self.shard.model_group
         on_data, on_model = _is_dtensor(p), self.tp_dim(name) is not None
         if on_data and on_model:
             return dist.group.WORLD
@@ -185,6 +242,14 @@ class Layout:
         shards are joined with `all_gather` (DTensor's `full_tensor`
         crashes under Gloo with CUDA tensors: PERF.md, PR 10)."""
         like = t if like is None else like
+        stage = self.owner(name)
+        if stage is not None:   # broadcast from the stage that holds it
+            if stage != self.shard.model_rank:
+                t = t.new_empty(self._full_shape(name))
+            t = t.detach().contiguous()
+            group = self.shard.model_group
+            dist.broadcast(t, dist.get_global_rank(group, stage), group=group)
+            return t
         if _is_dtensor(like):
             t = _join_rows(_local(t), like.shape[0], self.shard.data_group,
                            self.shard.n_data)
@@ -200,6 +265,9 @@ class Layout:
               like: torch.Tensor) -> torch.Tensor:
         """This rank's shard of the full tensor of parameter `name`, shaped
         like the local shard of `like` (the parameter as held)."""
+        stage = self.owner(name)
+        if stage is not None and stage != self.shard.model_rank:
+            return full.new_empty(0)   # another stage's layer
         dim = self.tp_dim(name)
         if dim is not None:
             full = full.chunk(self.shard.n_model, dim)[self.shard.model_rank]
@@ -229,8 +297,17 @@ class Layout:
             _local(v).copy_(self.local(k, sd[k], v))
 
     def average_gradients(self, params: Iterable[nn.Parameter]) -> None:
-        """Average over 'data' the gradients FSDP2 does not reduce (every
-        trainable parameter that is not a DTensor)."""
+        """Under sequence parallelism, first sum over 'model' the
+        gradients of the layers' replicated parameters; then average over
+        'data' the gradients FSDP2 does not reduce (every trainable
+        parameter that is not a DTensor)."""
+        partial = [p for p in self.frame_partial if p.requires_grad]
+        if partial:
+            for p in partial:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            reduce_in_buckets([_local(p.grad) for p in partial],
+                              self.shard.model_group)
         average_gradients([p for p in params if not _is_dtensor(p)],
                           self.shard)
 
@@ -268,27 +345,65 @@ def _slice_tensor_parallel(module: nn.Module, shard: Shard) -> None:
         _replace(module, name, part.clone(), p.requires_grad)
 
 
+def _free_other_stages(module: nn.Module, shard: Shard,
+                       layout: "Layout") -> None:
+    """Under 'pp': give the layers a Shard without a 'model' axis (the
+    pipe passes each microbatch's), and replace every parameter of a
+    layer another stage holds by an empty placeholder."""
+    from ..models.wav2vec2 import TransformerStack
+
+    for stack in (m for m in module.modules()
+                  if isinstance(m, TransformerStack)):
+        n_layers = len(stack.layers)
+        if n_layers % shard.n_model:
+            raise ValueError(f"{n_layers} layers not divisible by "
+                             f"{shard.n_model} pipeline stages")
+        layout.stage_layers = n_layers // shard.n_model
+        for i, layer in enumerate(stack.layers):
+            set_shard(layer, Shard(data_rank=shard.data_rank,
+                                   n_data=shard.n_data,
+                                   data_group=shard.data_group))
+            layout.layer_shapes.update(
+                (n, p.shape) for n, p in layer.named_parameters())
+            if i // layout.stage_layers == shard.model_rank:
+                continue
+            for name, p in list(layer.named_parameters()):
+                _replace(layer, name, p.new_empty(0), p.requires_grad)
+
+
 def apply_layout(modules: Mapping[str, Optional[nn.Module]], mesh,
-                 param_sharding: str = "replicated") -> Layout:
+                 param_sharding: str = "replicated",
+                 sequence_parallel: bool = False,
+                 pipeline_microbatches: int = 2) -> Layout:
     """Lay the trainer's modules ({'encoder': Wav2Vec2Encoder or None,
     ...}, full weights already loaded on this rank's device) out on
-    `mesh`: tensor parallelism first when n_model > 1, then
-    FSDP2 per EncoderLayer over 'data' under 'fsdp'. -> the Layout. The
-    optimizer must be built afterwards, from the laid-out parameters."""
+    `mesh`: under 'pp', the stages' layers (module docstring); else
+    tensor parallelism first when n_model > 1 (with sequence
+    parallelism when asked), then FSDP2 per EncoderLayer over 'data'
+    under 'fsdp'. -> the Layout. The optimizer must be built afterwards,
+    from the laid-out parameters."""
     from ..models.wav2vec2 import EncoderLayer, SelfAttention
 
     if param_sharding not in PARAM_SHARDINGS:
-        raise ValueError(f"param_sharding={param_sharding!r}: "
-                         + (UNPORTED if param_sharding == "pp" else
-                            f"expected one of {PARAM_SHARDINGS}"))
-    shard = shard_of(mesh)
-    tensor_parallel = shard.n_model > 1
+        raise ValueError(f"param_sharding={param_sharding!r}: expected one "
+                         f"of {PARAM_SHARDINGS}")
+    pipeline = param_sharding == "pp"
+    check_layout(fsdp=param_sharding == "fsdp", pipeline=pipeline,
+                 sequence_parallel=sequence_parallel,
+                 microbatches=pipeline_microbatches)
+    shard = dataclasses.replace(
+        shard_of(mesh), sequence_parallel=sequence_parallel,
+        pipeline_microbatches=pipeline_microbatches if pipeline else 0)
+    tensor_parallel = shard.n_model > 1 and not pipeline
+    layout = Layout(mesh, shard, param_sharding == "fsdp", tensor_parallel)
     layers = []
     for module in modules.values():
         if module is None:
             continue
         set_shard(module, shard)
         layers += [m for m in module.modules() if isinstance(m, EncoderLayer)]
+        if pipeline and shard.n_model > 1:
+            _free_other_stages(module, shard, layout)
         if tensor_parallel:
             for m in module.modules():
                 if (isinstance(m, SelfAttention)
@@ -296,7 +411,7 @@ def apply_layout(modules: Mapping[str, Optional[nn.Module]], mesh,
                     raise ValueError(f"{m.num_heads} heads not divisible by "
                                      f"the 'model' axis ({shard.n_model})")
             _slice_tensor_parallel(module, shard)
-    if param_sharding == "fsdp":
+    if layout.fsdp:
         from torch.distributed.fsdp import fully_shard
 
         for layer in layers:
@@ -307,4 +422,8 @@ def apply_layout(modules: Mapping[str, Optional[nn.Module]], mesh,
                     _replace(layer, name, p.detach().contiguous(),
                              p.requires_grad)
             fully_shard(layer, mesh=mesh["data"])
-    return Layout(mesh, shard, param_sharding == "fsdp", tensor_parallel)
+    if sequence_parallel and tensor_parallel:
+        layout.frame_partial = [
+            p for layer in layers for name, p in layer.named_parameters()
+            if param_sharding_rules(name, True) is None]
+    return layout

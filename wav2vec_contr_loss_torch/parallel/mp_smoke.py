@@ -10,7 +10,7 @@ sharded train steps, `fit` with a dev set and its collective
 checkpoints, and a preemption flag raised on rank 0 only.
 
 A run is a list of legs (`LEGS`, 'smoke', 'baseline_smoke', `RESTORES`,
-'supcon'), each
+'supcon', 'extract', 'features'), each
 on the mesh its layout needs over the same process group. Each leg
 prints its losses, parameter sums and the kernels' launch counts as
 JSON; rank 0 also writes the leg's full (gathered) model state, so a
@@ -25,11 +25,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Dict, Iterator, List, Optional
 
@@ -38,24 +41,36 @@ import torch
 
 N_CLIPS = 16
 BATCH = 8
-SR, SECONDS = 4000, 1      # 4000 samples -> 99 frames
+SR, SECONDS = 4000, 1      # 4000 samples -> 399 frames
 EPOCHS = 2                 # 16 clips / batch 8 -> 2 steps an epoch
 
-# stage-1 legs: name -> (param_sharding, n_model, every random draw on)
+# stage-1 legs: name -> (param_sharding, n_model, every random draw on,
+# other Stage1Config fields); the mesh's 'data' axis takes the other
+# ranks, so 'dp_pp' and 'fsdp_tp_sp' are (2, 2) on four ranks
+PP = {"pipeline_microbatches": 4}
+SP = {"sequence_parallel": True}
 LEGS = {
-    "dp": ("replicated", 1, True),
-    "fsdp": ("fsdp", 1, True),
-    "tp": ("replicated", 2, True),
-    "fsdp_tp": ("fsdp", 2, True),
-    "dp_nodrop": ("replicated", 1, False),
-    "tp_nodrop": ("replicated", 2, False),
+    "dp": ("replicated", 1, True, {}),
+    "fsdp": ("fsdp", 1, True, {}),
+    "tp": ("replicated", 2, True, {}),
+    "fsdp_tp": ("fsdp", 2, True, {}),
+    "pp": ("pp", 2, True, PP),
+    "dp_pp": ("pp", 2, True, PP),
+    "tp_sp": ("replicated", 2, True, SP),
+    "fsdp_tp_sp": ("fsdp", 2, True, SP),
+    "tp4_sp": ("replicated", 4, True, SP),
+    "dp_nodrop": ("replicated", 1, False, {}),
+    "tp_nodrop": ("replicated", 2, False, {}),
+    "pp_nodrop": ("pp", 2, False, {}),
+    "tp_sp_nodrop": ("replicated", 2, False, SP),
 }
 
 
 def encoder_config(dropout: bool = True, width: str = "tiny"):
     """'tiny': the JAX smoke job's encoder (fp32); 'wide': XLS-R-300M's
-    widths (1024, 16 heads, 4096 FFN) at 4 layers, bf16. `dropout`: every
-    dropout at 0.1 and SpecAugment on, else all off."""
+    widths (1024, 16 heads, 4096 FFN) at 4 layers, bf16; 'full':
+    XLS-R-300M whole (24 layers), bf16. `dropout`: every dropout at 0.1
+    and SpecAugment on, else all off."""
     from ..config import XLSR_300M, Wav2Vec2Config
 
     rate = 0.1 if dropout else 0.0
@@ -64,6 +79,8 @@ def encoder_config(dropout: bool = True, width: str = "tiny"):
                  apply_spec_augment=dropout)
     if width == "wide":
         return XLSR_300M.with_(num_layers=4, dtype="bfloat16", **drops)
+    if width == "full":
+        return XLSR_300M.with_(dtype="bfloat16", **drops)
     return Wav2Vec2Config(
         hidden_size=64, num_layers=4, num_heads=4, intermediate_size=128,
         conv_dim=(32, 32), conv_kernel=(10, 3), conv_stride=(5, 2),
@@ -73,9 +90,10 @@ def encoder_config(dropout: bool = True, width: str = "tiny"):
 
 @dataclasses.dataclass(frozen=True)
 class Job:
-    """The sizes of a run: 'tiny' (the CPU tests, fp32) or 'wide' (the
-    card: XLS-R-300M widths at 4 layers, B = 16 x 2 s, bf16), and the
-    steps of a `LEGS` leg with its draws on."""
+    """The sizes of a run: 'tiny' (the CPU tests, fp32), 'wide' (the
+    card: XLS-R-300M widths at 4 layers, B = 16 x 2 s, bf16) or 'full'
+    (the card: XLS-R-300M at 24 layers, B = 32 x 5 s, bf16), and
+    the steps of a `LEGS` leg with its draws on."""
 
     width: str = "tiny"
     batch: int = BATCH
@@ -83,15 +101,32 @@ class Job:
     seconds: int = SECONDS
     steps: int = 2
 
+    def for_leg(self, leg: str) -> "Job":
+        """The job a `LEGS` leg runs. A sequence-parallel leg of the tiny
+        job on two 'model' ranks takes 1 s clips at 1 kHz, 99 frames (as
+        2 s at 16 kHz give the wide job), which 2 does not divide, so the
+        frame padding runs; on four ranks it keeps the 4 kHz clips' 399
+        frames, which 4 does not divide either. (At 1 kHz, every draw on,
+        one element of the layer mean is 0.0 in one process and 1.5e-7
+        on four tensor-parallel ranks, with or without sequence
+        parallelism: the compression's LeakyReLU kink, whose gradient
+        slopes 0.01 and 1 then differ.)"""
+        _, n_model, _, kw = LEGS[leg]
+        if (self.width == "tiny" and kw.get("sequence_parallel")
+                and n_model == 2):
+            return dataclasses.replace(self, sr=1000)
+        return self
+
     @classmethod
     def named(cls, width: str) -> "Job":
-        return cls("wide", 16, 16000, 2, 3) if width == "wide" else cls()
+        return {"wide": cls("wide", 16, 16000, 2, 3),
+                "full": cls("full", 32, 16000, 5, 3)}.get(width, cls())
 
 
 def stage1_config(job: Job, dropout: bool, param_sharding: str, **kw):
     from ..config import Stage1Config
 
-    wide = job.width == "wide"
+    wide = job.width != "tiny"
     return Stage1Config(
         batch_size=job.batch, max_duration_seconds=job.seconds,
         target_sample_rate=job.sr, input_dim=1024 if wide else 64,
@@ -130,15 +165,14 @@ def initial_weights(enc_cfg, hidden_dim: int, classifier: bool = False):
     return w
 
 
-def corpus(job: Job):
-    """Deterministic synthetic clips, the same in every process; two with
-    zero-padded tails."""
+def corpus(job: Job, n: int = N_CLIPS):
+    """n deterministic synthetic clips, the same in every process; two
+    with zero-padded tails."""
     rng = np.random.default_rng(0)
-    wave = rng.normal(0, 0.2, (N_CLIPS, job.sr * job.seconds)
-                      ).astype(np.float32)
+    wave = rng.normal(0, 0.2, (n, job.sr * job.seconds)).astype(np.float32)
     wave[1, wave.shape[1] * 3 // 4:] = 0.0
     wave[6, wave.shape[1] // 3:] = 0.0
-    labels = np.array([1, 0] * (N_CLIPS // 2), np.int32)
+    labels = np.array([1, 0] * (n // 2), np.int32)
     return wave, labels
 
 
@@ -163,12 +197,15 @@ class ArrayPipe:
                 yield Batch(self.wave[idx], self.labels[idx],
                             self.labels[idx], np.ones(len(idx), bool))
 
-    def sequential(self) -> Iterator:
+    def sequential(self, part=None) -> Iterator:
         """Every clip in order, the last batch padded with invalid zero
-        clips (BatchPipeline.sequential)."""
+        clips; `part` (i, n): rows [i*B/n, (i+1)*B/n) of each batch
+        (BatchPipeline.sequential)."""
         from ..data.pipeline import Batch
 
         b = self.sampler.batch_size
+        i, n = part or (0, 1)
+        rows = slice(i * b // n, (i + 1) * b // n)
         for start in range(0, len(self.labels), b):
             idx = np.arange(start, min(start + b, len(self.labels)))
             pad = b - len(idx)
@@ -176,13 +213,14 @@ class ArrayPipe:
                 (pad, self.wave.shape[1]), np.float32)])
             labels = np.concatenate([self.labels[idx],
                                      np.zeros(pad, self.labels.dtype)])
-            yield Batch(wave, labels, labels,
-                        np.arange(b) < len(idx))
+            valid = np.arange(b) < len(idx)
+            yield Batch(wave[rows], labels[rows], labels[rows], valid[rows])
 
 
 def fixed_batches(job: Job, n: int) -> List[Dict[str, np.ndarray]]:
-    """The first `n` global batches of the sampler, as host arrays."""
-    wave, labels = corpus(job)
+    """The first `n` global batches of the sampler, as host arrays (from
+    at least a batch's clips)."""
+    wave, labels = corpus(job, max(N_CLIPS, job.batch))
     out = []
     for epoch in range(1, n + 1):
         for b in ArrayPipe(wave, labels, job.batch, seed=0).train_epoch(epoch):
@@ -210,25 +248,29 @@ def model_state(trainer) -> Dict[str, torch.Tensor]:
     """A host copy of the trainer's full parameters, HF-named under their
     module ('encoder.', 'compression.', 'classifier.'); collective in a
     gang."""
-    state = trainer.state_dict()
-    return {f"{part}.{k}": v.detach().to("cpu", copy=True) for part in
-            ("encoder", "compression", "classifier") if part in state
-            for k, v in state[part].items()}
+    from ..train.stage1 import _module_states
+
+    state = _module_states(trainer.layout, trainer._parts)
+    return {f"{part}.{k}": v.detach().to("cpu", copy=True)
+            for part, sd in state.items() for k, v in sd.items()}
 
 
 def gradients(trainer) -> Dict[str, torch.Tensor]:
     """A host copy of the gradients the trainer's last step left (in a
-    gang averaged over 'data' and gathered to full), named as
-    `model_state` names the parameters; collective in a gang."""
+    gang averaged over 'data' and gathered to full; a pipeline's layers
+    from their stage), named as `model_state` names the parameters;
+    collective in a gang."""
+    layout = trainer.layout
     out = {}
     for part, module in trainer._parts.items():
         if module is None:
             continue
         for name, p in module.named_parameters():
-            if p.grad is None:
+            held = layout is not None and layout.owner(name) is not None
+            if p.grad is None and not held:
                 continue
-            g = (p.grad if trainer.layout is None
-                 else trainer.layout.full(name, p.grad, like=p))
+            g = (p.grad if layout is None else
+                 layout.full(name, p if p.grad is None else p.grad, like=p))
             out[f"{part}.{name}"] = g.detach().to("cpu", copy=True)
     return out
 
@@ -253,7 +295,8 @@ def make_mesh_for(n_model: int, device: torch.device):
 def run_leg(name: str, mesh, device, job: Job = Job(),
             weights: Optional[Dict] = None, steps: Optional[int] = None,
             save_dir: Optional[str] = None, grads: bool = False) -> Dict:
-    """One leg of `LEGS`: `steps` (job.steps; 1 without dropout) steps
+    """One leg of `LEGS` (on `job.for_leg(name)`): `steps` (job.steps;
+    1 without dropout) steps
     on the sampler's first global batches, on `mesh` (a gang) or alone
     (mesh None, the reference at the global batch); with `save_dir`, then
     a (collective) checkpoint there, 'latest'. -> {'losses', 'ms' (host
@@ -264,12 +307,16 @@ def run_leg(name: str, mesh, device, job: Job = Job(),
     from ..train import checkpoint as ckpt
     from .mesh import local_batch, shard_of
 
-    sharding, _, dropout = LEGS[name]
+    sharding, _, dropout, kw = LEGS[name]
+    job = job.for_leg(name)
     device = torch.device(device)
     steps = steps or (job.steps if dropout else 1)
     enc_cfg = encoder_config(dropout, job.width)
-    cfg = stage1_config(job, dropout, sharding)
+    cfg = stage1_config(job, dropout, sharding, **kw)
     weights = weights or initial_weights(enc_cfg, cfg.hidden_dim)
+    if device.type == "cuda":   # what earlier work left counts no more
+        gc.collect()
+        torch.cuda.empty_cache()
     trainer = Stage1Trainer(cfg, enc_cfg, weights, device=device, mesh=mesh)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -283,6 +330,8 @@ def run_leg(name: str, mesh, device, job: Job = Job(),
         out = trainer.train_step(batch, 1.0)
         losses.append(float(out["loss"]))     # waits for the step
         ms.append(1e3 * (time.perf_counter() - t0))
+        print(f"[mp_smoke] {name} step {len(ms)}: {ms[-1]:.1f} ms",
+              flush=True)
         if norms is None:
             norms = grad_norms(trainer)
             first = gradients(trainer) if grads else None
@@ -338,11 +387,15 @@ def run_smoke(mesh, device, ckpt_dir: str, job: Job = Job()) -> Dict:
 
 
 # restore legs: (checkpoint directory under --out, param_sharding,
-# n_model); 'restore_tp' reads the 'smoke' leg's fsdp checkpoint, so it
-# runs after it, and 'restore_fsdp' a single-process one
-# (`write_single_checkpoint`)
+# n_model); 'restore_tp' and 'restore_fsdp_pp' read the 'smoke' leg's
+# fsdp checkpoint, so they run after it, 'restore_pp_tp' the 'pp' leg's
+# (saved with --save pp), and 'restore_fsdp' and 'restore_pp' a
+# single-process one (`write_single_checkpoint`)
 RESTORES = {"restore_tp": ("ckpt/fit", "replicated", 2),
-            "restore_fsdp": ("single", "fsdp", 1)}
+            "restore_fsdp": ("single", "fsdp", 1),
+            "restore_pp": ("single", "pp", 2),
+            "restore_fsdp_pp": ("ckpt/fit", "pp", 2),
+            "restore_pp_tp": ("ckpt/pp", "replicated", 2)}
 
 
 def write_single_checkpoint(directory: str, job: Job = Job()) -> Dict:
@@ -426,6 +479,71 @@ def supcon_leg(shard) -> Dict:
     return {"loss": loss.item(), "grad": zl.grad.tolist()}
 
 
+# the extraction leg's (clips, batch): the tiny job's 16 clips in 3
+# batches, the last with 2 padded rows; the card's 48 clips in 2
+# batches of 32, the last with 16
+EXTRACT = {"tiny": (N_CLIPS, 6), "full": (48, 32)}
+
+
+def extract_leg(mesh, device, job: Job = Job(),
+                weights: Optional[Dict] = None) -> Dict:
+    """`embed_dataset` of the seeded 'dp' trainer over a corpus in order
+    (`EXTRACT`, its last batch padded), each rank embedding its rows (a
+    data mesh) or alone. -> {'embeddings', 'labels'}, every rank's the
+    gathered corpus, and 'launches', 'ms' (the pass, host clock)."""
+    from ..train import Stage1Trainer
+
+    enc_cfg = encoder_config(True, job.width)
+    cfg = stage1_config(job, True, "replicated")
+    trainer = Stage1Trainer(cfg, enc_cfg, weights or initial_weights(
+        enc_cfg, cfg.hidden_dim), device=device, mesh=mesh)
+    n, batch = EXTRACT[job.width]
+    wave, labels = corpus(job, n)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    z, y = trainer.embed_dataset(ArrayPipe(wave, labels, batch, 0))
+    return {"embeddings": z.tolist(), "labels": y.tolist(),
+            "launches": _since(before),
+            "ms": 1e3 * (time.perf_counter() - t0)}
+
+
+def feature_corpus(job: Job = Job()):
+    """Seeded (N, F, T) layer-mean features, binary labels and 4 attack
+    classes of the corpus's clips; the dev set its first 12."""
+    rng = np.random.default_rng(3)
+    _, labels = corpus(job)
+    feats = rng.normal(size=(N_CLIPS, stage1_config(
+        job, True, "replicated").input_dim, 25)).astype(np.float32)
+    multi = np.where(labels == 1, 0, 1 + np.arange(N_CLIPS) % 3)
+    return feats, labels, multi
+
+
+def features_leg(mesh, device, job: Job = Job()) -> Dict:
+    """`fit_from_features` 2 epochs with a dev set, binary and
+    multiclass, on a data mesh or alone. -> {mode: {'train_loss',
+    'dev_loss'}} and 'state', both modes' heads (prefixed by mode)."""
+    from ..train import Stage1Trainer
+
+    enc_cfg = encoder_config(True, job.width)
+    cfg = stage1_config(job, True, "replicated")
+    feats, labels, multi = feature_corpus(job)
+    comp = initial_weights(enc_cfg, cfg.hidden_dim)["compression"]
+    out, state = {}, {}
+    for mode in ("binary", "multiclass"):
+        trainer = Stage1Trainer(cfg, enc_cfg, {"compression": comp},
+                                device=device, loss_mode=mode,
+                                from_features=True, mesh=mesh)
+        hist = trainer.fit_from_features(
+            feats, labels, feats[:12], labels[:12],
+            multi_labels=multi if mode == "multiclass" else None,
+            log_fn=lambda *a: None)
+        out[mode] = {k: hist[k] for k in ("train_loss", "dev_loss")}
+        state.update({f"{mode}.{k}": v
+                      for k, v in model_state(trainer).items()})
+    out["state"] = state
+    return out
+
+
 def main(argv=None) -> None:
     """One rank of a gang (torchrun's variables in the environment):
     join the group, run the legs in order, write `<out>/<leg>.p<rank>.json`
@@ -435,11 +553,12 @@ def main(argv=None) -> None:
     p.add_argument("--legs", required=True,
                    help="comma-separated: " + ", ".join(
                        [*LEGS, "smoke", "baseline_smoke", *RESTORES,
-                        "supcon"]))
+                        "supcon", "extract", "features"]))
     p.add_argument("--device", default="cpu")
     p.add_argument("--backend", default=None,
                    help="'gloo' for CUDA tensors of two ranks on one card")
-    p.add_argument("--width", default="tiny", choices=["tiny", "wide"])
+    p.add_argument("--width", default="tiny",
+                   choices=["tiny", "wide", "full"])
     p.add_argument("--weights", default=None,
                    help="a torch.save of the port's state dicts to start "
                         "the legs without dropout from")
@@ -472,6 +591,7 @@ def main(argv=None) -> None:
     while args.go and not os.path.exists(args.go):
         time.sleep(0.05)
     for leg in args.legs.split(","):
+        print(f"[mp_smoke] rank {rank} {leg}: start", flush=True)
         t0 = time.perf_counter()
         if leg == "smoke":
             res = run_smoke(make_mesh_for(1, device), device, ckpt_dir, job)
@@ -485,6 +605,10 @@ def main(argv=None) -> None:
             from .mesh import shard_of
 
             res = supcon_leg(shard_of(make_mesh_for(1, device)))
+        elif leg == "extract":
+            res = extract_leg(make_mesh_for(1, device), device, job, seeded)
+        elif leg == "features":
+            res = features_leg(make_mesh_for(1, device), device, job)
         else:
             res = run_leg(leg, make_mesh_for(LEGS[leg][1], device), device,
                           job, seeded if LEGS[leg][2] else weights,
@@ -499,8 +623,9 @@ def main(argv=None) -> None:
             torch.save(grads, os.path.join(args.out, f"{leg}.grad.pt"))
         with open(os.path.join(args.out, f"{leg}.p{rank}.json"), "w") as f:
             json.dump(res, f)
+        brief = {k: v for k, v in res.items() if k != "embeddings"}
         print(f"[mp_smoke] rank {rank}/{distributed.world_size()} {leg}: "
-              f"{json.dumps(res)}", flush=True)
+              f"{json.dumps(brief)}", flush=True)
     distributed.barrier()
     torch.distributed.destroy_process_group()
 
@@ -518,29 +643,54 @@ def spawn(cmd: List[str], n: int, timeout: float = 600, env=None,
     free port on 127.0.0.1; `one_card`: every rank's LOCAL_RANK 0, for
     two ranks on one card), each capped at `threads` torch threads.
     -> each rank's output; raises with the log tails if a rank fails or
-    the gang outlives `timeout`, after killing every rank."""
+    the gang outlives `timeout`, after killing every rank (a rank still
+    running at the timeout gets SIGABRT first, so its log ends with the
+    faulthandler's traceback of every thread)."""
     port = free_port()
     base = dict(os.environ if env is None else env, MASTER_ADDR="127.0.0.1",
                 MASTER_PORT=str(port), WORLD_SIZE=str(n),
                 PYTHONFAULTHANDLER="1")
     if threads:
         base["OMP_NUM_THREADS"] = str(threads)
-    procs = [subprocess.Popen(
-        cmd, env=dict(base, RANK=str(i),
-                      LOCAL_RANK="0" if one_card else str(i)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for i in range(n)]
-    logs = []
-    try:
-        for proc in procs:
-            logs.append(proc.communicate(timeout=timeout)[0])
-    except subprocess.TimeoutExpired:
-        raise RuntimeError(f"{n}-rank gang timed out after {timeout} s")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    # each rank writes to a file of its own: a pipe that no one reads
+    # while another rank is waited for blocks its writer when it fills
+    with tempfile.TemporaryDirectory(prefix="gang_logs_") as logdir:
+        files = [open(os.path.join(logdir, f"rank{i}.log"), "w+")
+                 for i in range(n)]
+        procs = [subprocess.Popen(
+            cmd, env=dict(base, RANK=str(i),
+                          LOCAL_RANK="0" if one_card else str(i)),
+            stdout=files[i], stderr=subprocess.STDOUT, text=True)
+            for i in range(n)]
+        deadline = time.monotonic() + timeout
+        timed_out = False
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGABRT)
+            for proc in procs:
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        logs = []
+        for f in files:
+            f.seek(0)
+            logs.append(f.read())
+            f.close()
+    if timed_out:
+        raise RuntimeError(f"{n}-rank gang timed out after {timeout} s:\n"
+                           + "\n".join(f"--- rank {i} ---\n{log[-6000:]}"
+                                        for i, log in enumerate(logs)))
     bad = [i for i, proc in enumerate(procs) if proc.returncode != 0]
     if bad:
         raise RuntimeError("gang rank(s) %s failed:\n%s" % (bad, "\n".join(

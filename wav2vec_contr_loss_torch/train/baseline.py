@@ -26,7 +26,8 @@ a threefry key; a resumed run continues bit for bit.
 `mesh=` makes the trainer one rank of a gang, as `Stage1Trainer`'s
 (JAX baseline.py:245-287): `cfg.param_sharding` 'replicated' or 'fsdp',
 tensor parallelism on a 'model' axis > 1, this rank's rows of each
-global batch, every draw made for the global batch. The BCE is a mean
+global batch, every draw made for the global batch. 'pp' is refused: the
+JAX `BaselineTrainer` has no pipeline layout (baseline.py:146-160). The BCE is a mean
 over equal local batches, so the gradients averaged over 'data' are the
 global batch's; the step's loss is averaged over 'data' too, and the dev
 EER is computed on every rank from logits gathered over 'data'
@@ -57,11 +58,15 @@ from . import checkpoint as ckpt
 from .optim import build_baseline_optimizer
 from .stage1 import (_device_rawboost, _load, _load_states, _module_states,
                      _norm_group_fn, _optimizer_state, _pinned,
-                     _ported_layout, _to_device, check_config)
+                     _to_device, check_config)
 
-__all__ = ["BaselineTrainer"]
+__all__ = ["BaselineTrainer", "BASELINE_NO_PP"]
 
 BEST, LATEST = "baseline_best", "baseline_latest"
+BASELINE_NO_PP = ("the baseline has no pipeline layout: the JAX "
+                  "BaselineTrainer lays its parameters out 'replicated' or "
+                  "'fsdp' (baseline.py:146-160); param_sharding='pp' is "
+                  "stage 1's")
 
 
 class BaselineTrainer:
@@ -75,6 +80,8 @@ class BaselineTrainer:
                  weights: Mapping[str, Mapping[str, torch.Tensor]],
                  device="cuda", pos_weight: float = 1.0, mesh=None):
         check_config(cfg, enc_config)
+        if cfg.param_sharding == "pp":
+            raise ValueError(BASELINE_NO_PP)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.enc_config = enc_config.with_(dtype=cfg.compute_dtype)
@@ -327,7 +334,9 @@ class BaselineTrainer:
         cfg = BaselineConfig(**{k: v for k, v in
                                 extra["baseline_config"].items()
                                 if k in names})
-        cfg = cfg.replace(**_ported_layout(cfg))
+        if cfg.param_sharding == "pp":
+            # the JAX BaselineTrainer lays out fsdp and replicates the rest
+            cfg = cfg.replace(param_sharding="replicated")
         if param_sharding is not None:
             cfg = cfg.replace(param_sharding=param_sharding)
         trainer = cls(cfg, config_from_dict(extra["enc_config"]),

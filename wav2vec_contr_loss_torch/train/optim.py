@@ -28,7 +28,11 @@ DTensor or a tensor-parallel slice: the update runs on the local shard
 (`to_local()`), with moments of the shard's shape, and a clip's global
 norm adds the squared norms of sharded gradients over the process group
 their shards are spread across (`norm_groups`, one small all-reduce a
-group, no host sync).
+group, no host sync). Under 'pp' the encoder group holds the stage's own
+layers and, for every other stage's, the empty placeholders that
+parallel/mesh.py leaves in their place (moments of no elements, an
+update of nothing), so every rank lists the same parameters in one
+order; a norm over the group sums its squares over the stages.
 """
 
 from __future__ import annotations

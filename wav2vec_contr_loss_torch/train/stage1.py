@@ -33,7 +33,10 @@ a generator seeded with that step's seed. The trainer holds its state
 `mesh=` (parallel/mesh.py `make_mesh`) makes the trainer one rank of a
 gang (the port of JAX `Stage1Trainer(mesh=...)`, stage1.py:161-286 and
 :421-448): `cfg.param_sharding` 'replicated' or 'fsdp', tensor
-parallelism when the mesh's 'model' axis is > 1 (`apply_layout`). Every
+parallelism when the mesh's 'model' axis is > 1 (with
+`cfg.sequence_parallel`, the frames too), or 'pp', GPipe stages over
+that axis with `cfg.pipeline_microbatches` microbatches, as JAX takes
+pipeline_stages from the mesh (stage1.py:189-200) (`apply_layout`). Every
 rank seeds its generators alike and draws for the global batch, keeping
 its slice; each rank's batch is its data rank's rows of the global batch
 (`_device_batches` slices, `train_step` takes the slice). The clip
@@ -43,8 +46,11 @@ the dev loss and every decision `fit` takes from them are the same bits
 on every rank; the gradients are averaged over 'data' (FSDP2 reduces
 the layers' itself). `state_dict` gathers the shards into full HF-named
 tensors (collective) and `load_state_dict` takes full tensors, so a
-checkpoint is layout-free. Extraction (`embed_dataset`) and
-`fit_from_features` stay single-process.
+checkpoint is layout-free. In a gang `embed_dataset` decodes and embeds
+each rank's rows of every padded batch and gathers the embeddings in
+corpus order, and `fit_from_features` trains the replicated head
+data-parallel on each rank's rows of the global balanced batches, the
+loss on the gathered embeddings as in `fit`.
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ from ..models.compression import CompressionModule, clip_embedding
 from ..models.wav2vec2 import Wav2Vec2Encoder
 from ..ops.rawboost import RawBoostDraws, rawboost_batch, rawboost_draws
 from ..parallel.collectives import SINGLE, Shard, gather_rows
-from ..parallel.mesh import (PARAM_SHARDINGS, UNPORTED, apply_layout,
+from ..parallel.mesh import (PARAM_SHARDINGS, apply_layout, check_layout,
                              local_batch)
 from ..data.sampler import BalancedBatchSampler
 from ..losses.supcon import supcon_multiclass_loss
@@ -103,14 +109,13 @@ def check_config(cfg, enc_config: Wav2Vec2Config) -> None:
     if cfg.wire_dtype not in ("float32", "int16"):
         raise ValueError(f"wire_dtype must be 'float32' or 'int16'; got "
                          f"{cfg.wire_dtype!r}")
-    if cfg.param_sharding == "pp" or getattr(cfg, "sequence_parallel", False):
-        raise ValueError(f"param_sharding={cfg.param_sharding!r}, "
-                         f"sequence_parallel="
-                         f"{getattr(cfg, 'sequence_parallel', False)}: "
-                         + UNPORTED)
     if cfg.param_sharding not in PARAM_SHARDINGS:
         raise ValueError(f"param_sharding must be one of {PARAM_SHARDINGS}; "
                          f"got {cfg.param_sharding!r}")
+    check_layout(pipeline=cfg.param_sharding == "pp",
+                 sequence_parallel=getattr(cfg, "sequence_parallel", False),
+                 microbatches=getattr(cfg, "pipeline_microbatches", 1),
+                 batch=cfg.batch_size)
 
 
 def _to_device(batch: Mapping, device: torch.device,
@@ -207,13 +212,10 @@ class Stage1Trainer:
                     cfg.freeze_feature_extractor and p in fx))
         self.layout = None
         if mesh is not None:
-            if from_features:
-                raise ValueError("fit_from_features runs single-process: "
-                                 "build the from_features trainer without "
-                                 "a mesh")
-            self.layout = apply_layout({"encoder": self.encoder,
-                                        "compression": self.compression},
-                                       mesh, cfg.param_sharding)
+            self.layout = apply_layout(
+                {"encoder": self.encoder, "compression": self.compression},
+                mesh, cfg.param_sharding, cfg.sequence_parallel,
+                cfg.pipeline_microbatches)
         self._parts = {"encoder": self.encoder,
                        "compression": self.compression}
         self.optimizer = build_optimizer(
@@ -354,18 +356,30 @@ class Stage1Trainer:
         """Eval-mode forward over `pipe`'s dataset in order -> ((N, D)
         float32 embeddings, (N,) labels) of its valid rows. The batches
         ride the int16 wire when cfg.wire_dtype says so; decode, compute
-        and the copy back overlap (stream_through_device). Single-process:
-        a gang's checkpoint is restored without a mesh to extract."""
-        if self.layout is not None:
-            raise ValueError("embed_dataset runs single-process: restore "
-                             "the checkpoint with from_checkpoint(..., "
-                             "mesh=None)")
+        and the copy back overlap (stream_through_device). In a gang
+        (collective) each rank decodes and embeds its data rank's rows of
+        every padded batch, and every rank gets the gathered result."""
+        sh = self.shard
+        wire16 = self.cfg.wire_dtype == "int16"
+
+        def put(b: Batch) -> Dict[str, torch.Tensor]:
+            return _pinned({
+                "waveforms": quantize_wire(b.waveforms) if wire16
+                else b.waveforms, "labels": b.labels.astype(np.int64),
+                "valid": b.valid.astype(np.uint8)}, self.device)
+
+        def embed(b: Dict[str, torch.Tensor]):
+            z = self.embed_step(b)
+            rows = (b[k].to(self.device, non_blocking=True)
+                    for k in ("labels", "valid"))
+            return tuple(gather_rows(x, sh) for x in (z, *rows))
+
         zs, ys = [], []
-        for z, b in stream_through_device(pipe.sequential(), self._put,
-                                          self.embed_step):
-            zs.append(z[b.valid])
-            ys.append(b.labels[b.valid])
-        return np.concatenate(zs), np.concatenate(ys)
+        for (z, labels, valid), _ in stream_through_device(
+                pipe.sequential(part=(sh.data_rank, sh.n_data)), put, embed):
+            zs.append(z[valid.astype(bool)])
+            ys.append(labels[valid.astype(bool)])
+        return np.concatenate(zs), np.concatenate(ys).astype(np.int32)
 
     # ---------------------------------------------------------------- fit
     def fit(self, train_pipe: BatchPipeline,
@@ -497,8 +511,11 @@ class Stage1Trainer:
         """Balanced rows gathered from the (N, F, T) features (a memmap
         stays on disk), pinned in the prefetch thread; the step copies
         them to the card non-blocking, and `_feature_step_batch` turns
-        them into (B, T, F) there."""
+        them into (B, T, F) there. In a gang, this data rank's rows of
+        each global batch."""
         def put(idx):
+            if self.layout is not None:
+                idx = local_batch({"idx": idx}, self.layout.shard)["idx"]
             return _pinned({
                 "features": np.asarray(features[idx], np.float32),
                 "labels": np.asarray(labels[idx]).astype(np.int64),
@@ -530,7 +547,9 @@ class Stage1Trainer:
 
         The rows of a batch are gathered on the host in the (N, F, T)
         layout and transposed to (B, T, F) on the trainer's device, after
-        the copy."""
+        the copy. In a gang every rank samples the same global batches
+        and takes its data rank's rows; the loss is the global batch's
+        (`_loss`) and the head's gradients are averaged over 'data'."""
         if not self.from_features:
             raise ValueError("fit_from_features needs a trainer built with "
                              "from_features=True")
@@ -613,7 +632,6 @@ class Stage1Trainer:
         names = {f.name for f in dataclasses.fields(Stage1Config)}
         cfg = Stage1Config(**{k: v for k, v in extra["stage1_config"].items()
                               if k in names})
-        cfg = cfg.replace(**_ported_layout(cfg))
         if param_sharding is not None:
             cfg = cfg.replace(param_sharding=param_sharding)
         trainer = cls(cfg, config_from_dict(extra["enc_config"]),
@@ -624,16 +642,6 @@ class Stage1Trainer:
                       mesh=mesh)
         trainer.load_state_dict(state)
         return trainer
-
-
-def _ported_layout(cfg) -> Dict:
-    """A checkpoint is layout-free: a sidecar's layout the port does not
-    run ('pp', sequence parallelism) restores as 'replicated'."""
-    out = {"param_sharding": cfg.param_sharding
-           if cfg.param_sharding in PARAM_SHARDINGS else "replicated"}
-    if getattr(cfg, "sequence_parallel", False):
-        out["sequence_parallel"] = False
-    return out
 
 
 def _named(modules: Mapping[str, Optional[torch.nn.Module]]):

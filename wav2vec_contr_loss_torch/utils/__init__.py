@@ -1,1 +1,2 @@
-"""Run-level utilities: graceful preemption."""
+"""Run-level utilities: the process group, graceful preemption, metrics
+logging and step timing."""
