@@ -88,7 +88,20 @@
    operations, peak memory and int8 bytes; then each artifact loaded
    back by `load_exported` and run over 4 batches with exact launch
    counts against its live scorer, ms a batch, device ms and operations.
-10. Prints one JSON line with every kernel's numbers, then the result
+10. Bench phase, after the parallel phase, in this process:
+   cli/bench_components.py on the card (BENCH_LEGS): its `main`, the
+   command a user runs, for `--which all` (decode, rawboost and supcon
+   at their defaults), serving at 8 x 5 s with 30 repeats, serving
+   through the w8a8 scorer with 10 repeats and socket at 8 clients x 5
+   requests; `bench_extract` at 32 x 5 s over 10 batches (the command
+   runs 40); the model legs at XLS-R-300M width, the launch counters
+   set to 0 just before each leg and read just after (serving and
+   extract exactly 24 attention and 7 LN+GELU forwards a batch, supcon
+   its warm-up and repeats of the kernel, nothing else); every
+   measurement finite and above 0; the supcon leg's kernel against the
+   plain loss on its inputs (B = 256); prints the bench's JSON and the
+   phase's seconds.
+11. Prints one JSON line with every kernel's numbers, then the result
    line. Any failure exits non-zero before the result line.
 
 Needs torch with CUDA, triton and nvcc; imports nothing of JAX.
@@ -3019,11 +3032,205 @@ def run_parallel_child() -> dict:
     return json.loads(lines[-1])["parallel"]
 
 
+# ------------------------------------------------------------ bench phase
+# cli/bench_components.py as the bench phase runs it: (leg, "main" and
+# the command's arguments besides --device, or a leg function and its
+# keyword arguments besides the device); extract through its function,
+# since the command has no flag for its 40 batches
+BENCH_LEGS = (
+    ("all", "main", ["--which", "all"]),
+    ("serving", "main", ["--which", "serving"]),
+    ("serving_w8a8", "main", ["--which", "serving", "--serving_quant",
+                              "w8a8", "--serving_repeats", "10"]),
+    ("extract", "bench_extract", dict(batch=PIPE_BATCH, seconds=5,
+                                      n_batches=10, model="xlsr")),
+    ("socket", "main", ["--which", "socket", "--socket_per_client", "5"]),
+)
+# the bench's JSON fields that are not measurements
+BENCH_FIXED = ("serving_batch", "serving_quant", "extract_batch",
+               "socket_batch", "socket_quant", "socket_wire",
+               "socket_clients")
+
+
+def run_bench_legs(dev, legs=BENCH_LEGS) -> tuple:
+    """Each leg of bench_components on `dev`, in this process, with the
+    launch counters set to 0 just before it and read just after. ->
+    ({leg: its JSON}, {leg: launches}, {leg: seconds})."""
+    import contextlib
+    import io
+
+    from wav2vec_contr_loss_torch.cli import bench_components as bench
+
+    out, counts, secs = {}, {}, {}
+    for leg, fn, args in legs:
+        _reset_counters()
+        t0 = time.perf_counter()
+        if fn == "main":
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                bench.main(args + ["--device", str(dev)])
+            lines = printed.getvalue().splitlines()
+            if len(lines) != 1:
+                raise RuntimeError(f"bench {leg}: the command printed "
+                                   f"{len(lines)} lines, expected one")
+            out[leg] = json.loads(lines[0])
+        else:
+            if fn != "bench_decode":     # the decode leg runs on the host
+                args = dict(args, device=dev)
+            out[leg] = getattr(bench, fn)(**args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts[leg] = _counters()
+        secs[leg] = time.perf_counter() - t0
+    return out, counts, secs
+
+
+def bench_expected(legs, cfg) -> dict:
+    """{leg: exact launches} of the legs whose structure fixes them:
+    serving, a warm-up call and `repeats` calls in each of its three legs;
+    extract, a warm-up batch and `n_batches` in each of its three; each
+    batch 24 attention and 7 LN+GELU forwards (cfg's layers and convs),
+    nothing else; supcon (alone or in 'all'), its warm-up and `repeats`
+    value-and-gradient steps of the kernel; decode and rawboost none. The
+    socket leg's batches depend on how the batcher coalesces
+    (check_bench)."""
+    import inspect
+
+    from wav2vec_contr_loss_torch.cli import bench_components as bench
+
+    def defaults(fn) -> dict:
+        return {k: p.default for k, p in inspect.signature(
+            getattr(bench, fn)).parameters.items()}
+
+    def launches(batches=0, supcon=0):
+        return {"attention_fwd": cfg.num_layers * batches,
+                "attention_bwd": 0,
+                "ln_gelu_fwd": len(cfg.conv_dim) * batches,
+                "ln_gelu_bwd": 0, "supcon": supcon}
+
+    want = {}
+    for leg, fn, args in legs:
+        if fn == "main":
+            parsed = bench.build_parser().parse_args(args)
+            which = parsed.which
+            sizes = {"repeats": parsed.serving_repeats}
+        else:
+            which = fn[len("bench_"):]
+            sizes = dict(defaults(fn), **args)
+        if which == "serving":
+            want[leg] = launches(batches=3 * (sizes["repeats"] + 1))
+        elif which == "extract":
+            want[leg] = launches(batches=3 * (sizes["n_batches"] + 1))
+        elif which in ("all", "supcon"):
+            want[leg] = launches(
+                supcon=defaults("bench_supcon")["repeats"] + 1)
+        elif which != "socket":
+            want[leg] = launches()
+    return want
+
+
+def check_bench(out: dict, counts: dict, want: dict, cfg) -> None:
+    """Raise unless every leg launched exactly what `want` says (the
+    socket leg: 24 attention and 7 LN+GELU forwards a batch for at least
+    its three warm-up batches, nothing else) and every measurement is
+    finite and above 0 (the kernel leg of supcon may read None only
+    where no kernel ran)."""
+    for leg, n in want.items():
+        if counts[leg] != n:
+            raise RuntimeError(f"bench {leg}: launches {counts[leg]}, "
+                               f"expected {n}")
+    if "socket" in counts:
+        c = counts["socket"]
+        batches = c["attention_fwd"] // cfg.num_layers
+        exact = {"attention_fwd": cfg.num_layers * batches,
+                 "attention_bwd": 0, "ln_gelu_fwd": len(cfg.conv_dim) * batches,
+                 "ln_gelu_bwd": 0, "supcon": 0}
+        if c != exact or batches < 3:
+            raise RuntimeError(f"bench socket: launches {c}, expected "
+                               f"whole batches of {cfg.num_layers} attention "
+                               f"and {len(cfg.conv_dim)} LN+GELU forwards")
+    for leg, fields in out.items():
+        for key, value in fields.items():
+            if key in BENCH_FIXED:
+                continue
+            if value is None and key == "supcon_cuda_steps_per_sec" \
+                    and counts[leg]["supcon"] == 0:
+                continue
+            if not (isinstance(value, float) and np.isfinite(value)
+                    and value > 0):
+                raise RuntimeError(f"bench {leg} {key} = {value!r}")
+
+
+def bench_phase(dev, results) -> dict:
+    """cli/bench_components.py on the card (BENCH_LEGS), checked by
+    check_bench, then the supcon leg's kernel against the plain loss on
+    the leg's own inputs (B = 256). Adds each kernel's `bench_launches`
+    to `results`, and the SupCon error to its `max_abs_err`. -> the
+    bench's JSON, by leg."""
+    from wav2vec_contr_loss_torch import XLSR_300M
+    from wav2vec_contr_loss_torch.cli import bench_components as bench
+    from wav2vec_contr_loss_torch.losses.supcon import supcon_binary_loss
+    from wav2vec_contr_loss_torch.ops import supcon
+
+    out, counts, secs = run_bench_legs(dev)
+    for leg, n in counts.items():
+        print(f"bench {leg}: {secs[leg]:.1f} s, launches "
+              + ", ".join(f"{k} {v}" for k, v in n.items()))
+    check_bench(out, counts, bench_expected(BENCH_LEGS, XLSR_300M),
+                XLSR_300M)
+    for name in results:
+        results[name]["bench_launches"] = sum(c[name]
+                                              for c in counts.values())
+
+    z, labels, cfg = bench.supcon_inputs()
+    lt = torch.from_numpy(labels).to(dev)
+    grads = []
+    for fn in (supcon.supcon_binary_loss_fused, supcon_binary_loss):
+        zk = torch.from_numpy(z).to(dev).requires_grad_()
+        loss = fn(zk, lt, bench.SUPCON_ALPHA, cfg)
+        grads.append((loss.detach(), torch.autograd.grad(loss, zk)[0]))
+    (loss, gz), (loss_p, gzp) = grads
+    err = max(abs(loss.item() - loss_p.item()),
+              (gz - gzp).abs().max().item())
+    print(f"bench supcon B=256 D=256 alpha {bench.SUPCON_ALPHA}: kernel "
+          f"loss {loss.item():.6f} vs plain {loss_p.item():.6f}, max abs "
+          f"err {err:.3e} (tolerances: loss {SUPCON_LOSS_TOL}, dz "
+          f"{SUPCON_GRAD_TOL})")
+    torch.testing.assert_close(loss, loss_p, **SUPCON_LOSS_TOL)
+    torch.testing.assert_close(gz, gzp, **SUPCON_GRAD_TOL)
+    results["supcon"]["max_abs_err"] = max(
+        results["supcon"].get("max_abs_err", 0.0), err)
+    print(json.dumps({"bench_components": out}))
+    return out
+
+
 def read_card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def bench_main() -> int:
+    """The bench phase alone (`--bench`), the kernels built on demand,
+    with TF32 off as in `main`. Its kernels line holds what this run
+    measured: each kernel's bench launches and the B = 256 SupCon
+    error."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    global CARD
+    CARD = read_card()
+    print(CARD)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    results = {name: {"name": name} for name in _counters()}
+    bench_phase(torch.device("cuda", 0), results)
+    print(f"bench phase: {time.perf_counter() - t0:.1f} s [{CARD}]")
+    print(json.dumps({"kernels": list(results.values())}))
+    return 0
 
 
 def fit_main() -> int:
@@ -3134,6 +3341,9 @@ def main() -> int:
         results[name]["parallel_launches"] = n
     results["attention_fwd"]["parallel"] = par
     print(f"parallel phase (own process): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bench_phase(dev, results)
+    print(f"bench phase: {time.perf_counter() - t0:.1f} s [{CARD}]")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -3143,5 +3353,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit({"--fit": fit_main, "--parallel": parallel_main}.get(
+    sys.exit({"--fit": fit_main, "--parallel": parallel_main,
+              "--bench": bench_main}.get(
         sys.argv[1] if len(sys.argv) == 2 else None, main)())

@@ -369,8 +369,13 @@ def test_refuses_what_it_does_not_run():
     w = _noisy_trainer().state_dict()
     weights = {k: w[k] for k in ("encoder", "compression", "classifier")}
     cfg = port_config(TINY)
-    with pytest.raises(ValueError, match="grad_dtype='float32'"):
-        BaselineTrainer(BaselineConfig(**{**KW, "compute_dtype": "bfloat16"}),
+    # fp32 weight gradients under bf16 compute: what the JAX trainer
+    # computes there (tests/test_torch_train.py holds it), accepted
+    BaselineTrainer(BaselineConfig(**{**KW, "compute_dtype": "bfloat16"}),
+                    cfg.with_(apply_spec_augment=True), weights,
+                    device="cpu")
+    with pytest.raises(ValueError, match="grad_dtype='bfloat16'"):
+        BaselineTrainer(BaselineConfig(**{**KW, "grad_dtype": "bfloat16"}),
                         cfg, weights, device="cpu")
     with pytest.raises(ValueError, match="rawboost_mode"):
         BaselineTrainer(BaselineConfig(**{**KW, "rawboost_mode": "gpu"}),

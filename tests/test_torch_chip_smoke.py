@@ -15,7 +15,9 @@ import torch
 
 import jax
 
-from chip_smoke import (LEG_B, LEG_PP, PARALLEL_GRAD_COS, PARALLEL_NORM_RTOL,
+from chip_smoke import (BENCH_LEGS, LEG_B, LEG_PP, PARALLEL_GRAD_COS,
+                        PARALLEL_NORM_RTOL, bench_expected, check_bench,
+                        run_bench_legs,
                         PARALLEL_UPDATE_COS, norm_ratios,
                         QUANT_REL_TOL, _rel,
                         baseline_weights, parallel_leg_b,
@@ -293,3 +295,48 @@ def test_parallel_leg_b_on_cpu(tmp_path):
         assert out["leg_b"][leg]["min_grad_cos"] >= PARALLEL_GRAD_COS
         assert out["leg_b"][leg]["max_norm_dev"] <= PARALLEL_NORM_RTOL
         assert len(out["leg_b"][leg]["losses"]) == 2   # the tiny job's
+
+
+def test_bench_phase_helpers_on_cpu():
+    """The bench phase's legs at tiny sizes on the CPU, through a leg
+    function and through the command's `main`, where every wrapper runs
+    its plain version and counts nothing; its exact launch counts at the
+    phase's sizes; its checks refuse a miscount and a non-finite
+    number."""
+    legs = (("decode", "bench_decode", dict(n_files=4, seconds=1,
+                                            repeats=1)),
+            ("supcon", "bench_supcon", dict(batch=32, dim=16, repeats=2)),
+            ("serving", "main", ["--which", "serving", "--serving_model",
+                                 "tiny", "--serving_batch", "2",
+                                 "--serving_seconds", "1",
+                                 "--serving_repeats", "2"]))
+    out, counts, secs = run_bench_legs(torch.device("cpu"), legs)
+    assert set(out) == set(counts) == set(secs) == {"decode", "supcon",
+                                                    "serving"}
+    assert all(n == 0 for c in counts.values() for n in c.values())
+    assert out["supcon"]["supcon_cuda_steps_per_sec"] is None
+    assert out["serving"]["serving_batch"] == 2
+    check_bench(out, counts, {}, XLSR_300M)
+
+    want = bench_expected(BENCH_LEGS, XLSR_300M)
+    zero = dict.fromkeys(counts["decode"], 0)
+    # serving: 3 x (30 + 1) batches, w8a8 3 x (10 + 1); extract:
+    # 3 x (10 + 1); supcon in 'all' 50 + 1
+    assert want["serving"] == dict(zero, attention_fwd=24 * 93,
+                                   ln_gelu_fwd=7 * 93)
+    assert want["serving_w8a8"] == dict(zero, attention_fwd=24 * 33,
+                                        ln_gelu_fwd=7 * 33)
+    assert want["extract"] == dict(zero, attention_fwd=24 * 33,
+                                   ln_gelu_fwd=7 * 33)
+    assert want["all"] == dict(zero, supcon=51)
+    assert "socket" not in want
+    with pytest.raises(RuntimeError, match="bench serving: launches"):
+        check_bench(out, counts, {"serving": want["serving"]}, XLSR_300M)
+    with pytest.raises(RuntimeError, match="bench socket: launches"):
+        check_bench(out, dict(counts, socket=dict(zero, attention_fwd=72,
+                                                  ln_gelu_fwd=20)),
+                    {}, XLSR_300M)
+    with pytest.raises(RuntimeError, match="serving_p50_ms"):
+        check_bench(dict(out, serving=dict(out["serving"],
+                                           serving_p50_ms=float("nan"))),
+                    counts, {}, XLSR_300M)

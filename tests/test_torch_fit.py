@@ -306,6 +306,30 @@ def test_cli_exits_75_on_a_marked_guard_and_resumes(corpus, tmp_path,
         cli.main(args[:2] + ["--encoder_init", "pretrained"] + args[4:])
 
 
+def test_cli_debug_nans_raises_on_a_nan(corpus, tmp_path, monkeypatch):
+    """A NaN in the compression's bias: the run trains on through NaN
+    losses, and with --debug_nans (autograd's anomaly mode with its NaN
+    check) the first step's backward raises; the mode ends with the run."""
+    root, proto = corpus
+
+    def poisoned(*a, **k):
+        enc, comp, head = random_jax_trees(*a, **k)
+        comp["proj"]["bias"][0] = np.nan
+        return enc, comp, head
+
+    monkeypatch.setattr(cli, "random_jax_trees", poisoned)
+    args = ["--model_name", "test/tiny-wav2vec2", "--encoder_init", "random",
+            "--device", "cpu", "--compute_dtype", "float32",
+            "--train_root", root, "--train_protocol", proto, "--epochs", "1",
+            "--batch_size", "8", "--max_duration_seconds", "1",
+            "--input_dim", "32", "--hidden_dim", "16", "--num_workers", "2"]
+    cli.main(args + ["--save_dir", str(tmp_path / "plain")])
+    with pytest.raises(RuntimeError, match="returned nan values"):
+        cli.main(args + ["--save_dir", str(tmp_path / "debug"),
+                         "--debug_nans"])
+    assert not torch.is_anomaly_enabled()
+
+
 def test_default_config_steps_on_cpu():
     """Stage1Config's defaults (device RawBoost 'fft'/'exact', bf16,
     frozen encoder) build and take a step at the tiny width, 5 s clips."""

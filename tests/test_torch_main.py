@@ -1,9 +1,10 @@
 """The port's front door: `python -m wav2vec_contr_loss_torch` lists
-exactly the commands the port has (21, all of the JAX package's but
-bench_components), refuses an unknown one, passes `--help` to every
-command (the five of the baseline and features slice and the three of
-the serving slice among them), and `doctor --device cpu` reports the card's checks as
-absent, passes the waveform-cache check and fails. ~16 s alone."""
+exactly the commands the port has (22, all of the JAX package's, the
+last of them bench_components), refuses an unknown one, passes `--help`
+to every command (the five of the baseline and features slice, the
+three of the serving slice and bench_components among them), and
+`doctor --device cpu` reports the card's checks as absent, passes the
+waveform-cache check and fails. ~16 s alone."""
 
 import importlib
 import os
@@ -14,6 +15,7 @@ import sys
 import pytest
 
 from tests.test_torch_bridge import cap_torch_threads
+from wav2vec_contr_loss_tpu import __main__ as jax_front
 from wav2vec_contr_loss_torch import __main__ as front, cli
 from wav2vec_contr_loss_torch.cli import doctor
 
@@ -38,13 +40,13 @@ def test_lists_exactly_the_port_commands():
     listed = [ln.split()[0] for ln in out.stdout.splitlines()
               if ln.startswith("  ")]
     assert listed == list(front.COMMANDS)
-    # the one command of the JAX package the port does not have
-    assert "bench_components" not in listed
-    assert len(listed) == 21
+    # every command of the JAX package
+    assert len(listed) == 22
+    assert set(listed) == set(jax_front.COMMANDS)
     for present in ("train_baseline", "score_baseline",
                     "score_famous_figures", "extract_encoder_features",
                     "cache_waveforms", "export_serving", "run_sweep",
-                    "verify_parity"):
+                    "verify_parity", "bench_components"):
         assert present in listed
 
 

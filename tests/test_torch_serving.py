@@ -150,4 +150,6 @@ def test_port_imports_no_jax():
         "parallel.mesh", "parallel.collectives", "parallel.mp_smoke",
         "parallel.gloo_probe", "utils.distributed",
         # pipeline and sequence parallelism, metrics and timers
-        "parallel.pipeline", "utils.logging", "utils.timing")} <= walked
+        "parallel.pipeline", "utils.logging", "utils.timing",
+        # the component benchmarks
+        "cli.bench_components")} <= walked

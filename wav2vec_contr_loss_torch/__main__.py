@@ -32,6 +32,7 @@ COMMANDS = {
     "export_reference_checkpoint": "port checkpoint -> reference .pt (stage-1 / stage-2 / baseline)",
     "export_hf_checkpoint": "port encoder -> HF snapshot directory",
     "verify_parity": "score-file EERs against the reference's committed results",
+    "bench_components": "component micro-benchmarks (decode, RawBoost, SupCon, serving, extraction, socket)",
     "cache_waveforms": "prebuild the decode-once waveform cache for a protocol",
     "doctor": "environment check (card, kernel builds, decoder, forward, checkpoints, cache)",
 }

@@ -7,8 +7,8 @@
 The JAX CLI's (wav2vec_contr_loss_tpu/cli/train_stage1.py) flags for the
 config (with `--preset`, one of the published sweep's EXPERIMENT_PRESETS,
 under the other flags), the data, `--loss_mode`, the decode-once
-waveform cache, `--resume` and `--num_workers`, plus `--device` and
-`--compute_dtype`. SIGTERM saves the full state mid-epoch and exits 75
+waveform cache, `--resume`, `--num_workers` and `--debug_nans` (autograd's
+anomaly mode), plus `--device` and `--compute_dtype`. SIGTERM saves the full state mid-epoch and exits 75
 (EX_TEMPFAIL); rerunning with `--resume` continues past the saved batch
 cursor. The encoder starts from seeded random weights or from a port
 checkpoint; nothing is downloaded.
@@ -109,6 +109,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of train steps 2-5 "
                         "into this directory")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="torch.autograd.set_detect_anomaly(True, "
+                        "check_nan=True) for the run, the counterpart of "
+                        "JAX's jax_debug_nans: a NaN in a step's backward "
+                        "raises, naming the op whose forward it traces")
     return p
 
 
@@ -160,6 +165,16 @@ def train_from_features(args, cfg: Stage1Config, save_dir: str,
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if not args.debug_nans:
+        train(args, parser)
+        return
+    import torch
+
+    with torch.autograd.set_detect_anomaly(True, check_nan=True):
+        train(args, parser)
+
+
+def train(args, parser: argparse.ArgumentParser) -> None:
     cfg = config_from_args(args)
     try:   # the JAX package's refusals, before any process joins a gang
         check_layout(pipeline=cfg.param_sharding == "pp",

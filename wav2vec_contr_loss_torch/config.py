@@ -166,7 +166,9 @@ class Stage1Config:
     freeze_feature_extractor: bool = False
     adam_mu_dtype: str = "bfloat16"     # AdamW moment storage; math fp32
     adam_nu_dtype: str = "bfloat16"
-    grad_dtype: str = "auto"            # 'auto' | 'float32' | 'bfloat16'
+    # 'auto' | 'float32' | 'bfloat16': under bf16 compute both give
+    # bf16-rounded dW in fp32 leaves, as the JAX trainer does (optim.py)
+    grad_dtype: str = "auto"
     # multi-process layouts (parallel/mesh.py)
     param_sharding: str = "replicated"  # 'replicated' | 'fsdp' | 'pp'
     pipeline_microbatches: int = 2      # GPipe, 'pp' only
@@ -254,7 +256,9 @@ class BaselineConfig:
     remat_encoder: bool = True
     adam_mu_dtype: str = "bfloat16"     # AdamW moment storage; math fp32
     adam_nu_dtype: str = "bfloat16"
-    grad_dtype: str = "auto"            # 'auto' | 'float32' | 'bfloat16'
+    # 'auto' | 'float32' | 'bfloat16': under bf16 compute both give
+    # bf16-rounded dW in fp32 leaves, as the JAX trainer does (optim.py)
+    grad_dtype: str = "auto"
     rawboost_fir_impl: str = "fft"
     rawboost_isd_mode: str = "exact"
     param_sharding: str = "replicated"  # 'replicated' | 'fsdp'

@@ -42,8 +42,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 __all__ = ["AudioConfig", "AudioLoader", "load_waveform", "pad_or_trim",
-           "resample", "decode_any", "write_wav", "native_decoder",
-           "NATIVE_SRC"]
+           "resample", "decode_any", "decode_batch", "write_wav",
+           "native_decoder", "NATIVE_SRC"]
 
 _PKG = Path(__file__).resolve().parent.parent
 NATIVE_SRC = _PKG.parent / "native" / "w2vaudio.cpp"
@@ -175,6 +175,18 @@ def _native() -> ctypes.CDLL:
         ctypes.c_longlong,                # out capacity (samples)
         ctypes.POINTER(ctypes.c_int),     # out sample rate
     ]
+    # threaded decode of n files into (n, target_len) rows, zero-padded
+    # or trimmed; lengths[i] < 0 marks a file it could not decode
+    lib.w2v_decode_batch.restype = None
+    lib.w2v_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p),  # paths
+        ctypes.c_int,                     # n
+        ctypes.POINTER(ctypes.c_float),   # out (n, target_len)
+        ctypes.c_longlong,                # target_len
+        ctypes.POINTER(ctypes.c_int),     # out sample rates (n,)
+        ctypes.POINTER(ctypes.c_longlong),  # out decoded lengths (n,)
+        ctypes.c_int,                     # threads
+    ]
     return lib
 
 
@@ -201,6 +213,26 @@ def _decode_native(path: str) -> Tuple[np.ndarray, int]:
     if n < 0:
         raise ValueError(f"native decoder failed on {path} (code {n})")
     return buf[:n].copy(), int(sr.value)
+
+
+def decode_batch(paths, target_len: int, threads: int = 8
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The native decoder's threaded batch decode: -> ((n, target_len)
+    float32 rows, each file's first target_len samples zero-padded, at
+    its own rate; (n,) int32 sample rates; (n,) int64 decoded lengths,
+    negative for a file it could not decode, whose row is zeros)."""
+    lib = native_decoder()
+    n = len(paths)
+    encoded = [str(p).encode() for p in paths]
+    arr = (ctypes.c_char_p * n)(*encoded)
+    out = np.zeros((n, target_len), np.float32)
+    srs = np.zeros(n, np.int32)
+    lens = np.zeros(n, np.int64)
+    lib.w2v_decode_batch(
+        arr, n, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        target_len, srs.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), threads)
+    return out, srs, lens
 
 
 def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:

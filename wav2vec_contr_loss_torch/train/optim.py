@@ -50,11 +50,13 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def resolve_grad_bf16(cfg) -> bool:
     """The `grad_dtype` knob ('auto' | 'float32' | 'bfloat16'): 'auto' is
     bf16 weight gradients exactly when compute_dtype is 'bfloat16'. Under
-    bf16 compute the port's transformer weight gradients come out of bf16
-    matrix products, which is what this asks for; the optimizer takes
-    them into fp32 math either way. The trainer refuses the two settings
-    the port does not compute: 'bfloat16' with fp32 compute, and
-    'float32' with bf16 compute (the JAX trainer's fp32 dW there)."""
+    bf16 compute the weight-gradient products of the bf16 linears give
+    bf16-rounded values, which land in the fp32 leaves of the fp32
+    master weights (cast to bf16 at use), whatever this says: the JAX
+    trainer's bf16 `nn.Dense` rounds its dW product to bf16 before the
+    cast's transpose takes it to fp32, so 'float32' and 'bfloat16' give
+    the same step there too. The optimizer's math is fp32 either way.
+    The trainer refuses 'bfloat16' with fp32 compute."""
     gd = getattr(cfg, "grad_dtype", "auto")
     if gd not in ("auto", "float32", "bfloat16"):
         raise ValueError(f"grad_dtype must be 'auto', 'float32' or "

@@ -97,12 +97,6 @@ def check_config(cfg, enc_config: Wav2Vec2Config) -> None:
             "grad_dtype='bfloat16' requires compute_dtype='bfloat16' "
             "(with fp32 compute, bf16 weight gradients would change "
             "what the step computes)")
-    if cfg.grad_dtype == "float32" and cfg.compute_dtype == "bfloat16":
-        raise ValueError(
-            "grad_dtype='float32' with compute_dtype='bfloat16' is not "
-            "ported: the port's bf16 linears give bf16-rounded weight "
-            "gradients, where the JAX trainer differentiates its fp32 "
-            "kernels. Pass grad_dtype='auto' or compute_dtype='float32'.")
     if cfg.rawboost_mode not in ("device", "host", "off"):
         raise ValueError(f"rawboost_mode must be 'device', 'host' or "
                          f"'off'; got {cfg.rawboost_mode!r}")
