@@ -5,6 +5,20 @@
 
 1. Prints the card's name and power limit, and builds the port's CUDA
    kernels from csrc/ (one nvcc per source, all started together).
+1b. fp32 phase (`--fp32` alone), first, under PyTorch's default TF32
+   settings (the script turns TF32 off only after it): the four fp32
+   kernels (attention forward and backward, LN+GELU forward and
+   backward) against their plain versions at the training shapes, the
+   attention backward and the LN+GELU backward bit for bit on two calls;
+   the XLS-R-300M stage-1 step in fp32 at B = 32 x 5 s (dropout 0.1,
+   SpecAugment, remat) for 8 steps with exactly 48/24/7/7/1 launches a
+   step, its peak memory and median ms; the same step at 2 layers, B =
+   4, against the fp32 CPU run (loss, each parameter group's gradient
+   cosine); the fp32 serving batch (8 x 5 s, 24/7 launches a batch)
+   against the fp32 CPU run, and the conv extractor card against CPU
+   (fp32 rounding, where TF32 would land ~1e-3 away); then
+   `train_stage1 --compute_dtype float32 --device cuda` on a synthetic
+   corpus in a child process.
 2. Kernel phase: holds each hand-written kernel against its plain
    PyTorch version on the card, at the shapes the serving path gives it
    (forward kernels) and the training step gives it (dropout, backward
@@ -109,12 +123,14 @@ Needs torch with CUDA, triton and nvcc; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -238,19 +254,22 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
                        "time")
 
 
-def sdpa_backend():
+def sdpa_backend(dtype=torch.bfloat16):
     """(context manager factory, name) of the one SDPA backend that the
-    yardstick runs on: cuDNN's, which takes the additive mask, or the
-    memory-efficient one where cuDNN's is missing."""
+    yardstick runs on at `dtype`: cuDNN's, which takes the additive mask,
+    or the memory-efficient one where cuDNN's is missing or refuses the
+    dtype (fp32)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     F = torch.nn.functional
-    x = torch.zeros(1, 1, 64, 64, device="cuda", dtype=torch.bfloat16)
-    m = torch.zeros(1, 1, 1, 64, device="cuda", dtype=torch.bfloat16)
+    x = torch.zeros(1, 1, 64, 64, device="cuda", dtype=dtype)
+    m = torch.zeros(1, 1, 1, 64, device="cuda", dtype=dtype)
     for backend in (SDPBackend.CUDNN_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION):
         try:
-            with sdpa_kernel([backend]):
+            # a refusal also warns why, once for each backend
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
                 F.scaled_dot_product_attention(x, x, x, attn_mask=m)
             torch.cuda.synchronize()
         except RuntimeError:
@@ -1045,7 +1064,8 @@ def profile_step(step):
         print(f"profile:   {ms_b:8.2f} ms  x{n:<5d} {name[:90]}")
     # the port's own kernels in this step, by their names in the trace
     for tag in ("attention_fwd_kernel", "attention_dq_kernel",
-                "attention_dkdv_kernel",
+                "attention_dkdv_kernel", "attention_fwd_f32_kernel",
+                "attention_dq_f32_kernel", "attention_dkdv_f32_kernel",
                 "_ln_gelu_fwd", "ln_gelu_bwd_kernel",
                 "ln_gelu_sum_partials", "supcon_rows_kernel",
                 "supcon_dz_kernel"):
@@ -1116,6 +1136,523 @@ def step_vs_cpu(dev) -> None:
     if failed:
         raise RuntimeError(f"the GPU bf16 train step disagrees with the CPU "
                            f"fp32 step: {failed}")
+
+
+# ---- fp32 compute on the card ----------------------------------------
+#
+# The fp32 phase runs in `main` before the script turns TF32 off, so it
+# sees what a user's process sees (PyTorch's defaults: cuBLAS without
+# TF32, cuDNN with it), and the CLI leg runs in a child process of its
+# own. Its kernels hold fp32 on both sides, so the tolerances are fp32
+# rounding, not bf16's.
+#
+# attention forward and backward: the kernel and the plain version sum
+# q . k, p . v, g . v and D in other orders (D is g . out in the kernel,
+# sum_j dp p in autograd): ~1e-6 relative; the limit leaves two orders
+# for entries of up to ~30 (dq of a clip with 10 valid frames)
+ATT32_TOL = dict(atol=1e-4, rtol=1e-4)
+# LN+GELU forward and dx: per-row fp32 statistics in another order, the
+# Triton erf, and the backward's A&S erf (1.5e-7 absolute)
+LN32_TOL = dict(atol=1e-5, rtol=1e-5)
+# dscale and dbias: sums over up to 511,968 rows, the kernel's per-block
+# partial sums against autograd's reduction: ~sqrt(n) x 2^-24 x |sum|,
+# ~1e-4 on sums of ~700
+LN32_DPARAM_TOL = dict(atol=1e-3, rtol=1e-5)
+# the step at 2 layers, fp32 on the card against fp32 on the CPU: the
+# same masks and draws on both sides, products summed in other orders
+STEP32_LOSS_RTOL = 1e-4
+STEP32_GRAD_COS = 0.9999         # each parameter group of UPDATE_GROUPS
+# the fp32 serving batch against the fp32 CPU run (24 layers)
+SERVE32_LOGIT_TOL = 1e-3
+# the conv extractor's output, card against CPU, both fp32: fp32
+# rounding through 7 convs and LayerNorms is ~1e-6 of outputs of O(1);
+# cuDNN in TF32 (10 mantissa bits) lands ~1e-3 away, which this catches
+FE32_TOL = 1e-4
+FP32_CLI_CLIPS = 16              # the CLI leg's corpus: 2 steps of 8
+
+
+def fp32_kernel_phase(dev, results) -> None:
+    """The four fp32 kernels against their plain versions on the card at
+    the training shapes. Attention (32, 16, 249, 64) with padded tails
+    and a clip of no valid frame, rates 0 and 0.1: the forward without
+    residuals (no gradient: the custom op) and with them, the backward,
+    its two calls bit for bit, the (B, T, H, 64) views, a gang shard's
+    seed stride. LN+GELU at the rows of the step's 7 convs, forward and
+    backward, two backward calls bit for bit. Device times of kernel,
+    plain version and the nearest PyTorch call (timed only)."""
+    from wav2vec_contr_loss_torch.ops import attention, conv_ln
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    F = torch.nn.functional
+    b, h, t, d = TRAIN_BATCH, 16, 249, 64
+    lengths = torch.full((b,), t, device=dev)
+    lengths[1], lengths[5], lengths[9], lengths[30] = 200, 120, 10, 0
+    bias = _bias_with_tails(lengths, t, dev)
+    q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device=dev)
+                  for _ in range(4))
+    q = q * d ** -0.5
+    seed = 987654321
+    errs = {"fwd": 0.0, "bwd": 0.0}
+
+    def hold(label, kind, got, want, tol):
+        torch.cuda.synchronize()
+        for name, a, w in zip(("out",) if kind == "fwd" else
+                              ("dq", "dk", "dv"), got, want):
+            if a.dtype != torch.float32:
+                raise RuntimeError(f"{label} {name}: {a.dtype}, not fp32")
+            e = (a - w).abs().max().item()
+            errs[kind] = max(errs[kind], e)
+            print(f"attention_{kind}_f32 {label} {name} max_abs_err={e:.3e} "
+                  f"(max |plain| {w.abs().max().item():.3e}, tolerance "
+                  f"{tol})")
+            torch.testing.assert_close(a, w, **tol)
+
+    def grads(fn, *args):
+        ins = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*ins, *args)
+        return out, torch.autograd.grad(out, ins, g, retain_graph=True), ins
+
+    for rate in (0.0, 0.1):
+        label = f"rate {rate} {(b, h, t, d)}"
+        got = attention.fused_attention(q, k, v, bias, seed, rate, h)
+        want = attention.fused_attention_plain(q, k, v, bias, seed, rate)
+        hold(label + " no residuals", "fwd", (got,), (want,), ATT32_TOL)
+        out, dgot, ins = grads(attention.fused_attention, bias, seed, rate,
+                               h)
+        out_p, dwant, ins_p = grads(attention.fused_attention_plain, bias,
+                                    seed, rate)
+        hold(label + " with residuals", "fwd", (out,), (out_p,), ATT32_TOL)
+        hold(label, "bwd", dgot, dwant, ATT32_TOL)
+        if rate > 0.0:
+            again = torch.autograd.grad(out, ins, g, retain_graph=True)
+            if not all(torch.equal(a, b_) for a, b_ in zip(dgot, again)):
+                raise RuntimeError("attention_bwd_f32 is not deterministic")
+            print("attention_bwd_f32: two calls bitwise equal (dq, dk, dv)")
+            bwd_ms = _grad_ms(out, ins, g)
+            bwd_plain_ms = _grad_ms(out_p, ins_p, g)
+    qv, kv, vv = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    if not torch.equal(attention.fused_attention(qv, kv, vv, bias, seed, 0.1,
+                                                 h), got):
+        raise RuntimeError("attention_fwd_f32 differs on strided views")
+    # a shard: batch rows 3-10 and heads 8-15 of a (11, 16) grid
+    first = seed + 3 * 16 + 8
+    sq, sk, sv = (x[3:11, 8:] for x in (q, k, v))
+    got = attention.fused_attention(sq, sk, sv, bias[3:11], first, 0.1, 8,
+                                    seed_stride=16)
+    want = attention.fused_attention_plain(sq, sk, sv, bias[3:11], first,
+                                           0.1, 16)
+    hold("shard of (11, 16), seed stride 16", "fwd", (got,), (want,),
+         ATT32_TOL)
+
+    sdpa_ctx, sdpa_name = sdpa_backend(torch.float32)
+    mask = bias[:, None, None, :]
+    ms = device_ms(lambda: attention.fused_attention(q, k, v, bias, seed,
+                                                     0.1, h))
+    ms_rate0 = device_ms(lambda: attention.fused_attention(q, k, v, bias, 0,
+                                                           0.0, h))
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    ms_resid = device_ms(lambda: attention.fused_attention(qr, kr, vr, bias,
+                                                           seed, 0.1, h))
+    # the plain version at rate 0: its mask's scale goes to the card by a
+    # blocking copy, which device_ms cannot queue behind its sleep
+    plain_ms = device_ms(lambda: attention.fused_attention_plain(
+        q, k, v, bias))
+    with sdpa_ctx():
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0))
+        sdpa, _, ins_l = grads(lambda *x: F.scaled_dot_product_attention(
+            *x, attn_mask=mask, scale=1.0))
+        lib_bwd_ms = _grad_ms(sdpa, ins_l, g)
+    n = b * h * t * d
+    product = 2 * b * h * t * t * d
+    fwd_bound, fwd_by = bound(4 * n * 4 + b * t * 4, 2 * product,
+                              FP32_FLOP_PER_S)
+    bwd_bound, bwd_by = bound(8 * n * 4 + b * t * 4, 5 * product,
+                              FP32_FLOP_PER_S)
+    results["attention_fwd_f32"] = dict(
+        name="attention_fwd_f32", route="cuda",
+        source="wav2vec_contr_loss_torch/csrc/attention_fwd_f32.cu",
+        replaces="wav2vec_contr_loss_tpu/ops/attention_pallas.py:83",
+        max_abs_err=errs["fwd"], ms=ms, plain_ms=plain_ms,
+        bound_ms=fwd_bound, bound_by=fwd_by, library_ms=lib_ms,
+        library=f"SDPA {sdpa_name} fp32", resid_ms=ms_resid,
+        rate0_ms=ms_rate0)
+    results["attention_bwd_f32"] = dict(
+        name="attention_bwd_f32", route="cuda",
+        source="wav2vec_contr_loss_torch/csrc/attention_bwd_f32.cu",
+        replaces="wav2vec_contr_loss_tpu/ops/attention_pallas.py:96",
+        max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=bwd_plain_ms,
+        bound_ms=bwd_bound, bound_by=bwd_by, library_ms=lib_bwd_ms,
+        library=f"SDPA {sdpa_name} fp32 backward")
+    print(f"attention_fwd_f32 {(b, h, t, d)} device time: rate 0.1 "
+          f"{ms:.4f} ms ({ms_resid:.4f} ms writing the backward's "
+          f"residuals), rate 0 {ms_rate0:.4f} ms, plain (rate 0) "
+          f"{plain_ms:.4f} ms, "
+          f"SDPA on {sdpa_name} fp32 {lib_ms:.4f} ms, bound {fwd_bound:.4f} "
+          f"ms ({fwd_by}) [{CARD}]")
+    print(f"attention_bwd_f32 {(b, h, t, d)} rate 0.1 device time: kernels "
+          f"{bwd_ms:.4f} ms, plain autograd {bwd_plain_ms:.4f} ms, SDPA "
+          f"backward on {sdpa_name} fp32 {lib_bwd_ms:.4f} ms, bound "
+          f"{bwd_bound:.4f} ms ({bwd_by}) [{CARD}]")
+    del q, k, v, g, qv, kv, vv, qr, kr, vr, out, out_p, ins, ins_p, sdpa
+    del ins_l, dgot, dwant
+    torch.cuda.empty_cache()
+
+    # LN+GELU at the rows of each conv of a step (B = 32 x 5 s)
+    c = 512
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    shift = 0.1 * torch.randn(c, generator=gen, device=dev)
+    rows_main = TRAIN_BATCH * TRAIN_CONV_FRAMES[0]
+    ln_err = {"fwd": 0.0, "bwd": 0.0}
+    for rows in [TRAIN_BATCH * f for f in TRAIN_CONV_FRAMES]:
+        x = 2.0 * torch.randn(rows, c, generator=gen, device=dev)
+        dy = torch.randn(rows, c, generator=gen, device=dev)
+        ins = [a.detach().requires_grad_() for a in (x, scale, shift)]
+        out = conv_ln.fused_ln_gelu(*ins, 1e-5, True)
+        got = torch.autograd.grad(out, ins, dy, retain_graph=True)
+        ins_p = [a.detach().requires_grad_() for a in (x, scale, shift)]
+        out_p = conv_ln.fused_ln_gelu_plain(*ins_p, 1e-5, True)
+        want = torch.autograd.grad(out_p, ins_p, dy, retain_graph=True)
+        nograd = conv_ln.fused_ln_gelu(x, scale, shift, 1e-5, True)
+        torch.cuda.synchronize()
+        for name, a, w, tol in (
+                ("y", out, out_p, LN32_TOL), ("y no grad", nograd, out_p,
+                                              LN32_TOL),
+                ("dx", got[0], want[0], LN32_TOL),
+                ("dscale", got[1], want[1], LN32_DPARAM_TOL),
+                ("dbias", got[2], want[2], LN32_DPARAM_TOL)):
+            if a.dtype != torch.float32:
+                raise RuntimeError(f"ln_gelu {name}: {a.dtype}, not fp32")
+            e = (a - w).abs().max().item()
+            kind = "fwd" if name.startswith("y") else "bwd"
+            if name in ("y", "y no grad", "dx"):
+                ln_err[kind] = max(ln_err[kind], e)
+            print(f"ln_gelu_{kind}_f32 rows={rows} {name} max_abs_err="
+                  f"{e:.3e} (max |plain| {w.abs().max().item():.3e}, "
+                  f"tolerance {tol})")
+            torch.testing.assert_close(a, w, **tol)
+        again = torch.autograd.grad(out, ins, dy, retain_graph=True)
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+            raise RuntimeError(f"ln_gelu_bwd_f32 rows={rows}: two calls "
+                               f"differ")
+        if rows == rows_main:
+            fwd_ms = device_ms(lambda: conv_ln.fused_ln_gelu(
+                x, scale, shift, 1e-5, True))
+            fwd_plain = device_ms(lambda: conv_ln.fused_ln_gelu_plain(
+                x, scale, shift, 1e-5, True))
+            fwd_lib = device_ms(lambda: F.gelu(F.layer_norm(
+                x, (c,), scale, shift, 1e-5)))
+            ln_bwd_ms = _grad_ms(out, ins, dy)
+            bwd_plain = _grad_ms(out_p, ins_p, dy)
+            ins_l = [a.detach().requires_grad_() for a in (x, scale, shift)]
+            lib = F.gelu(F.layer_norm(ins_l[0], (c,), ins_l[1], ins_l[2],
+                                      1e-5))
+            bwd_lib = _grad_ms(lib, ins_l, dy)
+            del lib, ins_l
+        del x, dy, ins, ins_p, out, out_p, got, want, nograd, again
+    torch.cuda.empty_cache()
+    print("ln_gelu_bwd_f32: two calls bitwise equal (dx, dscale, dbias) at "
+          "every row count")
+    n = rows_main * c
+    fb, fby = bound(2 * n * 4 + 2 * c * 4, 16 * n, FP32_FLOP_PER_S)
+    bb, bby = bound(3 * n * 4 + 4 * c * 4, 30 * n, FP32_FLOP_PER_S)
+    results["ln_gelu_fwd_f32"] = dict(
+        name="ln_gelu_fwd_f32", route="triton",
+        source="wav2vec_contr_loss_torch/ops/conv_ln.py",
+        replaces="wav2vec_contr_loss_tpu/ops/conv_ln_pallas.py:58",
+        max_abs_err=ln_err["fwd"], ms=fwd_ms, plain_ms=fwd_plain,
+        bound_ms=fb, bound_by=fby, library_ms=fwd_lib,
+        library="F.layer_norm+F.gelu fp32")
+    results["ln_gelu_bwd_f32"] = dict(
+        name="ln_gelu_bwd_f32", route="cuda",
+        source="wav2vec_contr_loss_torch/csrc/ln_gelu_bwd.cu",
+        replaces="wav2vec_contr_loss_tpu/ops/conv_ln_pallas.py:69",
+        max_abs_err=ln_err["bwd"], ms=ln_bwd_ms, plain_ms=bwd_plain,
+        bound_ms=bb, bound_by=bby, library_ms=bwd_lib,
+        library="autograd of F.layer_norm+F.gelu fp32")
+    print(f"ln_gelu_fwd_f32 ({rows_main},{c}) gelu: kernel {fwd_ms:.4f} ms, "
+          f"plain {fwd_plain:.4f} ms, F.layer_norm+F.gelu {fwd_lib:.4f} ms, "
+          f"bound {fb:.4f} ms ({fby}) [{CARD}]")
+    print(f"ln_gelu_bwd_f32 ({rows_main},{c}) gelu: kernel {ln_bwd_ms:.4f} "
+          f"ms, "
+          f"plain autograd {bwd_plain:.4f} ms, F.layer_norm+F.gelu backward "
+          f"{bwd_lib:.4f} ms, bound {bb:.4f} ms ({bby}) [{CARD}]")
+
+
+def fp32_step_config(**kw):
+    """The fp32 stage-1 step: the port's Stage1Config defaults with
+    finetune_encoder=True, use_rawboost=False and compute_dtype float32
+    (dropout 0.1, SpecAugment, remat; grad_dtype 'auto' is fp32)."""
+    from wav2vec_contr_loss_torch import Stage1Config
+
+    return Stage1Config(finetune_encoder=True, use_rawboost=False,
+                        compute_dtype="float32", **kw)
+
+
+def fp32_step_phase(dev, results) -> None:
+    """The XLS-R-300M stage-1 step in fp32 at B = 32 x 5 s: 8 steps on
+    one fixed batch with the counters set to 0 just before and read just
+    after (exactly 48/24/7/7/1 launches a step), finite losses that fall,
+    the peak memory and the median ms of steps 2-8."""
+    from wav2vec_contr_loss_torch import XLSR_300M, Stage1Trainer
+    from wav2vec_contr_loss_torch.train.optim import resolve_grad_bf16
+
+    cfg, scfg = XLSR_300M, fp32_step_config()
+    t0 = time.perf_counter()
+    trainer = Stage1Trainer(scfg, cfg, xlsr_weights(), device=dev)
+    if trainer.enc_config.dtype != "float32" or resolve_grad_bf16(scfg):
+        raise RuntimeError("the fp32 trainer does not compute in fp32")
+    print(f"fp32 train: XLS-R-300M finetune, B={scfg.batch_size} x 5 s, "
+          f"compute {trainer.enc_config.dtype}, grads fp32, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batch = train_batch(np.random.default_rng(2), scfg.batch_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch, 1.0)["loss"].item())
+        times.append(time.perf_counter() - t0)
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: n * TRAIN_STEPS
+            for k, n in expected_train_launches(scfg, cfg).items()}
+    print(f"fp32 train: losses {[round(x, 5) for x in losses]}; launches "
+          f"over {TRAIN_STEPS} steps {counts}, expected {want}")
+    if counts != want:
+        raise RuntimeError("fp32 train-step launch counts differ from the "
+                           "config")
+    if not np.isfinite(losses).all():
+        raise RuntimeError("non-finite fp32 training loss")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise RuntimeError("the fp32 loss did not fall over the fixed batch")
+    ms = 1e3 * float(np.median(times[1:]))
+    print(f"fp32 train: step {ms:.1f} ms (median of steps 2-{TRAIN_STEPS}; "
+          f"step 1 {1e3 * times[0]:.1f} ms), {1e3 * scfg.batch_size / ms:.1f} "
+          f"clips/s, peak device memory {peak:.2f} GiB [{CARD}]")
+    for name in ("attention_fwd", "attention_bwd", "ln_gelu_fwd",
+                 "ln_gelu_bwd"):
+        results[f"{name}_f32"]["launches"] = counts[name]
+    busy, n_ops = profile_step(lambda: trainer.train_step(batch, 1.0))
+    results["attention_fwd_f32"]["fp32_step"] = dict(
+        ms=ms, peak_gib=peak, losses=losses, busy_ms=busy, device_ops=n_ops)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def fp32_step_vs_cpu(dev) -> None:
+    """The fp32 step at 2 layers and full width, B = 4, dropout and
+    SpecAugment on and the conv tower under remat too: the card against
+    the CPU, both fp32, from the same weights, batch and draws. The loss
+    within STEP32_LOSS_RTOL, and each parameter group's first-step
+    gradient (UPDATE_GROUPS) at cosine >= STEP32_GRAD_COS."""
+    from wav2vec_contr_loss_torch import (XLSR_300M, Stage1Trainer,
+                                          jax_params_to_torch)
+    from wav2vec_contr_loss_torch.parallel.mp_smoke import gradients
+
+    cfg = XLSR_300M.with_(num_layers=2, mask_time_prob=0.2,
+                          mask_time_length=5)
+    weights = jax_params_to_torch(cfg, *random_jax_trees(cfg, seed=3))
+    scfg = fp32_step_config(batch_size=4, remat_conv=True)
+    batch = train_batch(np.random.default_rng(4), 4)
+    out = {}
+    for side, device in (("gpu", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        tr = Stage1Trainer(scfg, cfg, weights, device=device)
+        loss = tr.train_step(batch, 0.5)["loss"].item()
+        out[side] = (loss, gradients(tr), time.perf_counter() - t0)
+    (lg, gg, _), (lc, gc, cpu_s) = out["gpu"], out["cpu"]
+    rel = abs(lg - lc) / abs(lc)
+    cos = update_cosines(None, gg, gc)
+    print(f"fp32 train step vs CPU fp32, 2 layers ({cpu_s:.1f} s on the "
+          f"CPU): loss gpu {lg:.7f} cpu {lc:.7f} (relative {rel:.3e}, tol "
+          f"{STEP32_LOSS_RTOL}); gradient cosines "
+          + ", ".join(f"{k} {c:.7f}" for k, c in cos.items())
+          + f" (tol >= {STEP32_GRAD_COS})")
+    if set(cos) != set(UPDATE_GROUPS):
+        raise RuntimeError(f"gradient groups {sorted(cos)}")
+    if not (rel <= STEP32_LOSS_RTOL
+            and all(c >= STEP32_GRAD_COS for c in cos.values())):
+        raise RuntimeError("the fp32 train step on the card disagrees with "
+                           "the fp32 CPU step")
+
+
+def conv_extractor_vs_cpu(encoder, waves, dev) -> tuple:
+    """(max |card - CPU| of the conv extractor's output, the largest CPU
+    output) for `encoder` (fp32, on the card) on `waves`, against a CPU
+    copy; the card side as the process's cuDNN settings make it."""
+    import copy
+
+    cpu = copy.deepcopy(encoder.feature_extractor).to("cpu")
+    with torch.no_grad():
+        got = encoder.feature_extractor(torch.from_numpy(waves).to(dev))
+        want = cpu(torch.from_numpy(waves))
+    return (got.cpu() - want).abs().max().item(), want.abs().max().item()
+
+
+def fp32_serve_phase(dev, results):
+    """The fp32 serving batch at XLS-R-300M width on the card: a scorer
+    with compute dtype float32 scores 4 batches of 8 x 5 s (exactly 24
+    attention and 7 LN+GELU launches a batch, nothing else), then ms a
+    batch and peak memory. -> (scorer, the batches, batch 0's logits)
+    for `fp32_serve_vs_cpu`."""
+    from wav2vec_contr_loss_torch import XLSR_300M, SpoofScorer, Stage2Config
+
+    cfg = XLSR_300M.with_(dtype="float32")
+    scorer = SpoofScorer(cfg, xlsr_weights(), Stage2Config(), device=dev)
+    waves = serving_waves(np.random.default_rng(1), N_BATCHES)
+    _reset_counters()
+    logits = np.stack([scorer.score_waveforms(w) for w in waves])
+    torch.cuda.synchronize()
+    counts = _counters()
+    want = dict({k: 0 for k in counts},
+                attention_fwd=cfg.num_layers * N_BATCHES,
+                ln_gelu_fwd=7 * N_BATCHES)
+    print(f"fp32 serve: {N_BATCHES} batches -> launches {counts}, expected "
+          f"{want}")
+    if counts != want:
+        raise RuntimeError("fp32 serving launch counts differ")
+    results["attention_fwd_f32"]["serving_launches"] = counts["attention_fwd"]
+    results["ln_gelu_fwd_f32"]["serving_launches"] = counts["ln_gelu_fwd"]
+    if not np.isfinite(logits).all():
+        raise RuntimeError("non-finite fp32 logits")
+    ms, p90 = closed_loop_ms(scorer.score_waveforms, waves)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"fp32 serve: {ms:.2f} ms per batch of {BATCH} x 5 s (closed "
+          f"loop, median of 30, p90 {p90:.2f}), {1e3 * BATCH / ms:.1f} "
+          f"clips/s, peak device memory {peak:.2f} GiB [{CARD}]")
+    results["attention_fwd_f32"]["fp32_serving"] = dict(
+        ms=ms, p90_ms=p90, peak_gib=peak)
+    return scorer, waves, logits[0]
+
+
+def fp32_serve_vs_cpu(scorer, waves, logits0, dev, results) -> None:
+    """The fp32 serving batch 0 against the same model in fp32 on the
+    CPU; the conv extractor card against CPU under the process's cuDNN
+    defaults (TF32 on for other convs), and again with the model's TF32
+    scope taken away, to show the check sees TF32."""
+    from unittest import mock
+
+    from wav2vec_contr_loss_torch import SpoofScorer, Stage2Config
+    from wav2vec_contr_loss_torch.models import wav2vec2
+
+    cpu = SpoofScorer(scorer.enc_config, xlsr_weights(), Stage2Config(),
+                      device="cpu")
+    t0 = time.perf_counter()
+    _, want = cpu.run(torch.from_numpy(waves[0]))
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(logits0 - want.numpy()).max())
+    print(f"fp32 serve vs CPU fp32, batch 0 ({cpu_s:.1f} s on the CPU): "
+          f"logit max_abs_err {err:.3e} (tol {SERVE32_LOGIT_TOL}); gpu "
+          f"{np.array2string(logits0, precision=5)}")
+    if not err <= SERVE32_LOGIT_TOL:
+        raise RuntimeError("fp32 serving on the card disagrees with the CPU")
+    fe_err, fe_max = conv_extractor_vs_cpu(scorer.encoder, waves[0, :2], dev)
+    with mock.patch.object(wav2vec2, "fp32_convs", contextlib.nullcontext):
+        tf32_err, _ = conv_extractor_vs_cpu(scorer.encoder, waves[0, :2],
+                                            dev)
+    print(f"fp32 conv extractor vs CPU (cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}): max_abs_err {fe_err:.3e} of "
+          f"outputs up to {fe_max:.3e} (tol {FE32_TOL}); with the model's "
+          f"TF32 scope taken away {tf32_err:.3e}")
+    if not fe_err <= FE32_TOL:
+        raise RuntimeError("the fp32 conv extractor on the card is not fp32")
+    results["attention_fwd_f32"]["fp32_serving"].update(
+        logit_err=err, conv_extractor_err=fe_err,
+        conv_extractor_tf32_err=tf32_err)
+
+
+def fp32_cli_args(root: str, protocol: str, save: str) -> list:
+    """`train_stage1 --compute_dtype float32` on the card at XLS-R-300M
+    width (seeded random encoder) for one epoch of 2 steps of 8 x 2 s."""
+    return ["--device", "cuda", "--compute_dtype", "float32",
+            "--encoder_init", "random", "--train_root", root,
+            "--train_protocol", protocol, "--epochs", "1", "--batch_size",
+            "8", "--max_duration_seconds", "2", "--num_workers", "4",
+            "--save_dir", save]
+
+
+def start_fp32_cli(tmp: str) -> tuple:
+    """Start `python -m wav2vec_contr_loss_torch.cli.train_stage1
+    --compute_dtype float32 --device cuda` on a synthetic corpus, in a
+    child process with PyTorch's default TF32 settings. -> what
+    `finish_fp32_cli` takes."""
+    root = os.path.join(tmp, "fp32_corpus")
+    os.makedirs(root)
+    proto = write_corpus(root, FP32_CLI_CLIPS, seed=13, seconds=2.0)
+    save = os.path.join(tmp, "fp32_run")
+    child = subprocess.Popen(
+        [sys.executable, "-m", "wav2vec_contr_loss_torch.cli.train_stage1",
+         *fp32_cli_args(root, proto, save)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return child, save, time.perf_counter()
+
+
+def finish_fp32_cli(started) -> None:
+    """Wait for the child of `start_fp32_cli`: it must exit 0, train in
+    fp32 and write its checkpoints."""
+    from wav2vec_contr_loss_torch.train import checkpoint as ckpt
+
+    child, save, t0 = started
+    try:
+        out, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    run = os.path.join(save, "facebook__wav2vec2-xls-r-300m")
+    ok = (child.returncode == 0 and "COMPUTE_DTYPE=float32" in out
+          and "Stage-1 training complete" in out
+          and ckpt.checkpoint_exists(run, "latest"))
+    print(f"fp32 CLI: train_stage1 --compute_dtype float32 --device cuda "
+          f"exit {child.returncode} after {time.perf_counter() - t0:.1f} s "
+          f"(beside the CPU references)")
+    if not ok:
+        print(out[-4000:])
+        print(err[-4000:], file=sys.stderr)
+        raise RuntimeError("train_stage1 --compute_dtype float32 on the card "
+                           "failed")
+    print("\n".join("fp32 CLI: " + line for line in out.splitlines()
+                    if "loss" in line.lower())[-2000:])
+
+
+def fp32_phase(dev, results) -> None:
+    """Every fp32 leg, with PyTorch's default TF32 settings: kernels, the
+    full-width step, serving on the card; then the CLI in a child while
+    this process runs the CPU references (the 2-layer step, the serving
+    batch, the conv extractor); the process's TF32 settings are the same
+    after as before."""
+    import shutil
+    import tempfile
+
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    t0 = time.perf_counter()
+    fp32_kernel_phase(dev, results)
+    fp32_step_phase(dev, results)
+    scorer, waves, logits0 = fp32_serve_phase(dev, results)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fp32_")
+    try:
+        cli = start_fp32_cli(tmp)
+        try:
+            fp32_step_vs_cpu(dev)
+            fp32_serve_vs_cpu(scorer, waves, logits0, dev, results)
+        finally:
+            finish_fp32_cli(cli)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del scorer
+    torch.cuda.empty_cache()
+    after = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if after != before:
+        raise RuntimeError(f"the fp32 path changed the process's TF32 "
+                           f"settings: {before} -> {after}")
+    print(f"fp32 phase: {time.perf_counter() - t0:.1f} s (cudnn.allow_tf32 "
+          f"{after[0]}, matmul.allow_tf32 {after[1]}) [{CARD}]")
 
 
 def write_corpus(root: str, n: int, seed: int, seconds: float = 5.0,
@@ -3233,6 +3770,23 @@ def bench_main() -> int:
     return 0
 
 
+def fp32_main() -> int:
+    """The fp32 phase alone (`--fp32`), the kernels built on demand, at
+    PyTorch's default TF32 settings as in `main`."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    global CARD
+    CARD = read_card()
+    print(CARD)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    results = {}
+    fp32_phase(torch.device("cuda", 0), results)
+    print(json.dumps({"kernels": list(results.values())}))
+    return 0
+
+
 def fit_main() -> int:
     """The fit phase, then the pipeline phase from its checkpoint, in a
     process of its own (`--fit`): the fit phase needs
@@ -3288,9 +3842,6 @@ def main() -> int:
     print(CARD)                        # card name, power limit
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    # fp32 on the card without TF32, for the fp32 parts of the path
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
     names = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
@@ -3303,6 +3854,14 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     dev = torch.device("cuda", 0)
+    # the fp32 path under PyTorch's default TF32 settings, as a user's
+    # process has them
+    fp32_results = {}
+    fp32_phase(dev, fp32_results)
+    # then fp32 without TF32 for the fp32 parts of the other phases (their
+    # CPU references, RawBoost, SupCon)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     results = kernel_phase(dev)
     train_kernel_phase(dev, results)
@@ -3345,6 +3904,7 @@ def main() -> int:
     bench_phase(dev, results)
     print(f"bench phase: {time.perf_counter() - t0:.1f} s [{CARD}]")
 
+    results.update(fp32_results)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3354,5 +3914,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--fit": fit_main, "--parallel": parallel_main,
-              "--bench": bench_main}.get(
+              "--bench": bench_main, "--fp32": fp32_main}.get(
         sys.argv[1] if len(sys.argv) == 2 else None, main)())

@@ -249,7 +249,9 @@ def test_cuda_checks_refuse_what_tma_cannot_take():
     view = x.transpose(1, 2)                     # (B, H, T, 64) view
     attention._check_cuda((view, view.contiguous()), 64)
     bad = {
-        "dtype": view.float(),
+        # fp32 goes to the fp32 kernels (tests/test_torch_fp32.py); no
+        # kernel takes fp16
+        "dtype": view.half(),
         "head dim not contiguous": torch.zeros(2, 3, 64, 10,
                                                dtype=BF16).transpose(2, 3),
         "row stride not a multiple of 8": torch.zeros(

@@ -62,10 +62,11 @@ def gang(tmp_path_factory):
     out2, out4 = str(root / "two"), str(root / "four")
     single = mp_smoke.write_single_checkpoint(os.path.join(out2, "single"))
     with ThreadPoolExecutor(2) as pool:
-        two = pool.submit(mp_smoke.launch_gang, out2, LEGS2, 2, timeout=300,
-                          grads=True, save=["pp"])
+        two = pool.submit(mp_smoke.launch_gang, out2, LEGS2, 2,
+                          device="cpu", timeout=300, grads=True,
+                          save=["pp"])
         four = pool.submit(mp_smoke.launch_gang, out4, LEGS4, 4,
-                           timeout=300, grads=True)
+                           device="cpu", timeout=300, grads=True)
         refs = {"ref": mp_smoke.run_leg("dp", None, "cpu", grads=True),
                 "ref_sp": mp_smoke.run_leg("tp_sp", None, "cpu",
                                            grads=True),

@@ -79,7 +79,7 @@ def runs(tmp_path_factory):
                                    init["compression"], {}), weights)
     with ThreadPoolExecutor(1) as pool:
         gang = pool.submit(mp_smoke.launch_gang, out, list(MESHES), n=2,
-                           weights=weights, timeout=300)
+                           device="cpu", weights=weights, timeout=300)
         want = {}
         for leg in MESHES:
             job, mesh, trainer = trainer_for(leg)

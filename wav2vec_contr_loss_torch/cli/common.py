@@ -55,12 +55,14 @@ def add_encoder_args(p: argparse.ArgumentParser) -> None:
         help="the encoder architecture (an HF id of KNOWN_ARCHS)")
     p.add_argument(
         "--encoder_init", type=str, default="pretrained",
-        help="'random' = seeded random weights; a path = a directory "
-             "written by convert_hf_checkpoint, or the encoder of a port "
-             "stage-1 checkpoint (<dir>/<name>.pt beside its "
-             "<name>.config.json); 'pretrained' is refused: the port "
-             "downloads nothing (convert a local HF snapshot with "
-             "convert_hf_checkpoint)")
+        help="'pretrained' = the --model_name snapshot in the local "
+             "HuggingFace cache ($HF_HUB_CACHE, else $HF_HOME/hub, else "
+             "~/.cache/huggingface/hub; refused when it is not there: the "
+             "port downloads nothing); 'random' = seeded random weights; "
+             "a path = an HF snapshot directory (config.json and its "
+             "weights), a directory written by convert_hf_checkpoint, or "
+             "the encoder of a port stage-1 checkpoint (<dir>/<name>.pt "
+             "beside its <name>.config.json)")
 
 
 def add_cache_args(p: argparse.ArgumentParser,
@@ -142,20 +144,31 @@ def rank_log(*args, **kw) -> None:
 
 def load_encoder_init(encoder_init: str, model_name: str
                       ) -> Tuple[Wav2Vec2Config, Dict[str, torch.Tensor]]:
-    """-> (architecture, encoder state dict or {} for a random init)."""
+    """-> (architecture, encoder state dict or {} for a random init).
+    'pretrained' reads the local HF cache's snapshot of `model_name`
+    and, where there is none, is refused (the JAX package falls back to
+    random weights with a warning)."""
+    from ..models import hf_convert
+
     if encoder_init == "pretrained":
-        raise ValueError(
-            "--encoder_init pretrained needs the HuggingFace checkpoint, "
-            "and the port downloads nothing: convert a local snapshot "
-            "with `python -m wav2vec_contr_loss_torch convert_hf_checkpoint "
-            "--src <snapshot dir> --out <dir>` and pass --encoder_init "
-            "<dir>, or pass --encoder_init random, or the .pt of a port "
-            "stage-1 checkpoint")
+        snap = hf_convert.hf_cache_snapshot(model_name)
+        if snap is None:
+            raise ValueError(
+                f"--encoder_init pretrained needs the HuggingFace checkpoint "
+                f"of {model_name} (no snapshot under "
+                f"{hf_convert.hf_hub_cache()}), and the port downloads "
+                f"nothing: convert a local snapshot with `python -m "
+                f"wav2vec_contr_loss_torch convert_hf_checkpoint --src "
+                f"<snapshot dir> --out <dir>` and pass --encoder_init <dir>, "
+                f"or pass --encoder_init random, or the .pt of a port "
+                f"stage-1 checkpoint")
+        encoder_init = snap
     if encoder_init == "random":
         return KNOWN_ARCHS.get(model_name, XLSR_300M), {}
-    from ..models.hf_convert import load_encoder_init as load
-
-    return load(encoder_init)   # a missing path is an error
+    if hf_convert.is_hf_snapshot(encoder_init):
+        return hf_convert.load_local_hf_checkpoint(encoder_init)
+    # a missing path is an error
+    return hf_convert.load_encoder_init(encoder_init)
 
 
 def save_dir_for(base: str, model_name: str) -> str:

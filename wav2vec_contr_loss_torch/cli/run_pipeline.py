@@ -55,9 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_name", type=str,
                    default="facebook/wav2vec2-xls-r-300m")
     p.add_argument("--encoder_init", type=str, default=None,
-                   help="the stage-1 leg's --encoder_init ('random' or a "
-                        "port .pt; 'pretrained', the default, is refused: "
-                        "the port downloads nothing)")
+                   help="the stage-1 leg's --encoder_init ('pretrained', "
+                        "the default: --model_name from the local HF cache, "
+                        "refused when it is not there, since the port "
+                        "downloads nothing; 'random'; an HF snapshot "
+                        "directory or a port .pt)")
     p.add_argument("--work_dir", type=str, default="experiments")
     for split in ("train", "dev", "eval", "itw"):
         p.add_argument(f"--{split}_root", type=str, default="")

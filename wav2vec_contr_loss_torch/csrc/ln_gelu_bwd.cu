@@ -42,7 +42,14 @@
 //     rows in block order. No atomics: two calls give the same bits.
 //
 // C must be a multiple of 256 up to 1024 (the conv width is 512); x, dy
-// and dx are bf16 (rows, C) contiguous and 16-byte aligned.
+// and dx are (rows, C) contiguous and 16-byte aligned, all bf16 or all
+// fp32: the row kernel is one template over the element type, with an
+// entry point each (ln_gelu_bwd, ln_gelu_bwd_f32). Its arithmetic is fp32
+// for both. An fp32 row is twice the bytes, so a stage holds half the
+// rows (8 at C = 512, 16 KB of x and 16 KB of dy as in bf16) and the
+// ring, the occupancy (two blocks an SM at C <= 512) and the registers
+// stay those of the bf16 kernel; a lane's eight fp32 columns are two
+// 16-byte loads. The fp32 bound at 511,968 rows: 3.15 GB, 0.94 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,18 +66,23 @@ constexpr int kThreads = (kWarps + 1) * 32;   // + one producer warp
 constexpr int kStages = 3;
 constexpr int kSumThreads = 1024;             // partial-sum kernel
 
-// rows a consumer warp takes from each stage, rows a stage holds
-template <int NCH>
+// rows a consumer warp takes from each stage, rows a stage holds: a
+// stage of fp32 rows holds half the bf16 count (at least one a warp)
+template <int NCH, typename T>
 struct Shape {
   static constexpr int C = 256 * NCH;
-  static constexpr int kRowsPerWarp = NCH == 1 ? 4 : (NCH == 2 ? 2 : 1);
+  static constexpr int kRowsBf16 = NCH == 1 ? 4 : (NCH == 2 ? 2 : 1);
+  static constexpr int kRowsPerWarp =
+      sizeof(T) == 2 ? kRowsBf16 : (kRowsBf16 > 1 ? kRowsBf16 / 2 : 1);
   static constexpr int kStageRows = kWarps * kRowsPerWarp;
-  static constexpr size_t kStageBytes = (size_t)kStageRows * C * 2;  // one of x, dy
+  static constexpr size_t kStageBytes =
+      (size_t)kStageRows * C * sizeof(T);  // one of x, dy
   static constexpr size_t kRingBytes = kStages * 2 * kStageBytes;
   static constexpr size_t kSmem =
       kRingBytes + 2 * C * sizeof(float) + 2 * kStages * sizeof(uint64_t);
   static_assert(kRingBytes >= (size_t)kWarps * 2 * C * sizeof(float),
                 "the warps' column sums reuse the ring");
+  static_assert(kSmem <= 232448, "a block's shared memory");
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -86,6 +98,29 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+
+// a lane's eight consecutive columns of a row, as fp32, and back
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* d) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(hopper::pack_bf16(d[0], d[1]), hopper::pack_bf16(d[2], d[3]),
+                 hopper::pack_bf16(d[4], d[5]), hopper::pack_bf16(d[6], d[7]));
+}
+
+__device__ __forceinline__ void store8(float* p, const float* d) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(d[0], d[1], d[2], d[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(d[4], d[5], d[6], d[7]);
 }
 
 // erf(x) by Abramowitz & Stegun 7.1.26, given e = exp(-x^2)
@@ -116,15 +151,13 @@ __device__ __forceinline__ void lane_params(const float* p, int c, int lane,
 
 // up to C = 512 a thread's row values and column sums fit the 112
 // registers of two blocks an SM; wider rows take one block an SM
-template <int NCH>
+template <int NCH, typename T>
 __global__ void __launch_bounds__(kThreads, NCH <= 2 ? 2 : 1)
-ln_gelu_bwd_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ dy,
+ln_gelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                    const float* __restrict__ scale,
-                   const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
-                   int n, float eps, int gelu) {
-  using S = Shape<NCH>;
+                   const float* __restrict__ bias, T* __restrict__ dx,
+                   float* __restrict__ part, int n, float eps, int gelu) {
+  using S = Shape<NCH, T>;
   constexpr int C = S::C, V = 8 * NCH;   // columns a lane holds
   extern __shared__ __align__(128) unsigned char smem[];
   float* s_sc = reinterpret_cast<float*>(smem + S::kRingBytes);
@@ -153,7 +186,7 @@ ln_gelu_bwd_kernel(const __nv_bfloat16* __restrict__ x,
   __syncthreads();
 
   auto x_slot = [&](int slot) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + slot * 2 * S::kStageBytes);
+    return reinterpret_cast<T*>(smem + slot * 2 * S::kStageBytes);
   };
   float acc_s[V], acc_b[V];   // the lane's column sums (consumers)
 #pragma unroll
@@ -169,8 +202,8 @@ ln_gelu_bwd_kernel(const __nv_bfloat16* __restrict__ x,
         const long long r0 = (s_begin + it) * S::kStageRows;
         const long long left = (long long)n - r0;
         const int nr = left < S::kStageRows ? (int)left : S::kStageRows;
-        const uint32_t bytes = (uint32_t)nr * C * 2;
-        __nv_bfloat16* xs = x_slot(slot);
+        const uint32_t bytes = (uint32_t)nr * C * sizeof(T);
+        T* xs = x_slot(slot);
         hopper::bar_expect(&full[slot], 2 * bytes);
         hopper::bulk_load(xs, x + r0 * C, bytes, &full[slot]);
         hopper::bulk_load(xs + S::kStageRows * C, dy + r0 * C, bytes,
@@ -183,8 +216,8 @@ ln_gelu_bwd_kernel(const __nv_bfloat16* __restrict__ x,
       const int slot = it % kStages;
       hopper::bar_wait(&full[slot], (it / kStages) & 1);
       const long long r0 = (s_begin + it) * S::kStageRows;
-      const __nv_bfloat16* xs = x_slot(slot);
-      const __nv_bfloat16* gs = xs + S::kStageRows * C;
+      const T* xs = x_slot(slot);
+      const T* gs = xs + S::kStageRows * C;
 #pragma unroll 1
       for (int rr = 0; rr < S::kRowsPerWarp; ++rr) {
         const int loc = warp * S::kRowsPerWarp + rr;
@@ -194,10 +227,8 @@ ln_gelu_bwd_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
           const int col = 256 * c + 8 * lane;
-          unpack8(*reinterpret_cast<const uint4*>(xs + (size_t)loc * C + col),
-                  xv + 8 * c);
-          unpack8(*reinterpret_cast<const uint4*>(gs + (size_t)loc * C + col),
-                  gv + 8 * c);
+          load8(xs + (size_t)loc * C + col, xv + 8 * c);
+          load8(gs + (size_t)loc * C + col, gv + 8 * c);
         }
         float t = 0.f;
 #pragma unroll
@@ -245,17 +276,13 @@ ln_gelu_bwd_kernel(const __nv_bfloat16* __restrict__ x,
         for (int c = 0; c < NCH; ++c) {
           float sc[8];
           lane_params(s_sc, c, lane, sc);
-          uint32_t w[4];
+          float d[8];
 #pragma unroll
-          for (int e = 0; e < 8; e += 2) {
+          for (int e = 0; e < 8; ++e) {
             const int v = 8 * c + e;
-            const float d0 = rstd * (gv[v] * sc[e] - m1 - xv[v] * m2);
-            const float d1 =
-                rstd * (gv[v + 1] * sc[e + 1] - m1 - xv[v + 1] * m2);
-            w[e / 2] = hopper::pack_bf16(d0, d1);
+            d[e] = rstd * (gv[v] * sc[e] - m1 - xv[v] * m2);
           }
-          *reinterpret_cast<uint4*>(dx + row * C + 256 * c + 8 * lane) =
-              make_uint4(w[0], w[1], w[2], w[3]);
+          store8(dx + row * C + 256 * c + 8 * lane, d);
         }
 #pragma unroll
         for (int v = 0; v < V; ++v) {
@@ -321,7 +348,7 @@ ln_gelu_sum_partials(const float* __restrict__ part, float* __restrict__ ds,
   }
 }
 
-template <int NCH>
+template <int NCH, typename T>
 cudaError_t occupancy(int* blocks_per_sm) {
   // the shared-memory attribute is set once per process and device, with
   // the count
@@ -330,11 +357,13 @@ cudaError_t occupancy(int* blocks_per_sm) {
   int dev = 0;
   const cudaError_t err = once([](int d) {
     cudaError_t e = cudaFuncSetAttribute(
-        ln_gelu_bwd_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)Shape<NCH>::kSmem);
+        ln_gelu_bwd_kernel<NCH, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Shape<NCH, T>::kSmem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm[d], ln_gelu_bwd_kernel<NCH>, kThreads, Shape<NCH>::kSmem);
+          &per_sm[d], ln_gelu_bwd_kernel<NCH, T>, kThreads,
+          Shape<NCH, T>::kSmem);
     if (e == cudaSuccess && per_sm[d] < 1) e = cudaErrorInvalidConfiguration;
     return e;
   }, &dev);
@@ -342,34 +371,70 @@ cudaError_t occupancy(int* blocks_per_sm) {
   return err;
 }
 
-template <int NCH>
+template <int NCH, typename T>
 cudaError_t grid_of(int n, int* grid) {
   int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t err = occupancy<NCH>(&per_sm);
+  cudaError_t err = occupancy<NCH, T>(&per_sm);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const long long stages =
-      ((long long)n + Shape<NCH>::kStageRows - 1) / Shape<NCH>::kStageRows;
+      ((long long)n + Shape<NCH, T>::kStageRows - 1) /
+      Shape<NCH, T>::kStageRows;
   const long long most = (long long)sms * per_sm;
   *grid = (int)(stages < most ? stages : most);
   return cudaSuccess;
 }
 
-template <int NCH>
+template <int NCH, typename T>
 cudaError_t launch(const void* x, const void* dy, const void* scale,
                    const void* bias, void* dx, void* part, int n, float eps,
                    int gelu, int grid, cudaStream_t stream) {
   int per_sm = 0;
-  const cudaError_t err = occupancy<NCH>(&per_sm);
+  const cudaError_t err = occupancy<NCH, T>(&per_sm);
   if (err != cudaSuccess) return err;
-  ln_gelu_bwd_kernel<NCH><<<grid, kThreads, Shape<NCH>::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(dx),
-      static_cast<float*>(part), n, eps, gelu);
+  ln_gelu_bwd_kernel<NCH, T>
+      <<<grid, kThreads, Shape<NCH, T>::kSmem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<T*>(dx), static_cast<float*>(part), n, eps, gelu);
   return cudaGetLastError();
+}
+
+template <typename T>
+int grid_for(int n, int C, int* grid) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 256: return (int)grid_of<1, T>(n, grid);
+    case 512: return (int)grid_of<2, T>(n, grid);
+    case 768: return (int)grid_of<3, T>(n, grid);
+    case 1024: return (int)grid_of<4, T>(n, grid);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the row kernel, then the partial sums
+template <typename T>
+int backward(const void* x, const void* dy, const void* scale,
+             const void* bias, void* dx, void* part, void* dscale,
+             void* dbias, int n, int C, float eps, int gelu, int grid,
+             void* stream) {
+  if (n <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (C) {
+    case 256: err = launch<1, T>(x, dy, scale, bias, dx, part, n, eps, gelu, grid, s); break;
+    case 512: err = launch<2, T>(x, dy, scale, bias, dx, part, n, eps, gelu, grid, s); break;
+    case 768: err = launch<3, T>(x, dy, scale, bias, dx, part, n, eps, gelu, grid, s); break;
+    case 1024: err = launch<4, T>(x, dy, scale, bias, dx, part, n, eps, gelu, grid, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  ln_gelu_sum_partials<<<(2 * C + 31) / 32, kSumThreads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(dscale),
+      static_cast<float*>(dbias), grid, C);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -378,38 +443,32 @@ extern "C" {
 
 // The persistent grid for n rows of C channels: min(SMs x blocks an SM,
 // row stages). The caller allocates a (grid, 2, C) fp32 partial buffer.
+// One entry per element type (the fp32 stages hold fewer rows).
 int ln_gelu_bwd_grid(int n, int C, int* grid) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  switch (C) {
-    case 256: return (int)grid_of<1>(n, grid);
-    case 512: return (int)grid_of<2>(n, grid);
-    case 768: return (int)grid_of<3>(n, grid);
-    case 1024: return (int)grid_of<4>(n, grid);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return grid_for<__nv_bfloat16>(n, C, grid);
 }
 
-// x, dy, dx: (n, C) bf16; scale, bias, dscale, dbias: (C,) fp32; part:
-// (grid, 2, C) fp32 scratch; grid from ln_gelu_bwd_grid.
+int ln_gelu_bwd_grid_f32(int n, int C, int* grid) {
+  return grid_for<float>(n, C, grid);
+}
+
+// x, dy, dx: (n, C) bf16 (ln_gelu_bwd) or fp32 (ln_gelu_bwd_f32); scale,
+// bias, dscale, dbias: (C,) fp32; part: (grid, 2, C) fp32 scratch; grid
+// from the entry of the same type.
 int ln_gelu_bwd(const void* x, const void* dy, const void* scale,
                 const void* bias, void* dx, void* part, void* dscale,
                 void* dbias, int n, int C, float eps, int gelu, int grid,
                 void* stream) {
-  if (n <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (C) {
-    case 256: err = launch<1>(x, dy, scale, bias, dx, part, n, eps, gelu, grid, s); break;
-    case 512: err = launch<2>(x, dy, scale, bias, dx, part, n, eps, gelu, grid, s); break;
-    case 768: err = launch<3>(x, dy, scale, bias, dx, part, n, eps, gelu, grid, s); break;
-    case 1024: err = launch<4>(x, dy, scale, bias, dx, part, n, eps, gelu, grid, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  ln_gelu_sum_partials<<<(2 * C + 31) / 32, kSumThreads, 0, s>>>(static_cast<const float*>(part),
-                                 static_cast<float*>(dscale),
-                                 static_cast<float*>(dbias), grid, C);
-  return (int)cudaGetLastError();
+  return backward<__nv_bfloat16>(x, dy, scale, bias, dx, part, dscale, dbias,
+                                 n, C, eps, gelu, grid, stream);
+}
+
+int ln_gelu_bwd_f32(const void* x, const void* dy, const void* scale,
+                    const void* bias, void* dx, void* part, void* dscale,
+                    void* dbias, int n, int C, float eps, int gelu, int grid,
+                    void* stream) {
+  return backward<float>(x, dy, scale, bias, dx, part, dscale, dbias, n, C,
+                         eps, gelu, grid, stream);
 }
 
 }  // extern "C"

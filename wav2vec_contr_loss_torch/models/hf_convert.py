@@ -32,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +40,8 @@ import torch
 from ..config import Wav2Vec2Config, config_from_dict
 
 __all__ = ["config_from_hf", "fold_weight_norm", "convert_hf_state_dict",
-           "read_safetensors", "load_local_hf_checkpoint",
+           "read_safetensors", "load_local_hf_checkpoint", "hf_hub_cache",
+           "hf_cache_snapshot", "is_hf_snapshot",
            "save_encoder_init", "load_encoder_init", "encoder_keys"]
 
 POS_CONV = "encoder.pos_conv_embed.conv"
@@ -227,6 +228,38 @@ def load_local_hf_checkpoint(src: str
     for wf in weight_files:
         sd.update(_read_weight_file(wf))
     return cfg, convert_hf_state_dict(sd, cfg)
+
+
+def hf_hub_cache() -> str:
+    """The local HuggingFace hub cache: $HF_HUB_CACHE, else $HF_HOME/hub,
+    else ~/.cache/huggingface/hub."""
+    if os.environ.get("HF_HUB_CACHE"):
+        return os.environ["HF_HUB_CACHE"]
+    if os.environ.get("HF_HOME"):
+        return os.path.join(os.environ["HF_HOME"], "hub")
+    return os.path.join(os.path.expanduser("~"), ".cache", "huggingface",
+                        "hub")
+
+
+def hf_cache_snapshot(model_name: str) -> Optional[str]:
+    """The snapshot directory of `model_name` ('org/name') in the local
+    hub cache, the revision `refs/main` names
+    (models--org--name/snapshots/<rev>), or None when the cache holds
+    none. Reads files only: no network."""
+    repo = os.path.join(hf_hub_cache(),
+                        "models--" + model_name.replace("/", "--"))
+    ref = os.path.join(repo, "refs", "main")
+    if not os.path.isfile(ref):
+        return None
+    with open(ref) as f:
+        snap = os.path.join(repo, "snapshots", f.read().strip())
+    return snap if is_hf_snapshot(snap) else None
+
+
+def is_hf_snapshot(path: str) -> bool:
+    """A directory holding an HF config.json (a snapshot; a port
+    checkpoint directory holds <name>.config.json instead)."""
+    return os.path.isfile(os.path.join(path, "config.json"))
 
 
 # ----------------------------------------------------------- encoder init

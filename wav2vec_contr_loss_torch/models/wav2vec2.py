@@ -7,7 +7,11 @@ K = num_layers + 1 hidden states. `self.training` stands in for JAX's
 `deterministic=False`.
 
 Numerics follow the JAX code. Parameters stay fp32 and are cast to the
-compute dtype at use, as flax `Dense(dtype=bf16)` does. LayerNorm
+compute dtype at use, as flax `Dense(dtype=bf16)` does. Under fp32
+compute on the card every product is full fp32: cuBLAS keeps PyTorch's
+default (no TF32 matmuls), and the convs run cuDNN with TF32 off in the
+forward and the backward (`_Fp32Conv`), whatever the process's
+`torch.backends.cudnn.allow_tf32`. LayerNorm
 statistics are fp32 everywhere; GELU is exact erf; the layer-mean
 accumulates in fp32. The sequence length of a clip is its count of
 nonzero samples pushed through the conv stride chain; padded frames are
@@ -87,6 +91,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Wav2Vec2Config, feature_frame_length
+from ..device import fp32_convs
 from ..ops.attention import fused_attention
 from ..ops.conv_ln import fused_ln_gelu
 from ..ops.dropout import draw_seed, murmur_dropout
@@ -203,6 +208,31 @@ def _transformer_linear(cfg: Wav2Vec2Config, din: int, dout: int
     return nn.Linear(din, dout)
 
 
+class _Fp32Conv(torch.autograd.Function):
+    """F.conv1d with cuDNN in full fp32, forward and backward: autograd's
+    convolution backward reads the TF32 setting when it runs, so a scope
+    around the forward alone would leave the gradients in TF32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (stride, padding, groups, bias is not None)
+        with fp32_convs():
+            return F.conv1d(x, weight, bias, stride, padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        stride, padding, groups, has_bias = ctx.conv
+        need = ctx.needs_input_grad
+        with fp32_convs():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                g, x, weight, [weight.shape[0]] if has_bias else None,
+                list(stride), list(padding), [1], False, [0], groups,
+                [need[0], need[1], has_bias and need[2]])
+        return dx, dw, db, None, None, None
+
+
 def _conv(m: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu" and x.dtype == torch.bfloat16:
         # oneDNN's bf16 grouped conv on the CPU is wrong at 8 channels a
@@ -210,6 +240,10 @@ def _conv(m: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
         # outputs of 4); the fp32 conv of the bf16 values, rounded once
         return _conv(m, x.float()).to(torch.bfloat16)
     bias = None if m.bias is None else m.bias.to(x.dtype)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        # fp32 compute means fp32 convs: cuDNN would take them in TF32
+        return _Fp32Conv.apply(x, m.weight, bias, m.stride, m.padding,
+                               m.groups)
     return F.conv1d(x, m.weight.to(x.dtype), bias, m.stride, m.padding,
                     groups=m.groups)
 

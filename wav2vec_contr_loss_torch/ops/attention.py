@@ -22,6 +22,22 @@ strides (the head dim contiguous, the other strides multiples of 8
 elements, 16-byte aligned), so the (B, T, H, 64) view of a projection
 output goes in without a copy; the outputs take the layout of q.
 
+fp32 q, k, v (and g) go to fp32 counterparts of both, which compute what
+the plain version computes in fp32, nothing rounded to bf16 (JAX's
+default XLA attention under fp32 compute; the Pallas kernel rounds q, k,
+v and p to bf16 even under fp32 I/O): simple tiled kernels on FFMA, since
+the tensor cores take fp32 only as TF32.
+
+  * csrc/attention_fwd_f32.cu: a block per (query tile, head, batch
+    element), the same two passes and the same row statistics; it writes
+    no out_exact, since in fp32 that is the output itself.
+  * csrc/attention_bwd_f32.cu: the same dq and dk/dv kernels, no atomics.
+
+They take head dim 64 and tensors whose head dim is contiguous and whose
+other strides are multiples of 4 elements (16-byte aligned). Any other
+dtype, or q, k, v (and g) of mixed dtypes, is refused on the card; the
+fp32 kernels count in the same `launches` and `bwd_launches`.
+
 `fused_attention` picks its path by whether a gradient is needed:
 
   * q, k or v needs one: `FusedAttention` on the card (a
@@ -98,6 +114,18 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def _lib_f32() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("attention_fwd_f32")
+    lib.attention_fwd_f32.argtypes = ([_P] * 6 + [_P] * 4 + [_I] * 4
+                                      + [ctypes.c_uint] * 3
+                                      + [ctypes.c_float, _P])
+    lib.attention_fwd_f32.restype = _I
+    return lib
+
+
+@functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     from ._build import load
 
@@ -106,6 +134,18 @@ def _bwd_lib() -> ctypes.CDLL:
                                   + [ctypes.c_uint] * 3
                                   + [ctypes.c_float, _P])
     lib.attention_bwd.restype = _I
+    return lib
+
+
+@functools.cache
+def _bwd_lib_f32() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("attention_bwd_f32")
+    lib.attention_bwd_f32.argtypes = ([_P] * 11 + [_P] * 8 + [_I] * 4
+                                      + [ctypes.c_uint] * 3
+                                      + [ctypes.c_float, _P])
+    lib.attention_bwd_f32.restype = _I
     return lib
 
 
@@ -132,18 +172,38 @@ def _tma_ok(x: torch.Tensor) -> bool:
                     for s in (sb, sh, st)))
 
 
-def _check_cuda(tensors, d: int) -> None:
-    if any(x.dtype != torch.bfloat16 for x in tensors):
-        raise ValueError("the CUDA attention kernels take bfloat16 q, k, v, g")
+def _f32_ok(x: torch.Tensor) -> bool:
+    """What the fp32 kernels' 16-byte loads take: the head dim
+    contiguous, the other strides positive multiples of 4 elements, a
+    16-byte aligned base."""
+    sb, sh, st, sd = x.stride()
+    return (sd == 1 and x.data_ptr() % 16 == 0
+            and all(s > 0 and s % 4 == 0 for s in (sb, sh, st)))
+
+
+_LAYOUT_OK = {torch.bfloat16: _tma_ok, torch.float32: _f32_ok}
+
+
+def _check_cuda(tensors, d: int) -> torch.dtype:
+    """Refuse what neither kernel pair takes. -> the common dtype, which
+    picks the pair: bfloat16 the wgmma kernels, float32 the FFMA ones."""
+    dtypes = {x.dtype for x in tensors}
+    if len(dtypes) != 1 or not dtypes <= set(_LAYOUT_OK):
+        raise ValueError("the CUDA attention kernels take q, k, v, g all "
+                         "bfloat16 or all float32; got "
+                         f"{[x.dtype for x in tensors]}")
+    dtype = dtypes.pop()
     if d != _D:
         raise ValueError(f"the CUDA attention kernels take head dim {_D}; "
                          f"got {d}")
-    if not all(_tma_ok(x) for x in tensors):
+    if not all(_LAYOUT_OK[dtype](x) for x in tensors):
+        mult = 8 if dtype == torch.bfloat16 else 4
         raise ValueError(
             "the CUDA attention kernels take tensors whose head dim is "
-            "contiguous, whose other strides are positive multiples of 8 "
-            "elements, and whose data is 16-byte aligned; got strides "
-            f"{[x.stride() for x in tensors]}")
+            f"contiguous, whose other strides are positive multiples of "
+            f"{mult} elements, and whose data is 16-byte aligned; got "
+            f"strides {[x.stride() for x in tensors]}")
+    return dtype
 
 
 def _strides(x: torch.Tensor):
@@ -167,29 +227,33 @@ def _launch_fwd(q, k, v, bias, seed, rate, seed_stride,
                 with_residuals: bool):
     """-> (out, out_exact, stats): out in q's layout; with
     `with_residuals` (else None) what the backward reads: out_exact, the
-    output with p not rounded to bf16 (in bf16, out's layout), and stats,
-    the fp32 (B, H, Tp, 2) row max and log of the row sum of exp."""
+    output with p not rounded to bf16 (in bf16, out's layout; in fp32 out
+    itself), and stats, the fp32 (B, H, Tp, 2) row max and log of the row
+    sum of exp."""
     global launches
     b, h, t, d = q.shape
-    _check_cuda((q, k, v), d)
+    f32 = _check_cuda((q, k, v), d) == torch.float32
     if not bias.is_contiguous():
         raise ValueError("the CUDA attention kernel takes a contiguous bias")
-    lib = _lib()
     out = torch.empty_like(q)
-    out_exact = torch.empty_like(out) if with_residuals else None
+    out_exact = (None if not with_residuals
+                 else out if f32 else torch.empty_like(out))
     stats = (torch.empty(b, h, _padded_rows(t), 2, dtype=torch.float32,
                          device=q.device) if with_residuals else None)
     ss = [_strides(x) for x in (q, k, v, out)]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr()]
+    if not f32:
+        ptrs.append(None if out_exact is None else out_exact.data_ptr())
+    ptrs.append(None if stats is None else stats.data_ptr())
+    lib, name = ((_lib_f32(), "attention_fwd_f32") if f32
+                 else (_lib(), "attention_fwd"))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(),
-            None if out_exact is None else out_exact.data_ptr(),
-            None if stats is None else stats.data_ptr(),
-            *(ctypes.addressof(s) for s in ss), b, h, t, d,
+        err = getattr(lib, name)(
+            *ptrs, *(ctypes.addressof(s) for s in ss), b, h, t, d,
             *_dropout_args(seed, rate, seed_stride), stream)
-    check(lib, "attention_fwd", err)
+    check(lib, name, err)
     launches += 1
     return out, out_exact, stats
 
@@ -198,9 +262,11 @@ def _launch_bwd(q, k, v, g, out_exact, bias, stats, seed, rate,
                 seed_stride):
     global bwd_launches
     b, h, t, d = q.shape
-    if not _tma_ok(g):
+    if g.dtype in _LAYOUT_OK and not _LAYOUT_OK[g.dtype](g):
         g = g.contiguous()   # e.g. an expanded (stride 0) cotangent
-    _check_cuda((q, k, v, g), d)
+    if _check_cuda((q, k, v, g), d) == torch.float32:
+        return _launch_bwd_f32(q, k, v, g, out_exact, bias, stats, seed,
+                               rate, seed_stride)
     lib = _bwd_lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     tp = _padded_rows(t)
@@ -223,10 +289,33 @@ def _launch_bwd(q, k, v, g, out_exact, bias, stats, seed, rate,
     return dq, dk, dv
 
 
+def _launch_bwd_f32(q, k, v, g, out, bias, stats, seed, rate, seed_stride):
+    """The fp32 backward: `out` is the forward's output (its out_exact)."""
+    global bwd_launches
+    b, h, t, d = q.shape
+    lib = _bwd_lib_f32()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbuf = torch.empty(b, h, _padded_rows(t), dtype=torch.float32,
+                       device=q.device)
+    ss = [_strides(x) for x in (q, k, v, g, out, dq, dk, dv)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.attention_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            out.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+            dbuf.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *(ctypes.addressof(s) for s in ss), b, h, t, d,
+            *_dropout_args(seed, rate, seed_stride), stream)
+    check(lib, "attention_bwd_f32", err)
+    bwd_launches += 1
+    return dq, dk, dv
+
+
 class FusedAttention(torch.autograd.Function):
-    """Forward and backward through the CUDA kernels; the residuals are
-    q, k, v, bias, the output with p unrounded, the fp32 row statistics
-    and the seed, so no probability is stored."""
+    """Forward and backward through the CUDA kernels of q's dtype (bf16
+    or fp32); the residuals are q, k, v, bias, the output with p
+    unrounded (in fp32 the output itself), the fp32 row statistics and
+    the seed, so no probability is stored."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed: int, rate: float,
@@ -251,7 +340,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: torch.Tensor, seed: int, rate: float,
                   seed_stride: int) -> torch.Tensor:
     """The attention forward with no gradient, in q's layout: the kernel
-    (no residuals) for CUDA tensors, the plain version for CPU ones."""
+    of q's dtype (no residuals) for CUDA tensors, the plain version for
+    CPU ones."""
     if q.device.type == "cuda":
         return _launch_fwd(q, k, v, bias, seed, rate, seed_stride, False)[0]
     return torch.empty_like(q).copy_(
@@ -267,8 +357,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, seed: int = 0, rate: float = 0.0,
                     heads: int = 1,
                     seed_stride: Optional[int] = None) -> torch.Tensor:
-    """q, k, v: (B, H, T, D), any strides the kernels take (see
-    `_check_cuda`; e.g. the (B, H, T, D) view of a (B, T, H, D) tensor);
+    """q, k, v: (B, H, T, D), all bf16 or all fp32 on the card, any
+    strides the kernels take (see `_check_cuda`; e.g. the (B, H, T, D)
+    view of a (B, T, H, D) tensor);
     bias: (B, T) fp32 additive key mask (-1e30 masked); seed: the dropout
     seed (a Python int; the mask of (b, h) uses seed + b*S + h, S =
     `seed_stride`, H when None: a shard of a gang's (B', H') attention at

@@ -38,7 +38,6 @@ gates, normalizations and the ISD count are tensor `where`s.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from dataclasses import dataclass, fields
 
@@ -46,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..data.rawboost import RawBoostParams
+from ..device import fp32_convs
 
 __all__ = ["RawBoostDraws", "rawboost_draws", "rawboost_batch", "MAX_TAPS",
            "CHAIN"]
@@ -118,17 +118,6 @@ def rawboost_draws(gen: torch.Generator, batch: int, t: int,
                          pos, uniform(batch, t), uniform(batch, t))
 
 
-@contextlib.contextmanager
-def _fp32_convs():
-    """cuDNN convolutions in full fp32 (TF32 off) for the enclosed ops."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def _convolve_full(a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Row-wise `jnp.convolve(a, h, mode='full')` over the leading dims:
     (..., L) and (..., K) -> (..., L + K - 1), one grouped conv1d."""
@@ -136,7 +125,7 @@ def _convolve_full(a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     rows = math.prod(lead)
     x = F.pad(a.reshape(1, rows, -1), (k - 1, k - 1))
     w = h.reshape(rows, 1, k).flip(-1)
-    with _fp32_convs():
+    with fp32_convs():
         out = F.conv1d(x, w, groups=rows)
     return out.reshape(*lead, -1)
 

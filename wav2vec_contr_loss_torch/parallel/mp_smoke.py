@@ -19,6 +19,9 @@ caller compares it with a single-process run of the same leg
 
     python -m wav2vec_contr_loss_torch.parallel.mp_smoke --out DIR \\
         --legs dp,fsdp,tp   (under torchrun, or through `launch_gang`)
+
+on the card by default; `--device cpu` (launch_gang(device='cpu')) runs
+the ranks on the CPU over Gloo.
 """
 
 from __future__ import annotations
@@ -70,7 +73,12 @@ def encoder_config(dropout: bool = True, width: str = "tiny"):
     """'tiny': the JAX smoke job's encoder (fp32); 'wide': XLS-R-300M's
     widths (1024, 16 heads, 4096 FFN) at 4 layers, bf16; 'full':
     XLS-R-300M whole (24 layers), bf16. `dropout`: every dropout at 0.1
-    and SpecAugment on, else all off."""
+    and SpecAugment on, else all off. The card's widths keep bf16, the
+    step's default compute, though the kernels take fp32 too: the legs
+    hold a gang's layouts against one process, which the dtype does not
+    change, and 2-4 ranks share one card, where fp32 doubles each rank's
+    activations. fp32 gangs run in the tiny job; the fp32 kernels and
+    the fp32 step are held by chip_smoke.py's fp32 phase."""
     from ..config import XLSR_300M, Wav2Vec2Config
 
     rate = 0.1 if dropout else 0.0
@@ -544,17 +552,16 @@ def features_leg(mesh, device, job: Job = Job()) -> Dict:
     return out
 
 
-def main(argv=None) -> None:
-    """One rank of a gang (torchrun's variables in the environment):
-    join the group, run the legs in order, write `<out>/<leg>.p<rank>.json`
-    and, from rank 0, `<out>/<leg>.pt` (the full model state)."""
+def build_parser() -> argparse.ArgumentParser:
+    """The flags of one rank (`main`)."""
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True)
     p.add_argument("--legs", required=True,
                    help="comma-separated: " + ", ".join(
                        [*LEGS, "smoke", "baseline_smoke", *RESTORES,
                         "supcon", "extract", "features"]))
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu'")
     p.add_argument("--backend", default=None,
                    help="'gloo' for CUDA tensors of two ranks on one card")
     p.add_argument("--width", default="tiny",
@@ -571,10 +578,19 @@ def main(argv=None) -> None:
     p.add_argument("--go", default=None,
                    help="wait, after joining the group, until this file "
                         "exists (a caller's GPU work ends first)")
-    args = p.parse_args(argv)
+    return p
 
+
+def main(argv=None) -> None:
+    """One rank of a gang (torchrun's variables in the environment):
+    join the group, run the legs in order, write `<out>/<leg>.p<rank>.json`
+    and, from rank 0, `<out>/<leg>.pt` (the full model state)."""
+    args = build_parser().parse_args(argv)
+
+    from ..device import resolve_device
     from ..utils import distributed
 
+    resolve_device(args.device)   # the card unless the caller asks the CPU
     distributed.maybe_initialize(force=True, device=args.device,
                                  backend=args.backend)
     device = distributed.gang_device(args.device)
@@ -699,7 +715,7 @@ def spawn(cmd: List[str], n: int, timeout: float = 600, env=None,
     return logs
 
 
-def launch_gang(out: str, legs: List[str], n: int = 2, device: str = "cpu",
+def launch_gang(out: str, legs: List[str], n: int = 2, device: str = "cuda",
                 backend: Optional[str] = None, width: str = "tiny",
                 weights: Optional[str] = None, timeout: float = 600,
                 save: List[str] = (), grads: bool = False,
@@ -710,7 +726,11 @@ def launch_gang(out: str, legs: List[str], n: int = 2, device: str = "cpu",
     <out>/<leg>.grad.pt). `go`: the ranks wait, once in the group, until
     that file exists. One launcher for the tests and chip_smoke.py. On
     the CPU each rank takes an equal share of the cores (of this pytest
-    worker's share under pytest-xdist)."""
+    worker's share under pytest-xdist). The ranks run on the card unless
+    `device` is 'cpu'."""
+    from ..device import resolve_device
+
+    device = resolve_device(device).type
     cmd = [sys.executable, "-m", "wav2vec_contr_loss_torch.parallel.mp_smoke",
            "--out", out, "--legs", ",".join(legs), "--device", device,
            "--width", width]
