@@ -9,7 +9,8 @@
    settings (the script turns TF32 off only after it): the four fp32
    kernels (attention forward and backward, LN+GELU forward and
    backward) against their plain versions at the training shapes, the
-   attention backward and the LN+GELU backward bit for bit on two calls;
+   attention kernels also at T = 400 and 999, the attention backward and
+   the LN+GELU backward bit for bit on two calls;
    the XLS-R-300M stage-1 step in fp32 at B = 32 x 5 s (dropout 0.1,
    SpecAugment, remat) for 8 steps with exactly 48/24/7/7/1 launches a
    step, its peak memory and median ms; the same step at 2 layers, B =
@@ -148,6 +149,9 @@ CARD = "not read"
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
+# dense TF32 on the tensor cores; an fp32-accurate 3xTF32 product costs
+# three of them
+TF32_FLOP_PER_S = 494.7e12
 
 BATCH = 8
 SAMPLES = 80000                  # 5 s at 16 kHz, the serving clip
@@ -1177,9 +1181,11 @@ def fp32_kernel_phase(dev, results) -> None:
     and a clip of no valid frame, rates 0 and 0.1: the forward without
     residuals (no gradient: the custom op) and with them, the backward,
     its two calls bit for bit, the (B, T, H, 64) views, a gang shard's
-    seed stride. LN+GELU at the rows of the step's 7 convs, forward and
+    seed stride; both kernels also at T = 400 and 999 (7 and 16 key
+    tiles). LN+GELU at the rows of the step's 7 convs, forward and
     backward, two backward calls bit for bit. Device times of kernel,
-    plain version and the nearest PyTorch call (timed only)."""
+    plain version and the nearest PyTorch call (timed only); the
+    attention kernels' bounds at 3xTF32 and on FFMA, and their shares."""
     from wav2vec_contr_loss_torch.ops import attention, conv_ln
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -1244,6 +1250,29 @@ def fp32_kernel_phase(dev, results) -> None:
                                            0.1, 16)
     hold("shard of (11, 16), seed stride 16", "fwd", (got,), (want,),
          ATT32_TOL)
+    # many key tiles: T = 400 and 999 with a padded tail, both kernels
+    for eb, eh, et in ((2, 4, 400), (1, 4, 999)):
+        eq, ek, ev, eg = (torch.randn(eb, eh, et, d, generator=gen,
+                                      device=dev) for _ in range(4))
+        eq = eq * d ** -0.5
+        ebias = torch.zeros(eb, et, device=dev)
+        ebias[0, et - 37:] = -1e30
+        for rate in (0.0, 0.1):
+            label = f"rate {rate} {(eb, eh, et, d)}"
+            ins = [x.detach().requires_grad_() for x in (eq, ek, ev)]
+            out = attention.fused_attention(*ins, ebias, seed, rate, eh)
+            dgot = torch.autograd.grad(out, ins, eg)
+            ins_p = [x.detach().requires_grad_() for x in (eq, ek, ev)]
+            out_p = attention.fused_attention_plain(*ins_p, ebias, seed,
+                                                    rate)
+            dwant = torch.autograd.grad(out_p, ins_p, eg)
+            nograd = attention.fused_attention(eq, ek, ev, ebias, seed, rate,
+                                               eh)
+            hold(label + " no residuals", "fwd", (nograd,),
+                 (out_p.detach(),), ATT32_TOL)
+            hold(label + " with residuals", "fwd", (out.detach(),),
+                 (out_p.detach(),), ATT32_TOL)
+            hold(label, "bwd", dgot, dwant, ATT32_TOL)
 
     sdpa_ctx, sdpa_name = sdpa_backend(torch.float32)
     mask = bias[:, None, None, :]
@@ -1261,42 +1290,74 @@ def fp32_kernel_phase(dev, results) -> None:
     with sdpa_ctx():
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=1.0))
-        sdpa, _, ins_l = grads(lambda *x: F.scaled_dot_product_attention(
+        sdpa, dlib, ins_l = grads(lambda *x: F.scaled_dot_product_attention(
             *x, attn_mask=mask, scale=1.0))
         lib_bwd_ms = _grad_ms(sdpa, ins_l, g)
+    # SDPA's own distance to the plain version at rate 0, for scale, on
+    # the clips with a valid frame (its backward parts from the plain
+    # version's on the clip with none)
+    out0, dplain0, _ = grads(attention.fused_attention_plain, bias, seed,
+                             0.0)
+    valid = lengths > 0
+    lib_err = {"fwd": (sdpa - out0)[valid].abs().max().item(),
+               "bwd": max((a - w)[valid].abs().max().item()
+                          for a, w in zip(dlib, dplain0)),
+               "bwd_empty_clip": max((a - w)[~valid].abs().max().item()
+                                     for a, w in zip(dlib, dplain0))}
+    print(f"SDPA on {sdpa_name} fp32 vs the plain version, rate 0, the "
+          f"clips with a valid frame: max abs err out {lib_err['fwd']:.3e}, "
+          f"gradients {lib_err['bwd']:.3e}; the clip with none: gradients "
+          f"{lib_err['bwd_empty_clip']:.3e}")
     n = b * h * t * d
     product = 2 * b * h * t * t * d
-    fwd_bound, fwd_by = bound(4 * n * 4 + b * t * 4, 2 * product,
-                              FP32_FLOP_PER_S)
-    bwd_bound, bwd_by = bound(8 * n * 4 + b * t * 4, 5 * product,
-                              FP32_FLOP_PER_S)
+    # two bounds for fp32-accurate work: the products on FFMA, and on the
+    # tensor cores as three TF32 products each (3xTF32, what the kernels
+    # run); bound_ms is the lesser, the 3xTF32 one
+    bounds = {}
+    for name, nbytes, products in (("fwd", 4 * n * 4 + b * t * 4, 2),
+                                   ("bwd", 8 * n * 4 + b * t * 4, 5)):
+        bounds[name] = (
+            bound(nbytes, 3 * products * product, TF32_FLOP_PER_S),
+            bound(nbytes, products * product, FP32_FLOP_PER_S))
     results["attention_fwd_f32"] = dict(
         name="attention_fwd_f32", route="cuda",
         source="wav2vec_contr_loss_torch/csrc/attention_fwd_f32.cu",
         replaces="wav2vec_contr_loss_tpu/ops/attention_pallas.py:83",
         max_abs_err=errs["fwd"], ms=ms, plain_ms=plain_ms,
-        bound_ms=fwd_bound, bound_by=fwd_by, library_ms=lib_ms,
-        library=f"SDPA {sdpa_name} fp32", resid_ms=ms_resid,
-        rate0_ms=ms_rate0)
+        library_ms=lib_ms, library=f"SDPA {sdpa_name} fp32",
+        resid_ms=ms_resid, rate0_ms=ms_rate0)
     results["attention_bwd_f32"] = dict(
         name="attention_bwd_f32", route="cuda",
         source="wav2vec_contr_loss_torch/csrc/attention_bwd_f32.cu",
         replaces="wav2vec_contr_loss_tpu/ops/attention_pallas.py:96",
         max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=bwd_plain_ms,
-        bound_ms=bwd_bound, bound_by=bwd_by, library_ms=lib_bwd_ms,
-        library=f"SDPA {sdpa_name} fp32 backward")
+        library_ms=lib_bwd_ms, library=f"SDPA {sdpa_name} fp32 backward")
+    for name in ("fwd", "bwd"):
+        r = results[f"attention_{name}_f32"]
+        (tc, tc_by), (ffma, ffma_by) = bounds[name]
+        r.update(bound_ms=tc, bound_by=tc_by, tf32x3_bound_ms=tc,
+                 library_max_abs_err=lib_err[name],
+                 ffma_bound_ms=ffma, ffma_bound_by=ffma_by,
+                 tf32x3_share=tc / r["ms"], ffma_share=ffma / r["ms"])
+    fr, br = results["attention_fwd_f32"], results["attention_bwd_f32"]
     print(f"attention_fwd_f32 {(b, h, t, d)} device time: rate 0.1 "
           f"{ms:.4f} ms ({ms_resid:.4f} ms writing the backward's "
           f"residuals), rate 0 {ms_rate0:.4f} ms, plain (rate 0) "
           f"{plain_ms:.4f} ms, "
-          f"SDPA on {sdpa_name} fp32 {lib_ms:.4f} ms, bound {fwd_bound:.4f} "
-          f"ms ({fwd_by}) [{CARD}]")
+          f"SDPA on {sdpa_name} fp32 {lib_ms:.4f} ms, bound "
+          f"{fr['bound_ms']:.4f} ms at 3xTF32 ({fr['bound_by']}; "
+          f"{100 * fr['tf32x3_share']:.1f} % of it at rate 0.1), "
+          f"{fr['ffma_bound_ms']:.4f} ms on FFMA ({fr['ffma_bound_by']}; "
+          f"{100 * fr['ffma_share']:.1f} %) [{CARD}]")
     print(f"attention_bwd_f32 {(b, h, t, d)} rate 0.1 device time: kernels "
           f"{bwd_ms:.4f} ms, plain autograd {bwd_plain_ms:.4f} ms, SDPA "
           f"backward on {sdpa_name} fp32 {lib_bwd_ms:.4f} ms, bound "
-          f"{bwd_bound:.4f} ms ({bwd_by}) [{CARD}]")
+          f"{br['bound_ms']:.4f} ms at 3xTF32 ({br['bound_by']}; "
+          f"{100 * br['tf32x3_share']:.1f} % of it), "
+          f"{br['ffma_bound_ms']:.4f} ms on FFMA ({br['ffma_bound_by']}; "
+          f"{100 * br['ffma_share']:.1f} %) [{CARD}]")
     del q, k, v, g, qv, kv, vv, qr, kr, vr, out, out_p, ins, ins_p, sdpa
-    del ins_l, dgot, dwant
+    del ins_l, dgot, dwant, eq, ek, ev, eg, nograd, dlib, out0, dplain0
     torch.cuda.empty_cache()
 
     # LN+GELU at the rows of each conv of a step (B = 32 x 5 s)

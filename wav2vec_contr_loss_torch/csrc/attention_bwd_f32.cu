@@ -6,8 +6,9 @@
 // key bias, the row statistics (m, log l), the output `out`, the dropout
 // seed) and the output cotangent g, all fp32, it recomputes
 // p = exp(q . k^T + bias - m - log l) and the murmur dropout mask
-// (dropout_mask.cuh), stores no probability, and computes in fp32 what
-// autograd of the plain version computes (nothing rounded to bf16):
+// (dropout_mask.cuh), stores no probability, and computes with
+// fp32-accurate products what autograd of the plain version computes
+// (nothing rounded to bf16):
 //   dv = (p * mask)^T . g
 //   dp = (g . v^T) * mask
 //   ds = p * (dp - D),  D_i = rowsum(g_i * out_i)
@@ -17,26 +18,42 @@
 //
 // Bound on an H100 at the training shape (B=32, H=16, T=249): it moves
 // q, k, v, g, out, dq, dk and dv once, 261 MB (0.078 ms at 3.35 TB/s);
-// its five T x T x 64 products (s, dp, dv, dq, dk) are 20.3 GFLOP,
-// 0.303 ms at the 67 TFLOP/s fp32 FFMA peak: bound by operations.
+// its five T x T x 64 products (s, dp, dv, dq, dk) are 20.3 GFLOP, 0.303
+// ms at the 67 TFLOP/s fp32 FFMA peak, or three TF32 products each, 61.0
+// GFLOP, 0.123 ms at the 494.7 TFLOP/s TF32 peak: bound by operations.
 //
-// Design: two kernels on the fp32 tiles of f32_tiles.cuh (256 threads,
-// a 4 x 4 block of every 64 x 64 product a thread, tiles loaded with
-// 16-byte loads, two blocks an SM). No atomics: every output element is
-// written once by one block, so two calls give the same bits.
-//   1. dq kernel, grid (query tile, head, batch): D of its 64 rows from g
-//      and out (written out for kernel 2), then for each key tile
-//      s = q k_t^T and dp = g v_t^T, ds into shared memory and
-//      dq += ds . k_t. Q, G, K, V and ds tiles: 87 KB.
-//   2. dk/dv kernel, grid (key tile, head, batch): k and v of its 64 keys
-//      stay in shared memory; for each query tile s^T = k q_t^T and
-//      dp^T = v g_t^T, the row statistics and D of those queries from
-//      device memory, p^T * mask and ds^T into shared memory, then
-//      dv += (p^T mask) . g_t and dk += ds^T . q_t. 104 KB. The mask is
-//      hashed again here (the bf16 kernel hands it over as bits).
+// Design: 3xTF32 on the tensor cores (f32_tiles.cuh; FFMA tiles took 1.003
+// ms on the H100, slower than SDPA's fp32 backward), in two kernels of two
+// warpgroups a block, each warpgroup 64 rows of its own. No atomics:
+// every output element is written once by one block, so two calls give
+// the same bits. Every product is wgmma (`abt3`): products over the head
+// dim (s, dp) take natural hi/lo tiles, or registers for the operand a
+// warpgroup keeps; products over keys or queries (dq, dv, dk) take the
+// accumulator of ds or p as the register A operand and the other operand
+// split transposed. Tiles land by TMA in two raw slots (128-byte swizzle,
+// rows past T as zeros), each behind an mbarrier; each warpgroup splits
+// one slot into the tiles both share and gives it back at once, so the
+// next tile's loads run under the current tile's products. One block an
+// SM (192 and 224 KB of shared memory), eight warps; with no other block
+// to switch to, the key bias, the row statistics and D are loaded while
+// the products run, not after their wait.
+//   1. dq kernel, grid (pair of query tiles, head, batch): each
+//      warpgroup's Q as registers and its G as a hi/lo tile, D of its rows
+//      from G and `out` (written out for kernel 2); for each key tile
+//      s = q k_t^T and dp = g v_t^T, ds = p (dp mask - D) in registers,
+//      dq += ds . k_t.
+//   2. dk/dv kernel, grid (pair of key tiles, head, batch): each
+//      warpgroup's K as registers and its V as a hi/lo tile; for each
+//      query tile s^T = k q_t^T and dp^T = v g_t^T, the row statistics
+//      and D of those queries from device memory, p^T * mask and ds^T in
+//      registers, dv += (p^T mask) . g_t and dk += ds^T . q_t. The mask is
+//      hashed again here.
 // Seven products where five would do (the scores and dp are formed in
-// both kernels): the price of no atomics.
+// both kernels): the price of no atomics. The pair of warpgroups halves
+// the splits of the shared tiles a row and doubles the warps an SM; one
+// warpgroup a block ran slower on the H100 by about half.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -46,29 +63,77 @@
 #include "common.cuh"
 #include "dropout_mask.cuh"
 #include "f32_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using namespace f32;
 
-constexpr size_t kDqSmem = 5 * kTileFloats * sizeof(float);
-constexpr size_t kDkvSmem = 6 * kTileFloats * sizeof(float);
+constexpr int kBwdThreads = 2 * kThreads;  // two warpgroups a block
 
-__device__ __forceinline__ void zero(float (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+// dq kernel: 128 query rows a block, 64 a warpgroup w; its Q as registers
+// (`a_frags`), its G tile as g[w]; the key tile's K, K transposed and V
+// shared by both.
+struct __align__(1024) DqSmem {
+  float raw[2][kTileFloats];  // TMA: Q, G of warpgroup 0 / 1, then K / V
+  float g_hi[2][kTileFloats], g_lo[2][kTileFloats];
+  float k_hi[kTileFloats], k_lo[kTileFloats];
+  float kt_hi[kTileFloats], kt_lo[kTileFloats];
+  float v_hi[kTileFloats], v_lo[kTileFloats];
+  uint64_t full[2];
+};
+
+// dk/dv kernel: 128 keys a block, 64 a warpgroup w; its K as registers,
+// its V tile as v[w]; the query tile's Q and G, and both transposed,
+// shared by both.
+struct __align__(1024) DkvSmem {
+  float raw[2][kTileFloats];  // TMA: K, V of warpgroup 0 / 1, then Q / G
+  float v_hi[2][kTileFloats], v_lo[2][kTileFloats];
+  float q_hi[kTileFloats], q_lo[kTileFloats];
+  float qt_hi[kTileFloats], qt_lo[kTileFloats];
+  float g_hi[kTileFloats], g_lo[kTileFloats];
+  float gt_hi[kTileFloats], gt_lo[kTileFloats];
+  uint64_t full[2];
+};
+
+template <class S>
+__device__ __forceinline__ S& smem(unsigned char* raw) {
+  return *reinterpret_cast<S*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+template <class S>
+__device__ __forceinline__ void init_bars(S& sm) {
+  bar_init(&sm.full[0], 1);
+  bar_init(&sm.full[1], 1);
+  bar_init_fence();
+}
+
+// d += P . B, 3xTF32 by wgmma, waited for: P an accumulator tile (its
+// register A operand by `p_frags`), B given transposed (`split_tile_t`)
+__device__ __forceinline__ void pb_product(float (&d)[32], const float (&p)[32],
+                                           const float* bt_hi,
+                                           const float* bt_lo) {
+  uint32_t p_hi[32], p_lo[32];
+  p_frags(p, p_hi, p_lo);
+  wg_fence();
+  abt3(d, p_hi, p_lo, bt_hi, bt_lo, true);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(d);
+  fence_regs(p_hi);
+  fence_regs(p_lo);
 }
 
 // ---------------------------------------------------------------- dq ----
 
 template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
-attention_dq_f32_kernel(const float* __restrict__ q, Strides qs,
-                        const float* __restrict__ k, Strides ks,
-                        const float* __restrict__ v, Strides vs,
-                        const float* __restrict__ g, Strides gs,
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attention_dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap gmap,
                         const float* __restrict__ out, Strides os,
                         const float* __restrict__ bias,
                         const float2* __restrict__ stats,
@@ -76,80 +141,136 @@ attention_dq_f32_kernel(const float* __restrict__ q, Strides qs,
                         Strides dqs, int H, int T, unsigned seed,
                         unsigned seed_stride, unsigned threshold,
                         float scale) {
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* g_s = q_s + kTileFloats;
-  float* k_s = g_s + kTileFloats;
-  float* v_s = k_s + kTileFloats;
-  float* ds_s = v_s + kTileFloats;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int n_tiles = (T + kTile - 1) / kTile;
-  const int q0 = qt * kTile;
-  const size_t bh_rows = (size_t)(b * H + h) * n_tiles * kTile;
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem& sm = smem<DqSmem>(smem_raw);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int n_tiles = (T + kTile - 1) / kTile, tp = n_tiles * kTile;
+  const int b0 = 2 * kTile * blockIdx.x, q0 = b0 + kTile * wg;
+  const int r_lo = 16 * warp + (lane >> 2), c_lane = 2 * (lane & 3);
+  const size_t bh_rows = (size_t)(b * H + h) * tp;
   const float* brow = bias + (size_t)b * T;
   const DropoutMask mask(seed + (unsigned)b * seed_stride + (unsigned)h,
                          threshold, scale);
-
-  load_tile(q_s, q, qs, b, h, q0, T);
-  load_tile(g_s, g, gs, b, h, q0, T);
-  load_tile(ds_s, out, os, b, h, q0, T);  // out, for D
-  __syncthreads();
-
-  // D of rows 4ty + i (0 past T: g reads as zeros there), m and log l
-  float d_row[4], m[4], ll[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc = fmaf(g_s[r * kLd + tx + 16 * j], ds_s[r * kLd + tx + 16 * j], acc);
-    d_row[i] = row_sum(acc);
-    if (tx == 0) dbuf[bh_rows + q0 + r] = d_row[i];
-    const float2 st = stats[bh_rows + q0 + r];
-    m[i] = st.x;
-    ll[i] = st.y;
+  // slot w holds warpgroup w's Q (use 0) and G (use 1), then slot 0 the K
+  // tiles and slot 1 the V tiles (key tile t: use t + 2)
+  if (tid == 0) {
+    init_bars(sm);
+    load_tile(sm.raw[0], &qmap, b0, h, b, &sm.full[0]);
+    load_tile(sm.raw[1], &qmap, b0 + kTile, h, b, &sm.full[1]);
   }
-
-  float dqa[4][4];
-  zero(dqa);
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();  // the last readers of k_s, v_s and ds_s are done
-    load_tile(k_s, k, ks, b, h, t * kTile, T);
-    load_tile(v_s, v, vs, b, h, t * kTile, T);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    abt(s, q_s, k_s, ty, tx);
-    abt(dp, g_s, v_s, ty, tx);
+  __syncthreads();
+  uint32_t q_hi[32], q_lo[32];
+  bar_wait(&sm.full[wg], 0);
+  a_frags(sm.raw[wg], q_hi, q_lo, warp, lane);
+  __syncthreads();  // both Q tiles read
+  if (tid == 0) {
+    fence_proxy_async();
+    load_tile(sm.raw[0], &gmap, b0, h, b, &sm.full[0]);
+    load_tile(sm.raw[1], &gmap, b0 + kTile, h, b, &sm.full[1]);
+  }
+  bar_wait(&sm.full[wg], 1);
+  split_tile(sm.raw[wg], sm.g_hi[wg], sm.g_lo[wg], wtid);
+  // D of rows r_lo and r_lo + 8 (0 past T, where g reads as zeros): the
+  // 4 lanes of a quad take 16 columns each of G (raw) and out. Rows past
+  // Tp (the second warpgroup of the last block) have no statistics.
+  float d_row[2], m[2], ll[2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j, col = t * kTile + c;
-      const float bv = col < T ? __ldg(brow + col) : -INFINITY;
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    float acc = 0.f;
+    if (q0 + r < T) {
+      const float* orow = out + b * os.b + h * os.h + (q0 + r) * os.t;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf((s[i][j] + bv) - m[i] - ll[i]);
-        float dpv = dp[i][j];
-        if (kDrop) dpv *= mask((unsigned)(q0 + 4 * ty + i), (unsigned)col);
-        ds_s[(4 * ty + i) * kLd + c] = p * (dpv - d_row[i]);
+      for (int c = 16 * (lane & 3); c < 16 * (lane & 3) + 16; c += 4) {
+        const float4 gv = *reinterpret_cast<const float4*>(
+            sm.raw[wg] + at(r, c));
+        const float4 ov = __ldg(reinterpret_cast<const float4*>(orow + c));
+        acc = fmaf(gv.x, ov.x, acc);
+        acc = fmaf(gv.y, ov.y, acc);
+        acc = fmaf(gv.z, ov.z, acc);
+        acc = fmaf(gv.w, ov.w, acc);
       }
     }
-    __syncthreads();
-    ab(dqa, ds_s, k_s, ty, tx);
+    d_row[i] = quad_sum(acc);
+    m[i] = ll[i] = 0.f;
+    if (q0 + r < tp) {
+      if ((lane & 3) == 0) dbuf[bh_rows + q0 + r] = d_row[i];
+      const float2 st = stats[bh_rows + q0 + r];
+      m[i] = st.x;
+      ll[i] = st.y;
+    }
   }
-  store_rows(dq, dqs, b, h, q0, T, ty, tx, dqa);
+  fence_proxy_async();
+  __syncthreads();  // the G tiles split, the raw slots read
+  if (tid == 0) {
+    load_tile(sm.raw[0], &kmap, 0, h, b, &sm.full[0]);
+    load_tile(sm.raw[1], &vmap, 0, h, b, &sm.full[1]);
+  }
+
+  float dqa[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int c0 = t * kTile;
+    // warpgroup 0 splits K (and K transposed), warpgroup 1 V; the last
+    // readers of the previous ones passed the barrier that ends the loop
+    bar_wait(&sm.full[wg], t & 1);
+    if (wg == 0) {
+      split_tile(sm.raw[0], sm.k_hi, sm.k_lo, wtid);
+      split_tile_t(sm.raw[0], sm.kt_hi, sm.kt_lo, wtid);
+    } else {
+      split_tile(sm.raw[1], sm.v_hi, sm.v_lo, wtid);
+    }
+    fence_proxy_async();  // wgmma reads the splits; TMA rewrites the slots
+    __syncthreads();
+    if (tid == 0 && t + 1 < n_tiles) {
+      load_tile(sm.raw[0], &kmap, c0 + kTile, h, b, &sm.full[0]);
+      load_tile(sm.raw[1], &vmap, c0 + kTile, h, b, &sm.full[1]);
+    }
+    float s[32], dp[32], bv[16];
+    wg_fence();
+    abt3(s, q_hi, q_lo, sm.k_hi, sm.k_lo);
+    abt3(dp, sm.g_hi[wg], sm.g_lo[wg], sm.v_hi, sm.v_lo);
+    wg_commit();
+    column_bias(bv, brow, c0, c_lane, T);
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    fence_regs(q_hi);
+    fence_regs(q_lo);
+    // ds = p (dp mask - D) into dp
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * j + c_lane + e;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int k = 4 * j + 2 * i + e;
+          const float p =
+              fast_exp2(((s[k] + bv[2 * j + e]) - m[i] - ll[i]) * kLog2e);
+          float dpv = dp[k];
+          if (kDrop) dpv *= mask((unsigned)(q0 + r_lo + 8 * i), (unsigned)col);
+          dp[k] = p * (dpv - d_row[i]);
+        }
+      }
+    pb_product(dqa, dp, sm.kt_hi, sm.kt_lo);
+    __syncthreads();  // every thread is done with this key tile
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows(dq, dqs, b, h, q0, T, warp, lane, dqa, one);
 }
 
 // ------------------------------------------------------------- dk, dv ----
 
 template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
-attention_dkdv_f32_kernel(const float* __restrict__ q, Strides qs,
-                          const float* __restrict__ k, Strides ks,
-                          const float* __restrict__ v, Strides vs,
-                          const float* __restrict__ g, Strides gs,
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attention_dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap gmap,
                           const float* __restrict__ bias,
                           const float2* __restrict__ stats,
                           const float* __restrict__ dbuf,
@@ -157,71 +278,127 @@ attention_dkdv_f32_kernel(const float* __restrict__ q, Strides qs,
                           float* __restrict__ dv, Strides dvs, int H, int T,
                           unsigned seed, unsigned seed_stride,
                           unsigned threshold, float scale) {
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + kTileFloats;
-  float* q_s = v_s + kTileFloats;
-  float* g_s = q_s + kTileFloats;
-  float* pt_s = g_s + kTileFloats;
-  float* dst_s = pt_s + kTileFloats;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  extern __shared__ unsigned char smem_raw[];
+  DkvSmem& sm = smem<DkvSmem>(smem_raw);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
   const int n_tiles = (T + kTile - 1) / kTile;
-  const int k0 = kt * kTile;
+  const int b0 = 2 * kTile * blockIdx.x, k0 = b0 + kTile * wg;
+  const int r_lo = 16 * warp + (lane >> 2), c_lane = 2 * (lane & 3);
   const size_t bh_rows = (size_t)(b * H + h) * n_tiles * kTile;
   const DropoutMask mask(seed + (unsigned)b * seed_stride + (unsigned)h,
                          threshold, scale);
-
-  load_tile(k_s, k, ks, b, h, k0, T);
-  load_tile(v_s, v, vs, b, h, k0, T);
-  float kb[4];  // the bias of key rows 4ty + i (-inf past T)
+  // slot w holds warpgroup w's K (use 0) and V (use 1), then slot 0 the Q
+  // tiles and slot 1 the G tiles (query tile t: use t + 2)
+  if (tid == 0) {
+    init_bars(sm);
+    load_tile(sm.raw[0], &kmap, b0, h, b, &sm.full[0]);
+    load_tile(sm.raw[1], &kmap, b0 + kTile, h, b, &sm.full[1]);
+  }
+  __syncthreads();
+  uint32_t k_hi[32], k_lo[32];
+  bar_wait(&sm.full[wg], 0);
+  a_frags(sm.raw[wg], k_hi, k_lo, warp, lane);
+  __syncthreads();  // both K tiles read
+  if (tid == 0) {
+    fence_proxy_async();
+    load_tile(sm.raw[0], &vmap, b0, h, b, &sm.full[0]);
+    load_tile(sm.raw[1], &vmap, b0 + kTile, h, b, &sm.full[1]);
+  }
+  bar_wait(&sm.full[wg], 1);
+  split_tile(sm.raw[wg], sm.v_hi[wg], sm.v_lo[wg], wtid);
+  fence_proxy_async();
+  __syncthreads();  // the V tiles split, the raw slots read
+  if (tid == 0) {
+    load_tile(sm.raw[0], &qmap, 0, h, b, &sm.full[0]);
+    load_tile(sm.raw[1], &gmap, 0, h, b, &sm.full[1]);
+  }
+  float kb[2];  // the bias of key rows r_lo and r_lo + 8 (-inf past T)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + 4 * ty + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = k0 + r_lo + 8 * i;
     kb[i] = r < T ? __ldg(bias + (size_t)b * T + r) : -INFINITY;
   }
 
-  float dka[4][4], dva[4][4];
-  zero(dka);
-  zero(dva);
+  float dka[32], dva[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
   for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();  // the last readers of q_s, g_s, pt_s, dst_s are done
-    load_tile(q_s, q, qs, b, h, t * kTile, T);
-    load_tile(g_s, g, gs, b, h, t * kTile, T);
-    __syncthreads();
-    // rows: keys 4ty + i; columns: queries tx + 16j
-    float st[4][4], dpt[4][4];
-    zero(st);
-    zero(dpt);
-    abt(st, k_s, q_s, ty, tx);
-    abt(dpt, v_s, g_s, ty, tx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j, qi = t * kTile + c;
-      const float2 rs = __ldg(stats + bh_rows + qi);
-      const float d_q = __ldg(dbuf + bh_rows + qi);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p = expf((st[i][j] + kb[i]) - rs.x - rs.y);
-        p = qi < T ? p : 0.f;
-        const float mk =
-            kDrop ? mask((unsigned)qi, (unsigned)(k0 + 4 * ty + i)) : 1.f;
-        pt_s[(4 * ty + i) * kLd + c] = p * mk;
-        dst_s[(4 * ty + i) * kLd + c] = p * (dpt[i][j] * mk - d_q);
-      }
+    const int c0 = t * kTile;
+    // warpgroup 0 splits Q (and Q transposed), warpgroup 1 G (and G
+    // transposed); the last readers of the previous ones passed the
+    // barrier that ends the loop
+    bar_wait(&sm.full[wg], t & 1);
+    if (wg == 0) {
+      split_tile(sm.raw[0], sm.q_hi, sm.q_lo, wtid);
+      split_tile_t(sm.raw[0], sm.qt_hi, sm.qt_lo, wtid);
+    } else {
+      split_tile(sm.raw[1], sm.g_hi, sm.g_lo, wtid);
+      split_tile_t(sm.raw[1], sm.gt_hi, sm.gt_lo, wtid);
     }
+    fence_proxy_async();
     __syncthreads();
-    ab(dva, pt_s, g_s, ty, tx);
-    ab(dka, dst_s, q_s, ty, tx);
+    if (tid == 0 && t + 1 < n_tiles) {
+      load_tile(sm.raw[0], &qmap, c0 + kTile, h, b, &sm.full[0]);
+      load_tile(sm.raw[1], &gmap, c0 + kTile, h, b, &sm.full[1]);
+    }
+    // rows: keys r_lo (+8); columns: queries 8j + c_lane (+1)
+    // the row statistics and D of this thread's 16 query columns, loaded
+    // while the products run
+    float st[32], dpt[32], d_q[16];
+    float2 rs[16];
+    wg_fence();
+    abt3(st, k_hi, k_lo, sm.q_hi, sm.q_lo);
+    abt3(dpt, sm.v_hi[wg], sm.v_lo[wg], sm.g_hi, sm.g_lo);
+    wg_commit();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const size_t qi = bh_rows + c0 + 8 * j + c_lane + e;
+        rs[2 * j + e] = __ldg(stats + qi);
+        d_q[2 * j + e] = __ldg(dbuf + qi);
+      }
+    wg_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    fence_regs(k_hi);
+    fence_regs(k_lo);
+    // p^T mask into st, ds^T into dpt
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = c0 + 8 * j + c_lane + e;
+        const float2 r = rs[2 * j + e];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int k = 4 * j + 2 * i + e;
+          float p = fast_exp2(((st[k] + kb[i]) - r.x - r.y) * kLog2e);
+          p = qi < T ? p : 0.f;
+          const float mk =
+              kDrop ? mask((unsigned)qi, (unsigned)(k0 + r_lo + 8 * i)) : 1.f;
+          st[k] = p * mk;
+          dpt[k] = p * (dpt[k] * mk - d_q[2 * j + e]);
+        }
+      }
+    pb_product(dva, st, sm.gt_hi, sm.gt_lo);
+    pb_product(dka, dpt, sm.qt_hi, sm.qt_lo);
+    __syncthreads();  // every thread is done with this query tile
   }
-  store_rows(dk, dks, b, h, k0, T, ty, tx, dka);
-  store_rows(dv, dvs, b, h, k0, T, ty, tx, dva);
+  const float one[2] = {1.f, 1.f};
+  store_rows(dk, dks, b, h, k0, T, warp, lane, dka, one);
+  store_rows(dv, dvs, b, h, k0, T, warp, lane, dva, one);
 }
 
 Strides strides_of(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 
+constexpr size_t kDqSmem = sizeof(DqSmem) + 1024;    // + base alignment
+constexpr size_t kDkvSmem = sizeof(DkvSmem) + 1024;
+
 template <bool kDrop>
-cudaError_t launch(const float* const* in, const long long* const* st,
+cudaError_t launch(const CUtensorMap* maps, const float* out, Strides os,
                    const float* bias, const float2* stats, float* dbuf,
                    float* const* grads, const long long* const* gst, int B,
                    int H, int T, unsigned seed, unsigned seed_stride,
@@ -234,19 +411,19 @@ cudaError_t launch(const float* const* in, const long long* const* st,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kDkvSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kTile - 1) / kTile, H, B);
-  // in: q, k, v, g, out; grads: dq, dk, dv
-  attention_dq_f32_kernel<kDrop><<<grid, kThreads, kDqSmem, stream>>>(
-      in[0], strides_of(st[0]), in[1], strides_of(st[1]), in[2],
-      strides_of(st[2]), in[3], strides_of(st[3]), in[4], strides_of(st[4]),
-      bias, stats, dbuf, grads[0], strides_of(gst[0]), H, T, seed,
-      seed_stride, threshold, scale);
+  const int n_tiles = (T + kTile - 1) / kTile;
+  // maps: q, k, v, g; grads: dq, dk, dv
+  attention_dq_f32_kernel<kDrop>
+      <<<dim3((n_tiles + 1) / 2, H, B), kBwdThreads, kDqSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], out, os, bias, stats, dbuf,
+      grads[0], strides_of(gst[0]), H, T, seed, seed_stride, threshold,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_dkdv_f32_kernel<kDrop><<<grid, kThreads, kDkvSmem, stream>>>(
-      in[0], strides_of(st[0]), in[1], strides_of(st[1]), in[2],
-      strides_of(st[2]), in[3], strides_of(st[3]), bias, stats, dbuf,
-      grads[1], strides_of(gst[1]), grads[2], strides_of(gst[2]), H, T, seed,
+  attention_dkdv_f32_kernel<kDrop>
+      <<<dim3((n_tiles + 1) / 2, H, B), kBwdThreads, kDkvSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], bias, stats, dbuf, grads[1],
+      strides_of(gst[1]), grads[2], strides_of(gst[2]), H, T, seed,
       seed_stride, threshold, scale);
   return cudaGetLastError();
 }
@@ -256,12 +433,12 @@ cudaError_t launch(const float* const* in, const long long* const* st,
 extern "C" {
 
 // q, k, v, g, out, dq, dk, dv: (B, H, T, 64) fp32 with element strides
-// (batch, head, row) in the matching *s array, each a multiple of 4, and
-// 16-byte aligned data (out: the forward's output); bias (B, T) fp32;
-// stats the forward's (B, H, Tp, 2) row statistics; dbuf an fp32
-// (B, H, Tp) scratch that takes D (Tp = T rounded up to 64); seed,
-// seed_stride, threshold and scale as for attention_fwd. Launches the dq
-// kernel, then the dk/dv kernel.
+// (batch, head, row) in the matching *s array, each a positive multiple
+// of 4 below 2^38, and 16-byte aligned data (out: the forward's output);
+// bias (B, T) fp32; stats the forward's (B, H, Tp, 2) row statistics;
+// dbuf an fp32 (B, H, Tp) scratch that takes D (Tp = T rounded up to 64);
+// seed, seed_stride, threshold and scale as for attention_fwd. Launches
+// the dq kernel, then the dk/dv kernel.
 int attention_bwd_f32(const void* q, const void* k, const void* v,
                       const void* g, const void* out, const void* bias,
                       const void* stats, void* dbuf, void* dq, void* dk,
@@ -273,24 +450,29 @@ int attention_bwd_f32(const void* q, const void* k, const void* v,
                       unsigned seed_stride, unsigned threshold, float scale,
                       void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || D != 64) return (int)cudaErrorInvalidValue;
-  const float* in[5] = {static_cast<const float*>(q),
-                        static_cast<const float*>(k),
-                        static_cast<const float*>(v),
-                        static_cast<const float*>(g),
-                        static_cast<const float*>(out)};
-  const long long* st[5] = {qs, ks, vs, gs, os};
+  CUtensorMap maps[4];
+  const void* in[4] = {q, k, v, g};
+  const long long* st[4] = {qs, ks, vs, gs};
+  cudaError_t err = bind_device();
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = make_map(&maps[i], in[i], B, H, T, st[i][0], st[i][1], st[i][2],
+                   true);
+  if (err != cudaSuccess) return (int)err;
   float* grads[3] = {static_cast<float*>(dq), static_cast<float*>(dk),
                      static_cast<float*>(dv)};
   const long long* gst[3] = {dqs, dks, dvs};
+  const auto* o = static_cast<const float*>(out);
   const auto* b = static_cast<const float*>(bias);
   const auto* sp = static_cast<const float2*>(stats);
   auto* d = static_cast<float*>(dbuf);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(threshold != 0u
-                   ? launch<true>(in, st, b, sp, d, grads, gst, B, H, T, seed,
-                                  seed_stride, threshold, scale, s)
-                   : launch<false>(in, st, b, sp, d, grads, gst, B, H, T,
-                                   seed, seed_stride, threshold, scale, s));
+                   ? launch<true>(maps, o, strides_of(os), b, sp, d, grads,
+                                  gst, B, H, T, seed, seed_stride, threshold,
+                                  scale, s)
+                   : launch<false>(maps, o, strides_of(os), b, sp, d, grads,
+                                   gst, B, H, T, seed, seed_stride,
+                                   threshold, scale, s));
 }
 
 }  // extern "C"

@@ -6,14 +6,14 @@
 // port's plain version computes with fp32 q/k/v (ops/attention.py
 // `fused_attention_plain`, and JAX's default XLA attention in fp32):
 //   out = (p * mask) . v,  p = softmax(q . k^T + bias)
-// with fp32 products, fp32 softmax and an fp32 output; nothing is
-// rounded to bf16 (the Pallas kernel rounds q, k, v and p to bf16 before
-// each product even under fp32 I/O; the port does not). q, k, v, out:
-// (B, H, T, 64) fp32 given by element strides (the head dim contiguous,
-// the other strides multiples of 4, 16-byte aligned), so the (B, H, T,
-// 64) view of a (B, T, H, 64) projection output goes in without a copy.
-// q arrives pre-scaled; bias is the fp32 (B, T) additive key mask (0 or
-// -1e30), so a fully masked row comes out uniform, as in JAX.
+// with fp32-accurate products, fp32 softmax and an fp32 output; nothing
+// is rounded to bf16 (the Pallas kernel rounds q, k, v and p to bf16
+// before each product even under fp32 I/O; the port does not). q, k, v,
+// out: (B, H, T, 64) fp32 given by element strides (the head dim
+// contiguous, the other strides multiples of 4, 16-byte aligned), so the
+// (B, H, T, 64) view of a (B, T, H, 64) projection output goes in without
+// a copy. q arrives pre-scaled; bias is the fp32 (B, T) additive key mask
+// (0 or -1e30), so a fully masked row comes out uniform, as in JAX.
 //
 // For the backward it writes the same row statistics as the bf16
 // kernel: fp32 (B, H, Tp, 2), Tp = T rounded up to 64, the row max m and
@@ -24,25 +24,36 @@
 //
 // Bound on an H100 at the training shape (B=32, H=16, T=249): q, k, v
 // and out are 130.6 MB (0.039 ms at 3.35 TB/s); the two products are
-// 8.1 GFLOP, 0.121 ms at the 67 TFLOP/s fp32 FFMA peak. So it is bound
-// by operations, and wgmma cannot help: the tensor cores take fp32 only
-// as TF32.
+// 8.1 GFLOP, 0.121 ms at the 67 TFLOP/s fp32 FFMA peak, or three TF32
+// products each, 24.4 GFLOP, 0.049 ms at the 494.7 TFLOP/s TF32 peak. So
+// it is bound by operations, and by far less on the tensor cores.
 //
-// Design (a simple tiled kernel on FFMA, f32_tiles.cuh):
-//   * grid (query tile of 64 rows, head, batch element), 256 threads, a
-//     4 x 4 block of each 64 x 64 product a thread; the Q tile, one K or
-//     V tile and one p tile in shared memory (52 KB), two blocks an SM
-//     at up to 128 registers a thread.
-//   * two passes, as the bf16 kernel: pass 1 takes each row's max and
-//     sum of exp over every key tile (folded tile by tile); pass 2
-//     computes the scores again, normalizes p exactly, applies the
-//     murmur dropout mask (dropout_mask.cuh: the hash of the plain
-//     version's `attention_dropout_mask`, with the per-batch seed
-//     stride) and adds p . v. Three products where two would do: the
-//     price of a simple kernel that keeps no (T, T) scores.
-//   * tiles are loaded by all threads with 16-byte loads; blocks on the
-//     same SM overlap one another's loads with their products.
+// Design (3xTF32 on the tensor cores, f32_tiles.cuh; FFMA tiles running
+// three products took 0.473 ms on the H100, slower than SDPA's fp32
+// kernel, PERF.md):
+//   * grid (query tile of 64 rows, head, batch), one warpgroup a block;
+//     98 KB of shared memory and ~200 registers a thread, two blocks an
+//     SM, so one block's products overlap the other's softmax and splits.
+//   * one pass with an online softmax over 64-key tiles (no cap on T):
+//     the running row max m and sum l, the accumulator rescaled by
+//     exp(m_old - m_new) tile by tile; the murmur dropout mask
+//     (dropout_mask.cuh, with the per-batch seed stride) multiplies the
+//     unnormalized exp(s - m) before p . v, and the output is divided by
+//     l once at the end: two products, where two passes take three. A
+//     row's m is finite from the first tile on (key 0 is below T and the
+//     bias finite), and m_old = -inf contributes exp(-inf) = 0.
+//   * both products by wgmma (`abt3`, 24 m64n64k8 a tile, A in
+//     registers): S = q . k^T with q split once into hi/lo registers and
+//     K as hi/lo tiles; O += p . v with p, S's accumulator, split in
+//     registers and V split transposed (tf32 wgmma takes no transposed
+//     operand). p . v on mma.sync, reading V's tiles row by row instead,
+//     ran slower on the H100: its loads and 255 registers the cost.
+//   * K and V tiles land by TMA (128-byte swizzle, rows past T as zeros)
+//     in two raw slots, one for K and one for V, each behind an mbarrier;
+//     a slot is split into its hi/lo tiles and given back at once, so the
+//     next tile's load runs under the current tile's products.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -52,119 +63,160 @@
 #include "common.cuh"
 #include "dropout_mask.cuh"
 #include "f32_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using namespace f32;
 
-constexpr size_t kSmemBytes = 3 * kTileFloats * sizeof(float);
+struct __align__(1024) Smem {
+  float raw[2][kTileFloats];   // TMA: [0] the K tiles; [1] Q, then V tiles
+  float k_hi[kTileFloats], k_lo[kTileFloats];
+  float v_hi[kTileFloats], v_lo[kTileFloats];
+  uint64_t full[2];
+};
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + base alignment
 
 template <bool kDrop, bool kResid>
 __global__ void __launch_bounds__(kThreads, 2)
-attention_fwd_f32_kernel(const float* __restrict__ q, Strides qs,
-                         const float* __restrict__ k, Strides ks,
-                         const float* __restrict__ v, Strides vs,
+attention_fwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
                          const float* __restrict__ bias,
                          float* __restrict__ out, Strides os,
                          float* __restrict__ stats, int H, int T,
                          unsigned seed, unsigned seed_stride,
                          unsigned threshold, float scale) {
-  extern __shared__ float4 smem4[];
-  float* qt_s = reinterpret_cast<float*>(smem4);
-  float* kv_s = qt_s + kTileFloats;
-  float* p_s = kv_s + kTileFloats;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_tiles = (T + kTile - 1) / kTile;
   const int q0 = qt * kTile;
+  const int r_lo = 16 * warp + (lane >> 2);  // rows r_lo and r_lo + 8
+  const int c_lane = 2 * (lane & 3);         // columns 8j + c_lane (+1)
+
+  if (tid == 0) {
+    bar_init(&sm.full[0], 1);
+    bar_init(&sm.full[1], 1);
+    bar_init_fence();
+    prefetch_map(&qmap);
+    prefetch_map(&kmap);
+    prefetch_map(&vmap);
+    load_tile(sm.raw[1], &qmap, q0, h, b, &sm.full[1]);
+    load_tile(sm.raw[0], &kmap, 0, h, b, &sm.full[0]);
+  }
+  __syncthreads();
   const float* brow = bias + (size_t)b * T;
   const DropoutMask mask(seed + (unsigned)b * seed_stride + (unsigned)h,
                          threshold, scale);
 
-  load_tile(qt_s, q, qs, b, h, q0, T);
-
-  // s = q . k^T + bias for key tile t (-inf past T), K in kv_s
-  auto scores = [&](float (&s)[4][4], int t) {
-    __syncthreads();  // the last readers of kv_s are done
-    load_tile(kv_s, k, ks, b, h, t * kTile, T);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    abt(s, qt_s, kv_s, ty, tx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = t * kTile + tx + 16 * j;
-      const float bv = col < T ? __ldg(brow + col) : -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[i][j] += bv;
-    }
-  };
-
-  // pass 1: row max m and sum l of exp(s - m), folded tile by tile
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  uint32_t q_hi[32], q_lo[32];
+  bar_wait(&sm.full[1], 0);
+  a_frags(sm.raw[1], q_hi, q_lo, warp, lane);
+  __syncthreads();  // every thread has read Q
+  if (tid == 0) {
+    fence_proxy_async();
+    load_tile(sm.raw[1], &vmap, 0, h, b, &sm.full[1]);
   }
+
+  float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
   for (int t = 0; t < n_tiles; ++t) {
-    float s[4][4];
-    scores(s, t);
+    const int c0 = t * kTile;
+    // K tile t into k_hi/k_lo; tile t-1's score product, their last
+    // reader, finished in every thread before the barrier of its V split
+    bar_wait(&sm.full[0], t & 1);
+    split_tile(sm.raw[0], sm.k_hi, sm.k_lo, tid);
+    fence_proxy_async();  // wgmma reads the split
+    __syncthreads();
+    if (tid == 0 && t + 1 < n_tiles)
+      load_tile(sm.raw[0], &kmap, c0 + kTile, h, b, &sm.full[0]);
+
+    float s[32], bv[16];
+    wg_fence();
+    abt3(s, q_hi, q_lo, sm.k_hi, sm.k_lo);
+    wg_commit();
+    column_bias(bv, brow, c0, c_lane, T);
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(q_hi);
+    fence_regs(q_lo);
+
+    // online softmax: s + bias, the new row max, p = exp(s - m) in s,
+    // l and o rescaled to it; then the dropout mask on p
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mt = row_max(fmaxf(fmaxf(s[i][0], s[i][1]),
-                                     fmaxf(s[i][2], s[i][3])));
-      const float m_new = fmaxf(m[i], mt);
-      float e = 0.f;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) e += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + row_sum(e);
+      for (int e = 0; e < 2; ++e) {
+        s[4 * j + e] += bv[2 * j + e];
+        s[4 * j + 2 + e] += bv[2 * j + e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      const float m_new = fmaxf(m[i], quad_max(mx));
+      const float m_sub = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = fast_exp2((m[i] - m_sub) * kLog2e);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * i + e];
+          x = fast_exp2((x - m_sub) * kLog2e);
+          sum += x;
+          o[4 * j + 2 * i + e] *= corr;
+          if (kDrop)
+            x *= mask((unsigned)(q0 + r_lo + 8 * i),
+                      (unsigned)(c0 + 8 * j + c_lane + e));
+        }
+      l[i] = l[i] * corr + quad_sum(sum);
       m[i] = m_new;
     }
-  }
-  float inv_l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) inv_l[i] = 1.f / l[i];
 
-  // pass 2: p = exp(s - m) / l, masked, then out += p . v
-  float o[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    float s[4][4];
-    scores(s, t);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float p = expf(s[i][j] - m[i]) * inv_l[i];
-        if (kDrop)
-          p *= mask((unsigned)(q0 + 4 * ty + i), (unsigned)(t * kTile + c));
-        p_s[(4 * ty + i) * kLd + c] = p;
-      }
-    __syncthreads();  // every thread is done with the K tile
-    load_tile(kv_s, v, vs, b, h, t * kTile, T);
+    // V tile t, transposed, into v_hi/v_lo; tile t-1's p . v, their last
+    // reader, finished in every thread before the barrier of this tile's
+    // K split
+    bar_wait(&sm.full[1], (t + 1) & 1);
+    split_tile_t(sm.raw[1], sm.v_hi, sm.v_lo, tid);
+    fence_proxy_async();
     __syncthreads();
-    ab(o, p_s, kv_s, ty, tx);
+    if (tid == 0 && t + 1 < n_tiles)
+      load_tile(sm.raw[1], &vmap, c0 + kTile, h, b, &sm.full[1]);
+    uint32_t p_hi[32], p_lo[32];
+    p_frags(s, p_hi, p_lo);
+    wg_fence();
+    abt3(o, p_hi, p_lo, sm.v_hi, sm.v_lo, true);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
   }
-  store_rows(out, os, b, h, q0, T, ty, tx, o);
-  if (kResid && tx == 0) {
+
+  // out = o / l for the rows below T; the row statistics of every row of
+  // the tile (rows past T too: the backward reads them)
+  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+  store_rows(out, os, b, h, q0, T, warp, lane, o, inv_l);
+  if (kResid && (lane & 3) == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 2; ++i)
       reinterpret_cast<float2*>(stats)[(size_t)(b * H + h) * n_tiles * kTile +
-                                       q0 + 4 * ty + i] =
+                                       q0 + r_lo + 8 * i] =
           make_float2(m[i], logf(l[i]));
   }
 }
 
 template <bool kDrop, bool kResid>
-cudaError_t launch(const float* q, Strides qs, const float* k, Strides ks,
-                   const float* v, Strides vs, const float* bias, float* out,
+cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
+                   const CUtensorMap& vm, const float* bias, float* out,
                    Strides os, float* stats, int B, int H, int T,
                    unsigned seed, unsigned seed_stride, unsigned threshold,
                    float scale, cudaStream_t stream) {
@@ -175,22 +227,21 @@ cudaError_t launch(const float* q, Strides qs, const float* k, Strides ks,
   const dim3 grid((T + kTile - 1) / kTile, H, B);
   attention_fwd_f32_kernel<kDrop, kResid>
       <<<grid, kThreads, kSmemBytes, stream>>>(
-      q, qs, k, ks, v, vs, bias, out, os, stats, H, T, seed, seed_stride,
-      threshold, scale);
+      qm, km, vm, bias, out, os, stats, H, T, seed, seed_stride, threshold,
+      scale);
   return cudaGetLastError();
 }
-
-Strides strides_of(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 
 }  // namespace
 
 extern "C" {
 
 // q, k, v, out: (B, H, T, 64) fp32 with element strides {q,k,v,o}s =
-// (batch, head, row), each a multiple of 4, and 16-byte aligned data;
-// bias (B, T) fp32 contiguous; stats: fp32 (B, H, Tp, 2) contiguous,
-// Tp = T rounded up to 64, or null (no backward residuals); seed,
-// seed_stride, threshold and scale as for attention_fwd.
+// (batch, head, row), each a positive multiple of 4 below 2^38, and
+// 16-byte aligned data; bias (B, T) fp32 contiguous; stats: fp32
+// (B, H, Tp, 2) contiguous, Tp = T rounded up to 64, or null (no backward
+// residuals); seed, seed_stride, threshold and scale as for
+// attention_fwd.
 int attention_fwd_f32(const void* q, const void* k, const void* v,
                       const void* bias, void* out, void* stats,
                       const long long* qs, const long long* ks,
@@ -198,19 +249,24 @@ int attention_fwd_f32(const void* q, const void* k, const void* v,
                       int T, int D, unsigned seed, unsigned seed_stride,
                       unsigned threshold, float scale, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || D != 64) return (int)cudaErrorInvalidValue;
-  const auto* qp = static_cast<const float*>(q);
-  const auto* kp = static_cast<const float*>(k);
-  const auto* vp = static_cast<const float*>(v);
+  CUtensorMap qm, km, vm;
+  cudaError_t err = bind_device();
+  if (err == cudaSuccess)
+    err = make_map(&qm, q, B, H, T, qs[0], qs[1], qs[2], true);
+  if (err == cudaSuccess)
+    err = make_map(&km, k, B, H, T, ks[0], ks[1], ks[2], true);
+  if (err == cudaSuccess)
+    err = make_map(&vm, v, B, H, T, vs[0], vs[1], vs[2], true);
+  if (err != cudaSuccess) return (int)err;
   const auto* bp = static_cast<const float*>(bias);
   auto* op = static_cast<float*>(out);
   auto* st = static_cast<float*>(stats);
-  const Strides a = strides_of(qs), c = strides_of(ks), e = strides_of(vs),
-                o = strides_of(os);
+  const Strides o{os[0], os[1], os[2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = threshold != 0u, resid = st != nullptr;
 #define W2V_LAUNCH(D, R)                                                    \
-  launch<D, R>(qp, a, kp, c, vp, e, bp, op, o, st, B, H, T, seed,           \
-               seed_stride, threshold, scale, s)
+  launch<D, R>(qm, km, vm, bp, op, o, st, B, H, T, seed, seed_stride,       \
+               threshold, scale, s)
   return (int)(drop ? (resid ? W2V_LAUNCH(true, true) : W2V_LAUNCH(true, false))
                     : (resid ? W2V_LAUNCH(false, true)
                              : W2V_LAUNCH(false, false)));

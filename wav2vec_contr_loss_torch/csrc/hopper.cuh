@@ -1,7 +1,9 @@
 // Hopper building blocks of the attention kernels: TMA tensor maps and
 // loads, mbarriers, and wgmma on bf16 tiles of 64 rows x 64 columns
-// (128 bytes a row, the width of the 128-byte swizzle). The LN+GELU
-// backward uses the mbarriers and the plain bulk copy.
+// (128 bytes a row, the width of the 128-byte swizzle); the fp32 kernels'
+// tensor maps (64 x 32 fp32 boxes, the same 128 bytes a row), the TF32
+// conversion and tf32 wgmma (f32_tiles.cuh builds 3xTF32 on them). The
+// LN+GELU backward uses the mbarriers and the plain bulk copy.
 //
 // Every tile in shared memory is 64 rows of 64 bf16, loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B and aligned to 1024 bytes, so wgmma reads it
@@ -31,7 +33,7 @@ namespace hopper {
 constexpr int kTile = 64;                    // rows of every tile
 constexpr int kTileBytes = kTile * 64 * 2;   // 64 x 64 bf16
 
-// ---- host: a 4-D tensor map over (B, H, T, 64) bf16 with explicit
+// ---- host: a 4-D tensor map over (B, H, T, 64) bf16 or fp32 with explicit
 // element strides, one box = 64 rows of one (b, h) pair ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -64,20 +66,27 @@ inline cudaError_t bind_device() {
 }
 
 // strides in elements (sb, sh, st; the head dim is contiguous). Rows past
-// T read as zeros. A map libcuda refuses (strides, alignment) returns
-// cudaErrorInvalidPitchValue. Call bind_device() first.
+// T read as zeros. One box is 64 rows of 128 bytes (the width of the
+// 128-byte swizzle): all 64 bf16 columns, or 32 of the 64 fp32 ones, so a
+// 64 x 64 fp32 tile is two boxes, at columns 0 and 32. A map libcuda
+// refuses (strides, alignment) returns cudaErrorInvalidPitchValue. Call
+// bind_device() first.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int H,
-                            int T, long long sb, long long sh, long long st) {
+                            int T, long long sb, long long sh, long long st,
+                            bool f32 = false) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t size = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {64, (cuuint64_t)T, (cuuint64_t)H,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, kTile, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)st * size, (cuuint64_t)sh * size,
+                                 (cuuint64_t)sb * size};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / size), kTile, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, elem,
+  const CUresult r = fn(map,
+                        f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        4, const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -130,16 +139,29 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// the box of (b, h) at column c0 and row t0 into `dst` (1024-aligned)
+__device__ __forceinline__ void tma_load_at(void* dst, const CUtensorMap* map,
+                                            int c0, int t0, int h, int b,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(t0), "r"(h), "r"(b)
+      : "memory");
+}
+
 // one 64-row box of (b, h) starting at row t0 into `dst` (1024-aligned)
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          int t0, int h, int b,
                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0),
-      "r"(t0), "r"(h), "r"(b)
-      : "memory");
+  tma_load_at(dst, map, 0, t0, h, b, bar);
+}
+
+// order this thread's ordinary shared-memory accesses before later ones
+// of the async proxy (wgmma operands read through descriptors, TMA writes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // `bytes` (a multiple of 16) contiguous bytes from 16-aligned `src`
@@ -226,6 +248,51 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a,
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : W2V_D32_OPS(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---- TF32 products (the fp32 kernels' 3xTF32 tiles, f32_tiles.cuh) ----
+//
+// wgmma takes tf32 operands K-major only (no transpose bits), k8 a step:
+// 8 fp32 = 32 bytes, so a k-step moves a 128-byte-swizzle descriptor by
+// 32 bytes, as a bf16 k16 step does. The register A operand of m64k8
+// holds, for k-step columns 8s..8s+7, {a0, a1, a2, a3} = rows (r, r + 8,
+// r, r + 8) and columns (8s + t, 8s + t, 8s + t + 4, 8s + t + 4), r = 16w
+// + l/4, t = l%4 (CUTLASS's ALayout_64x8).
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero; the fp32 bit pattern with the low 13 bits 0
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d (+)= A . B, one k8 step: A and B from shared memory, both K-major
+__device__ __forceinline__ void mma_tf32_ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " W2V_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : W2V_D32_OPS(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A . B, one k8 step: A = four tf32 registers, B K-major in
+// shared memory
+__device__ __forceinline__ void mma_tf32_rs(float (&d)[32], const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " W2V_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : W2V_D32_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 #undef W2V_D32

@@ -25,12 +25,15 @@ output goes in without a copy; the outputs take the layout of q.
 fp32 q, k, v (and g) go to fp32 counterparts of both, which compute what
 the plain version computes in fp32, nothing rounded to bf16 (JAX's
 default XLA attention under fp32 compute; the Pallas kernel rounds q, k,
-v and p to bf16 even under fp32 I/O): simple tiled kernels on FFMA, since
-the tensor cores take fp32 only as TF32.
+v and p to bf16 even under fp32 I/O). The tensor cores take fp32 only as
+TF32, so both run 3xTF32 (csrc/f32_tiles.cuh): each operand split into
+hi = tf32(x) and lo = tf32(x - hi), each product lo.hi + hi.lo + hi.hi
+in fp32, about as accurate as an fp32 product. Tiles land by TMA.
 
   * csrc/attention_fwd_f32.cu: a block per (query tile, head, batch
-    element), the same two passes and the same row statistics; it writes
-    no out_exact, since in fp32 that is the output itself.
+    element), one pass with an online softmax over the key tiles (the
+    scores by wgmma, p . v by mma.sync), the same row statistics; it
+    writes no out_exact, since in fp32 that is the output itself.
   * csrc/attention_bwd_f32.cu: the same dq and dk/dv kernels, no atomics.
 
 They take head dim 64 and tensors whose head dim is contiguous and whose
@@ -173,12 +176,13 @@ def _tma_ok(x: torch.Tensor) -> bool:
 
 
 def _f32_ok(x: torch.Tensor) -> bool:
-    """What the fp32 kernels' 16-byte loads take: the head dim
-    contiguous, the other strides positive multiples of 4 elements, a
-    16-byte aligned base."""
+    """What an fp32 TMA tensor map over x takes: the head dim contiguous,
+    the other strides positive multiples of 4 elements (16 bytes) below
+    2^38 elements, a 16-byte aligned base."""
     sb, sh, st, sd = x.stride()
     return (sd == 1 and x.data_ptr() % 16 == 0
-            and all(s > 0 and s % 4 == 0 for s in (sb, sh, st)))
+            and all(s > 0 and s % 4 == 0 and s < 2 ** 38
+                    for s in (sb, sh, st)))
 
 
 _LAYOUT_OK = {torch.bfloat16: _tma_ok, torch.float32: _f32_ok}
@@ -186,7 +190,7 @@ _LAYOUT_OK = {torch.bfloat16: _tma_ok, torch.float32: _f32_ok}
 
 def _check_cuda(tensors, d: int) -> torch.dtype:
     """Refuse what neither kernel pair takes. -> the common dtype, which
-    picks the pair: bfloat16 the wgmma kernels, float32 the FFMA ones."""
+    picks the pair: bfloat16 the bf16 kernels, float32 the 3xTF32 ones."""
     dtypes = {x.dtype for x in tensors}
     if len(dtypes) != 1 or not dtypes <= set(_LAYOUT_OK):
         raise ValueError("the CUDA attention kernels take q, k, v, g all "
