@@ -1,22 +1,14 @@
-"""The port's MetricsLogger and timers (utils/logging.py, utils/timing.py)
-against the JAX package's for the same calls: the same JSONL records
-(but their clock), the same printed lines, the same summaries' keys and
-step counts; only rank 0 of a gang writes; a torch.profiler trace."""
+"""The port's MetricsLogger (utils/logging.py) against the JAX package's
+for the same calls: the same JSONL records (but their clock), the same
+printed lines; only rank 0 of a gang writes."""
 
 import json
 import os
 
-import pytest
-import torch
-
 from wav2vec_contr_loss_tpu.utils import MetricsLogger as JaxLogger
-from wav2vec_contr_loss_tpu.utils import StepTimer as JaxTimer
-from wav2vec_contr_loss_tpu.utils import Throughput as JaxThroughput
 
 from wav2vec_contr_loss_torch.utils import logging as port_logging
 from wav2vec_contr_loss_torch.utils.logging import MetricsLogger
-from wav2vec_contr_loss_torch.utils.timing import (StepTimer, Throughput,
-                                                   profiler_trace)
 
 CALLS = [(1, {"train_loss": 1.5, "dev_loss": float("nan"), "alpha": 0.0},
           "[epoch 001] train_loss=1.5"),
@@ -85,38 +77,3 @@ def test_metrics_logger_writes_on_rank_0_only(tmp_path, monkeypatch):
     logger.log(1, {"x": 1.0}, message="rank 1")
     logger.close()
     assert printed == [] and not (tmp_path / "logs").exists()
-
-
-def test_step_timer_and_throughput_match_jax():
-    for Timer in (StepTimer, JaxTimer):
-        t = Timer()
-        assert t.summary() == {"mean_s": 0.0, "min_s": 0.0, "steps": 0}
-    port, ref = StepTimer(), JaxTimer()
-    x = torch.ones(4)
-    for _ in range(3):
-        for t in (port, ref):
-            t.start()
-        port.stop({"loss": x * 2, "parts": [x, (x + 1,)]})
-        ref.stop()
-    got, want = port.summary(drop_first=1), ref.summary(drop_first=1)
-    assert set(got) == set(want) and got["steps"] == want["steps"] == 2
-    assert 0 <= got["min_s"] <= got["mean_s"]
-    assert port.summary(drop_first=5)["steps"] == 3   # too few to drop
-
-    thru, jthru = Throughput(32, n_cards=2), JaxThroughput(32, n_chips=2)
-    for th in (thru, jthru):
-        for _ in range(2):
-            th.start()
-            th.stop()
-    assert thru.clips_per_sec_per_card() * 2 == pytest.approx(
-        thru.clips_per_sec())
-    assert thru.timer.summary()["steps"] == jthru.timer.summary()["steps"]
-
-
-def test_profiler_trace_writes_a_chrome_trace(tmp_path):
-    with profiler_trace(str(tmp_path)):
-        torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
-    with open(tmp_path / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
-    with profiler_trace(None):   # no directory: nothing recorded
-        pass

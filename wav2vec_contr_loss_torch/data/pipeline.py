@@ -32,6 +32,7 @@ import torch
 from .protocols import SpoofDataset
 from .rawboost import RawBoostParams, apply_rawboost_batch
 from .sampler import BalancedBatchSampler
+from ..utils.timing import span
 
 __all__ = ["Batch", "BatchPipeline", "prefetch_to_device",
            "stream_through_device"]
@@ -173,7 +174,9 @@ def prefetch_to_device(
     depth: int = 2,
 ) -> Iterator:
     """A background thread runs `put_fn` on the items of `iterator`,
-    `depth` items ahead of the consumer."""
+    `depth` items ahead of the consumer. Under a profiler the consumer's
+    wait is a `w2v.feed_wait` range and each `put_fn` a `w2v.feed_put`
+    range (recorded where the profiler traces every thread)."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     sentinel = object()
     err: list = []
@@ -184,7 +187,8 @@ def prefetch_to_device(
             for item in iterator:
                 if stop.is_set():  # consumer abandoned the generator
                     return
-                out = put_fn(item)
+                with span("w2v.feed_put"):
+                    out = put_fn(item)
                 if stop.is_set():
                     return
                 q.put(out)
@@ -200,7 +204,8 @@ def prefetch_to_device(
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("w2v.feed_wait"):
+                item = q.get()
             if item is sentinel:
                 if err:
                     raise err[0]

@@ -34,6 +34,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..utils.timing import span
+
 __all__ = ["murmur_bits", "murmur_dropout", "attention_dropout_mask",
            "threshold", "draw_seed"]
 
@@ -95,11 +97,14 @@ def murmur_dropout(x: torch.Tensor, seed: int, rate: float,
                    offsets: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Inverted dropout with counter-based bits: x / (1 - rate) where the
     bits of an element reach the rate's threshold, else 0. `offsets`:
-    where x sits in the tensor the mask is defined over (murmur_bits)."""
+    where x sits in the tensor the mask is defined over (murmur_bits).
+    Under a profiler it is a `w2v.dropout` range."""
     if rate <= 0.0:
         return x
-    keep = murmur_bits(x.shape, seed, x.device, offsets) >= threshold(rate)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    with span("w2v.dropout"):
+        keep = (murmur_bits(x.shape, seed, x.device, offsets)
+                >= threshold(rate))
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def attention_dropout_mask(batch: int, heads: int, t: int, seed: int,

@@ -78,6 +78,7 @@ from ..data.sampler import BalancedBatchSampler
 from ..losses.supcon import supcon_multiclass_loss
 from ..ops.supcon import supcon_binary_loss_fused
 from ..ops.wire import dequantize_wire, quantize_wire
+from ..utils.timing import span, start_profile, stop_profile
 from . import checkpoint as ckpt
 from .optim import build_optimizer, resolve_grad_bf16
 from .schedule import alpha_for_epoch
@@ -281,20 +282,33 @@ class Stage1Trainer:
         'labels': (B,) ints; 'multi_labels' for the multiclass loss} at
         mining weight `alpha`; in a gang, this rank's slice of the global
         batch, as `local_batch` cuts it). -> {'loss': scalar tensor on
-        the device, the global batch's} (no host sync)."""
-        b = self._batch(batch)
-        if self._rawboost_gen is not None:
-            b["waveforms"] = _device_rawboost(
-                b["waveforms"], self.gen, self._rawboost_gen,
-                self.cfg.rawboost_prob, self.rawboost_params, self.shard)
-        loss = self._loss(self._embed(b, train=True), b, alpha)
-        self.optimizer.zero_grad()
-        loss.backward()
-        if self.layout is not None:
-            self.layout.average_gradients(self.optimizer.parameters())
-        self.optimizer.step()
-        self.step += 1
-        return {"loss": loss.detach()}
+        the device, the global batch's} (no host sync). Under a profiler
+        the step and its phases are `w2v.*` ranges (utils/timing.py)."""
+        with span("w2v.step"):
+            with span("w2v.batch"):
+                b = self._batch(batch)
+            if self._rawboost_gen is not None:
+                with span("w2v.rawboost"):
+                    b["waveforms"] = _device_rawboost(
+                        b["waveforms"], self.gen, self._rawboost_gen,
+                        self.cfg.rawboost_prob, self.rawboost_params,
+                        self.shard)
+            with span("w2v.forward"):
+                z = self._embed(b, train=True)
+            with span("w2v.loss"):
+                loss = self._loss(z, b, alpha)
+            # the gradients are cleared before the backward, so that they
+            # stay readable after the step: two optimizer ranges a step
+            with span("w2v.optimizer"):
+                self.optimizer.zero_grad()
+            with span("w2v.backward"):
+                loss.backward()
+            with span("w2v.optimizer"):
+                if self.layout is not None:
+                    self.layout.average_gradients(self.optimizer.parameters())
+                self.optimizer.step()
+            self.step += 1
+            return {"loss": loss.detach()}
 
     @torch.no_grad()
     def eval_step(self, batch: Mapping) -> torch.Tensor:
@@ -407,6 +421,8 @@ class Stage1Trainer:
         history = {"train_loss": [], "dev_loss": [], "alpha": [],
                    "clips_per_sec": []}
         prof = None
+        profile_path = profile_dir and os.path.join(profile_dir,
+                                                    "train_steps_2-5.json")
         for epoch in range(start_epoch, cfg.epochs + 1):
             alpha = alpha_for_epoch(epoch, cfg.warmup_epochs,
                                     cfg.alpha_ramp_epochs, cfg.alpha_end)
@@ -417,20 +433,20 @@ class Stage1Trainer:
             preempted = False
             for batch in self._device_batches(
                     train_pipe.train_epoch(epoch, skip=skip)):
-                if profile_dir and n_steps == skip + 1 and prof is None:
+                if profile_path and n_steps == skip + 1 and prof is None:
                     losses[-1].item()   # step 1 stays out of the trace
-                    prof = _start_profile(self.device)
+                    prof = start_profile(self.device)
                 losses.append(self.train_step(batch, alpha)["loss"])
                 n_steps += 1
                 if prof is not None and n_steps >= skip + 5:
-                    log_fn(_stop_profile(prof, losses[-1], profile_dir))
-                    prof, profile_dir = None, None
+                    log_fn(stop_profile(prof, profile_path, losses[-1]))
+                    prof, profile_path = None, None
                 if preemption is not None and preemption.requested(n_steps):
                     preempted = True
                     break
             if prof is not None:   # the epoch ended inside the window
-                log_fn(_stop_profile(prof, losses[-1], profile_dir))
-                prof, profile_dir = None, None
+                log_fn(stop_profile(prof, profile_path, losses[-1]))
+                prof, profile_path = None, None
             if preempted:
                 if save_dir is not None:
                     # blocking: the process is about to stop
@@ -698,23 +714,3 @@ def _load_states(layout, optimizer, modules, state: Mapping) -> None:
             m.load_state_dict(state[key], strict=True)
         else:
             layout.load_full_state_dict(m, state[key])
-
-
-def _start_profile(device: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.start()
-    return prof
-
-
-def _stop_profile(prof, last_loss: torch.Tensor, profile_dir: str) -> str:
-    last_loss.item()   # the profiled steps have run
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "train_steps_2-5.json")
-    prof.export_chrome_trace(path)
-    return f"[PROFILE] trace of train steps 2-5 written to {path}"

@@ -1,2 +1,2 @@
 """Run-level utilities: the process group, graceful preemption, metrics
-logging and step timing."""
+logging, named spans and the profiler exporter."""

@@ -1,101 +1,59 @@
-"""Step timing and throughput, and a profiler context.
+"""Named spans on the profiler's clock, and the port's profiler exporter.
 
-The port of wav2vec_contr_loss_tpu/utils/timing.py: `StepTimer` takes
-the host clock around a step and, where JAX calls `block_until_ready`,
-waits for the CUDA streams of the step's outputs (tensors, or dicts,
-lists and tuples of them) before it reads the clock, so a step's time
-is the device's and not the enqueue's; `Throughput` turns those times
-into clips/s and clips/s a card. `profiler_trace(log_dir)` records a
-`torch.profiler` trace (the CPU, and the card when there is one) into
-<log_dir>/trace.json, where JAX writes a `jax.profiler` trace.
+`span(name)` names a stretch of the host's work as a `torch.profiler`
+range. It lands in whatever profiler runs (a benchmark's, `fit
+--profile_dir`'s, a user's own), on the clock of the kernels launched
+inside it, and that profiler's exporter writes it out. With no profiler
+running it is one shared no-op context and costs a flag test. Ranges on
+one thread nest, so nesting is the parent link.
+
+`start_profile` / `stop_profile` record the host's operators and, on the
+card, its kernels into a Chrome trace (`fit(profile_dir=...)`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["StepTimer", "Throughput", "profiler_trace"]
+__all__ = ["span", "start_profile", "stop_profile"]
 
-
-def _wait(x) -> None:
-    """Wait for the work that produces x on its device."""
-    if isinstance(x, torch.Tensor):
-        if x.is_cuda:
-            torch.cuda.current_stream(x.device).synchronize()
-    elif isinstance(x, dict):
-        for v in x.values():
-            _wait(v)
-    elif isinstance(x, (list, tuple)):
-        for v in x:
-            _wait(v)
+_OFF = contextlib.nullcontext()
 
 
-class StepTimer:
-    """Wall-clock timer that waits for the device outputs of the step."""
-
-    def __init__(self):
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, *sync_on) -> float:
-        for x in sync_on:
-            _wait(x)
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        return dt
-
-    def summary(self, drop_first: int = 1) -> dict:
-        ts = (self.times[drop_first:] if len(self.times) > drop_first
-              else self.times)
-        if not ts:
-            return {"mean_s": 0.0, "min_s": 0.0, "steps": 0}
-        return {"mean_s": sum(ts) / len(ts), "min_s": min(ts),
-                "steps": len(ts)}
+def span(name: str):
+    """A `record_function(name)` range while a profiler runs; otherwise
+    the shared no-op context. The flag read is the Python-side one that
+    every running `torch.profiler` sets, on every thread:
+    `torch.autograd._profiler_enabled()` is thread-local and reads false
+    on every thread of a profile that records all threads."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
-class Throughput:
-    """clips/s (and clips/s a card) over train steps."""
-
-    def __init__(self, clips_per_step: int, n_cards: int = 1):
-        self.clips_per_step = clips_per_step
-        self.n_cards = max(1, n_cards)
-        self.timer = StepTimer()
-
-    def start(self) -> None:
-        self.timer.start()
-
-    def stop(self, *sync_on) -> float:
-        return self.timer.stop(*sync_on)
-
-    def clips_per_sec(self, drop_first: int = 1) -> float:
-        s = self.timer.summary(drop_first)
-        return 0.0 if s["mean_s"] == 0 else self.clips_per_step / s["mean_s"]
-
-    def clips_per_sec_per_card(self, drop_first: int = 1) -> float:
-        return self.clips_per_sec(drop_first) / self.n_cards
-
-
-@contextlib.contextmanager
-def profiler_trace(log_dir: Optional[str]):
-    """A torch.profiler trace into <log_dir>/trace.json when a directory
-    is given; nothing otherwise."""
-    if not log_dir:
-        yield
-        return
+def start_profile(device: torch.device) -> torch.profiler.profile:
+    """A started profiler over the host's operators and, on the card,
+    its kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield
-    os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof: torch.profiler.profile, path: str,
+                 last: torch.Tensor) -> str:
+    """Stop `prof` once `last` (an output of the last profiled work) is
+    on the host, and write its Chrome trace to `path`. -> a log line."""
+    last.item()
+    prof.stop()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    prof.export_chrome_trace(path)
+    return f"[PROFILE] trace written to {path}"
