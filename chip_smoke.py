@@ -31,7 +31,12 @@
    torch.cuda.set_sync_debug_mode("error"); times kernel, plain version
    and the nearest single PyTorch call (timed only; the port never calls
    it; SDPA on one named backend) as device time: CUDA events around
-   calls queued behind a sleeping kernel.
+   calls queued behind a sleeping kernel. Murmur dropout
+   (csrc/murmur_dropout.cu; `--dropout` runs this part alone) bit for
+   bit against its plain version, output and gradient, at the step's
+   (32, 249, 1024) in bf16 and the compression head's in fp32, an
+   innermost size of 1001 and a gang's offsets; timed at both step
+   shapes beside its byte bound, the plain version and F.dropout.
 3. Serve phase: builds XLS-R-300M (24 layers, 1024 wide, 'layer' norm)
    with a linear head from seeded random numpy weights in the JAX tree
    layout, passed through the port's weight bridge; scores 4 batches of
@@ -410,6 +415,82 @@ def kernel_phase(dev):
           f"{plain_ms:.4f} ms, F.layer_norm+F.gelu {lib_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by})")
     return results
+
+
+# murmur dropout's cases: (shape, dtype, offsets); the first two timed
+DROPOUT_CASES = (((32, 249, 1024), torch.bfloat16, None),
+                 ((32, 249, 1024), torch.float32, None),
+                 ((32, 249, 1001), torch.bfloat16, None),
+                 ((8, 249, 512), torch.bfloat16, (8, 0, 512)))
+DROPOUT_RATE = 0.1
+
+
+def dropout_phase(dev, results) -> None:
+    """Murmur dropout's kernel against its plain version on the same
+    tensors, output and gradient bit for bit; then its device time at
+    the step's two shapes beside its byte bound (one read, one write),
+    the plain version's and F.dropout's (timed only)."""
+    from wav2vec_contr_loss_torch.ops import dropout
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    seed, rate = 2 ** 31 - 9, DROPOUT_RATE
+    rows = {}
+    for shape, dtype, offsets in DROPOUT_CASES:
+        x = (2.0 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        out = []
+        for fn in (dropout.murmur_dropout, dropout.murmur_dropout_plain):
+            xr = x.clone().requires_grad_()
+            y = fn(xr, seed, rate, offsets)
+            y.backward(g)
+            out.append((y.detach(), xr.grad))
+        (y, dx), (yp, dxp) = out
+        same = torch.equal(y, yp) and torch.equal(dx, dxp)
+        print(f"murmur_dropout {shape} {dtype} offsets {offsets}: output "
+              f"and gradient equal to the plain version's: {same}")
+        if not same:
+            raise RuntimeError("the murmur dropout kernel differs from its "
+                               "plain version")
+        if len(rows) < 2:
+            name = "bf16" if dtype == torch.bfloat16 else "fp32"
+            ms = device_ms(lambda: dropout.murmur_dropout(x, seed, rate))
+            plain_ms = device_ms(
+                lambda: dropout.murmur_dropout_plain(x, seed, rate))
+            lib_ms = device_ms(lambda: torch.nn.functional.dropout(
+                x, rate, training=True))
+            bound_ms, bound_by = bound(2 * x.numel() * x.element_size(), 0,
+                                       BF16_FLOP_PER_S)
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=lib_ms,
+                              share_of_bound=bound_ms / ms)
+            print(f"murmur_dropout {shape} {name}: kernel {ms:.4f} ms "
+                  f"({100 * bound_ms / ms:.1f} % of the bound), plain "
+                  f"{plain_ms:.4f} ms, F.dropout {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
+    results["murmur_dropout"] = dict(
+        name="murmur_dropout", route="cuda",
+        source="wav2vec_contr_loss_torch/csrc/murmur_dropout.cu",
+        replaces="none: wav2vec_contr_loss_tpu/ops/fast_dropout.py is jnp "
+                 "that XLA fuses", library="F.dropout",
+        launches=dropout.launches, bwd_launches=dropout.bwd_launches,
+        **rows)
+
+
+def dropout_main() -> int:
+    """The murmur dropout part of the kernel phase alone (`--dropout`),
+    its kernel built on demand."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    global CARD
+    CARD = read_card()
+    print(CARD)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    results = {}
+    dropout_phase(torch.device("cuda", 0), results)
+    print(json.dumps({"kernels": list(results.values())}))
+    return 0
 
 
 def ln_bwd_bound(rows: int, c: int):
@@ -990,6 +1071,7 @@ def _reset_counters() -> None:
 
 def train_phase(dev, results):
     from wav2vec_contr_loss_torch import XLSR_300M, Stage1Config, Stage1Trainer
+    from wav2vec_contr_loss_torch.ops import dropout
 
     cfg = XLSR_300M
     scfg = Stage1Config(finetune_encoder=True, use_rawboost=False)
@@ -1005,6 +1087,7 @@ def train_phase(dev, results):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
+    drops = (dropout.launches, dropout.bwd_launches)
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1012,6 +1095,13 @@ def train_phase(dev, results):
         times.append(time.perf_counter() - t0)
         losses.append(loss)
     counts = _counters()
+    drops = (dropout.launches - drops[0], dropout.bwd_launches - drops[1])
+    print(f"train: murmur dropout launches over {TRAIN_STEPS} steps: "
+          f"{drops[0]} forward and recompute, {drops[1]} backward")
+    if drops[1] != TRAIN_STEPS * (3 + 2 * cfg.num_layers):
+        raise RuntimeError("a dropout site of the step ran no backward "
+                           "kernel")
+    results["murmur_dropout"]["train_launches"] = drops
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"train: losses {[round(x, 5) for x in losses]}")
     want = {k: v * TRAIN_STEPS
@@ -3776,7 +3866,7 @@ def bench_phase(dev, results) -> dict:
               + ", ".join(f"{k} {v}" for k, v in n.items()))
     check_bench(out, counts, bench_expected(BENCH_LEGS, XLSR_300M),
                 XLSR_300M)
-    for name in results:
+    for name in _counters():
         results[name]["bench_launches"] = sum(c[name]
                                               for c in counts.values())
 
@@ -3926,6 +4016,7 @@ def main() -> int:
     t0 = time.perf_counter()
     results = kernel_phase(dev)
     train_kernel_phase(dev, results)
+    dropout_phase(dev, results)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s (Triton JIT "
           f"included)")
     t0 = time.perf_counter()
@@ -3975,5 +4066,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--fit": fit_main, "--parallel": parallel_main,
-              "--bench": bench_main, "--fp32": fp32_main}.get(
+              "--bench": bench_main, "--fp32": fp32_main,
+              "--dropout": dropout_main}.get(
         sys.argv[1] if len(sys.argv) == 2 else None, main)())

@@ -26,18 +26,39 @@ int64 with every product reduced modulo 2^32 (`_mul32` splits the
 multiplier so no intermediate leaves int64). The seed is a Python int,
 drawn by the caller from its `torch.Generator`; JAX's threefry draw of
 that seed (fast_dropout.py:67) is not reproduced.
+
+`murmur_dropout` goes through one autograd Function, `MurmurDropout`,
+on every device. On a CUDA tensor (bf16 or fp32) its forward and its
+backward each launch csrc/murmur_dropout.cu, which hashes, compares and
+scales in one pass over the tensor; the backward runs it on the incoming
+gradient, recomputing the mask from the seed, and saves nothing. Any
+other dtype is refused on the card. On any other device the forward is
+the plain version, `murmur_dropout_plain` (the int64 hash above and
+`torch.where(keep, x / (1 - rate), 0)`), and the backward applies its
+saved mask as autograd of that expression would. The kernel's output and
+gradient equal the plain version's on the same CUDA tensor bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..utils.timing import span
+from ._build import check
 
-__all__ = ["murmur_bits", "murmur_dropout", "attention_dropout_mask",
-           "threshold", "draw_seed"]
+__all__ = ["murmur_bits", "murmur_dropout", "murmur_dropout_plain",
+           "MurmurDropout", "attention_dropout_mask", "threshold",
+           "draw_seed", "launches", "bwd_launches"]
+
+# kernel launches through `murmur_dropout` on the card (forward, the remat
+# recompute included) and its backward; read and reset by callers
+launches = 0
+bwd_launches = 0
 
 _M32 = 0xFFFFFFFF
 # distinct odd multipliers per axis (fast_dropout.py:42)
@@ -93,18 +114,121 @@ def murmur_bits(shape: Sequence[int], seed: int, device=None,
     return _fmix(h.expand(shape))
 
 
+def _keep(x: torch.Tensor, seed: int, rate: float,
+          offsets: Optional[Sequence[int]]) -> torch.Tensor:
+    return murmur_bits(x.shape, seed, x.device, offsets) >= threshold(rate)
+
+
+def _apply(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def murmur_dropout_plain(x: torch.Tensor, seed: int, rate: float,
+                         offsets: Optional[Sequence[int]] = None
+                         ) -> torch.Tensor:
+    """The kernel's function in PyTorch: x / (1 - rate) where the bits of
+    an element reach the rate's threshold, else 0."""
+    return _apply(x, _keep(x, seed, rate, offsets), rate)
+
+
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_MAX_DIMS = 8     # the kernel's: 7 leading axes and the innermost
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("murmur_dropout")
+    lib.murmur_dropout.argtypes = [_P, _P, _I, _I, _P, _P, _U, _U,
+                                   ctypes.c_float, _P]
+    lib.murmur_dropout.restype = _I
+    return lib
+
+
+@functools.cache
+def _scale(rate: float) -> float:
+    """The fp32 reciprocal of 1 - rate: the multiplier by which PyTorch's
+    CUDA division of a tensor by that Python scalar scales."""
+    return float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+def _launch(x: torch.Tensor, seed: int, rate: float,
+            offsets: Optional[Sequence[int]]) -> torch.Tensor:
+    """csrc/murmur_dropout.cu over x (made contiguous), into a new
+    contiguous tensor."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("the CUDA murmur dropout kernel takes bfloat16 or "
+                         f"float32; got {x.dtype}")
+    if x.dim() > _MAX_DIMS:
+        raise ValueError(f"the CUDA murmur dropout kernel takes at most "
+                         f"{_MAX_DIMS} axes; got {x.dim()}")
+    offsets = tuple(offsets) if offsets is not None else (0,) * x.dim()
+    if len(offsets) != x.dim():
+        raise ValueError(f"{len(offsets)} offsets for a {x.dim()}-d shape")
+    x = x.contiguous()
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if x.numel() == 0:
+        return out
+    # a 0-d tensor as one element of a 1-d one: no axis term either way
+    shape, offsets = (tuple(x.shape), offsets) if x.dim() else ((1,), (0,))
+    n = len(shape)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.murmur_dropout(
+            x.data_ptr(), out.data_ptr(), int(x.dtype == torch.float32), n,
+            (ctypes.c_longlong * n)(*shape),
+            (ctypes.c_longlong * n)(*offsets), seed & _M32,
+            threshold(rate), _scale(rate), stream)
+    check(lib, "murmur_dropout", err)
+    return out
+
+
+class MurmurDropout(torch.autograd.Function):
+    """Murmur dropout and its gradient, the forward applied to the
+    incoming gradient: the kernel on a CUDA tensor (the mask recomputed
+    from the seed, nothing saved), the plain version elsewhere (its mask
+    saved, as autograd of the plain expression saves it)."""
+
+    @staticmethod
+    def forward(ctx, x, seed: int, rate: float, offsets):
+        global launches
+        ctx.seed, ctx.rate, ctx.offsets = seed, rate, offsets
+        if x.is_cuda:
+            out = _launch(x, seed, rate, offsets)
+            launches += 1
+            return out
+        keep = _keep(x, seed, rate, offsets)
+        ctx.save_for_backward(keep)
+        return _apply(x, keep, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        global bwd_launches
+        if g.is_cuda:
+            dx = _launch(g, ctx.seed, ctx.rate, ctx.offsets)
+            bwd_launches += 1
+        else:
+            keep, = ctx.saved_tensors
+            # WhereBackward0, then DivBackward0
+            dx = torch.where(keep, g, torch.zeros_like(g)) / (1.0 - ctx.rate)
+        return dx, None, None, None
+
+
 def murmur_dropout(x: torch.Tensor, seed: int, rate: float,
                    offsets: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Inverted dropout with counter-based bits: x / (1 - rate) where the
     bits of an element reach the rate's threshold, else 0. `offsets`:
     where x sits in the tensor the mask is defined over (murmur_bits).
-    Under a profiler it is a `w2v.dropout` range."""
+    On the card one kernel launch (bf16 or fp32), and one in the
+    backward. Under a profiler it is a `w2v.dropout` range."""
     if rate <= 0.0:
         return x
     with span("w2v.dropout"):
-        keep = (murmur_bits(x.shape, seed, x.device, offsets)
-                >= threshold(rate))
-        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+        return MurmurDropout.apply(
+            x, int(seed), float(rate),
+            None if offsets is None else tuple(int(o) for o in offsets))
 
 
 def attention_dropout_mask(batch: int, heads: int, t: int, seed: int,
