@@ -8,10 +8,10 @@ For each seed it prints one JSON line:
   program  the numbers a run compares (its driver with a short window at
            the cell's load, then the reference), as the run computes them;
   control  the same numbers with the reference put in the program's
-           place at float8 (e4m3) operands, the precision below the
-           configuration's bf16, against the fp32 reference; and the
-           planted fault 'half_batch' (the loss of half the batch) in
-           the reference.
+           place at the precision below the configuration's, against
+           the fp32 reference: float8 (e4m3) operands under bf16 compute;
+           under fp32 compute (TF32 off) TF32; and the planted fault
+           'half_batch' (the loss of half the batch) in the reference.
 The limits (limits/<cell>.json) lie above the program's readings and
 below the control's; PERF.md gives both.
 """
@@ -28,7 +28,14 @@ sys.path.insert(0, os.path.dirname(HERE))
 from h100bench import run as harness  # noqa: E402  (sets the cache paths)
 
 
-def _train_control(cell, seed: int, device) -> dict:
+# the control of a configuration's compute dtype: the reference.model
+# Precision of the nearest precision below it
+CONTROLS = {"bfloat16": "fp8", "float32": "tf32"}
+
+
+def _train_control(cell, seed: int, device, control=None) -> dict:
+    """{control: gaps} for `control` (the configuration's CONTROLS entry by
+    default) and for the 'half_batch' fault."""
     import torch
 
     from h100bench import traffic as gen, weights
@@ -53,7 +60,8 @@ def _train_control(cell, seed: int, device) -> dict:
         return out
 
     base = ref()
-    out = {"fp8": drv.gaps(ref(precision="fp8"), base),
+    control = control or CONTROLS[cfg["compute_dtype"]]
+    out = {control: drv.gaps(ref(precision=control), base),
            "half_batch": drv.gaps(ref(fault="half_batch"), base)}
     for v in out.values():
         v.pop("_worst")

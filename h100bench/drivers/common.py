@@ -68,6 +68,35 @@ class Marks:
               + " s", flush=True)
 
 
+class HostPace:
+    """What the host gave the dispatching thread over a window: its CPU
+    seconds and its involuntary context switches (the scheduler took the
+    core away), printed with the window's steps a second in sixths."""
+
+    def __init__(self):
+        self.cpu0, self.ru0 = time.thread_time(), self._rusage()
+
+    @staticmethod
+    def _rusage():
+        import resource
+
+        return resource.getrusage(getattr(resource, "RUSAGE_THREAD",
+                                          resource.RUSAGE_SELF))
+
+    def print(self, seconds: float, steps: int, stamps) -> None:
+        ru = self._rusage()
+        cpu = time.thread_time() - self.cpu0
+        sixths = [sum(1 for s in stamps if k * seconds / 6 <= s
+                      < (k + 1) * seconds / 6) / (seconds / 6)
+                  for k in range(6)]
+        print(f"[host] dispatching thread: {cpu:.3f} CPU s of {seconds:.3f} "
+              f"s ({1e3 * cpu / max(steps, 1):.2f} CPU ms a step), "
+              f"{ru.ru_nivcsw - self.ru0.ru_nivcsw} involuntary and "
+              f"{ru.ru_nvcsw - self.ru0.ru_nvcsw} voluntary switches; "
+              f"steps a second by sixths "
+              f"{[round(x, 3) for x in sixths]}", flush=True)
+
+
 class Traced:
     """A profiled stretch, read back as a `trace.Trace`. With `cpu`, the
     host's operators on every thread where the profiler can, so that

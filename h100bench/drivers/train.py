@@ -7,9 +7,14 @@ Set-up builds one trainer from the seed's weights and runs its first
 then runs the window. After the window the plain reference follows those
 first steps from the same weights, batches and seed, and the run is
 correct when each step's loss, each leaf's first gradient (read from the
-optimizer's first moment after step 1: its norm and its direction) and
+optimizer's first moment after step 1, the reference's rounded to that
+moment's dtype alike: its norm and its direction) and
 each leaf's change after the first steps agree with it within the cell's
 limits.
+
+After the window, in every run, a few steps traced with the device's
+activity alone give the step's device time (`step_device_ms`), which the
+host's pace does not move.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .. import roofline, traffic as gen, weights
+from .. import roofline, trace as tr, traffic as gen, weights
 from ..reference import train as ref_train
 from . import common
 
@@ -174,27 +179,39 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     window_losses = []
     untraced = seconds - (t["trace_reserve_s"] if trace else 0.0)
     n = 0
+    stamps = []
+    host0 = common.HostPace()
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < untraced:
         window_losses.append(trainer.train_step(next(feed), alpha)["loss"])
         n += 1
+        stamps.append(time.perf_counter() - t0)
     common.sync(device)
     stretch_s = time.perf_counter() - t0
+    host0.print(stretch_s, n, stamps)
     c1 = common.counters()
-    traced = dev_traced = None
+    traced = None
+    # after the window, in every run: the device's activity alone (the
+    # step's device time; in a traced run also the idle share and busy
+    # seconds), then, traced, the host's operators with it (attribution,
+    # breakdown)
+    with common.Traced(device, cpu=False) as dev_traced:
+        for _ in range(t["trace_device_steps"]):
+            window_losses.append(
+                trainer.train_step(next(feed), alpha)["loss"])
+    # None where no device operation ran (the CPU tests)
+    step_device_ms = (1e3 * tr.busy_seconds(dev_traced.trace)
+                      / t["trace_device_steps"]) or None
+    print(f"[train] the step's device time {step_device_ms} ms over "
+          f"{t['trace_device_steps']} steps traced after the window",
+          flush=True)
     if trace:
-        # the device's activity alone first (idle share, busy seconds),
-        # then the host's operators with it (attribution, breakdown)
-        with common.Traced(device, cpu=False) as dev_traced:
-            for _ in range(t["trace_device_steps"]):
-                window_losses.append(
-                    trainer.train_step(next(feed), alpha)["loss"])
-        c1 = common.counters()
+        c2 = common.counters()
         with common.Traced(device) as traced:
             for _ in range(t["trace_steps"]):
                 window_losses.append(
                     trainer.train_step(next(feed), alpha)["loss"])
-        traced.counters = common.delta(common.counters(), c1)
+        traced.counters = common.delta(common.counters(), c2)
         traced.units = t["trace_steps"]
         step_s = stretch_s / max(n, 1)
         print(f"[trace] the profiler's overhead: a step took {step_s:.4f} s "
@@ -236,12 +253,14 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     flops = roofline.train_step_flops(cfg, samples, b)
     return {
         "setup_s": setup_s, "attempted": len(window_losses), "failed": failed,
-        "e2e": {"train_clips_per_s": n * b / stretch_s},
+        "e2e": {"train_clips_per_s": n * b / stretch_s,
+                "step_device_ms": step_device_ms},
         "checks": checks, "memory_peak_bytes": peak, "traced": traced,
         "dev_traced": dev_traced,
         "ctx": {"kind": "train", "batch": b, "samples": samples,
+                "dtype": cfg["compute_dtype"],
                 "stretch_s": stretch_s, "steps": n,
-                "step_flops": flops,
+                "step_flops": flops, "step_device_ms": step_device_ms,
                 "heads": cfg["num_attention_heads"],
                 "head_dim": cfg["hidden_size"] // cfg["num_attention_heads"],
                 "frames": roofline.conv_lengths(cfg, samples)[-1],

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 from . import trace as tr
 
 
@@ -34,3 +36,13 @@ def roofline_share(ctx, parts):
         return None
     return 100.0 * least / seconds
 
+
+
+def same_as(path: str, name: str):
+    """The `read` of metrics/<name>.py beside the reader at `path`: a
+    quantity read alike in cells that report another end-to-end metric,
+    under a name of its own there."""
+    from . import spec
+
+    return spec.metric_reader(os.path.dirname(os.path.dirname(
+        os.path.abspath(path))), name)

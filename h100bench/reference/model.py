@@ -15,8 +15,16 @@ an fp32 bias of -1e30 (not -inf); the positional conv is one plain weight
 samples pushed through the conv stride chain.
 
 `Precision` rounds the operands of every matrix product and convolution:
-identity for the reference, float8 (e4m3, one scale a tensor) for the
-control that stands in a lower precision than the configuration states.
+identity for the reference; for a control that stands in a lower
+precision than the configuration states, TF32 (10 mantissa bits) or
+float8 (e4m3, one scale a tensor).
+
+With grad enabled each encoder layer runs under non-reentrant
+`torch.utils.checkpoint`: autograd keeps a layer's input and recomputes
+its activations in the backward, one layer at a time, so a 48-layer
+encoder fits on one card. Every mask is a hash of a seed and the
+SpecAugment spans come from the caller's uniforms, so the recompute draws
+what the forward drew and no number changes.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _M32 = 0xFFFFFFFF
 _AXIS_MULTS = (2654435761, 2246822519, 3266489917, 668265263, 374761393,
@@ -34,44 +43,65 @@ _NEG = -1e30
 
 
 # ---------------------------------------------------------------- precision
-class _Fp8RoundTrip(torch.autograd.Function):
-    """x rounded to float8 e4m3 at a per-tensor scale (amax -> 448); the
-    gradient passes unchanged."""
+def _to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32's 10 mantissa bits, to nearest, ties to even."""
+    bits = x.view(torch.int32)
+    bits = (bits + 0xFFF + ((bits >> 13) & 1)) & -0x2000
+    return bits.view(torch.float32)
+
+
+def _to_fp8(x: torch.Tensor) -> torch.Tensor:
+    """float8 e4m3 at a per-tensor scale (amax -> 448)."""
+    amax = x.detach().abs().amax().clamp_min(1e-30)
+    scale = amax / 448.0
+    return (x / scale).to(torch.float8_e4m3fn).to(x.dtype) * scale
+
+
+_ROUND = {"tf32": _to_tf32, "fp8": _to_fp8}
+
+
+class _RoundTrip(torch.autograd.Function):
+    """x rounded by `fn`; the gradient passes unchanged."""
 
     @staticmethod
-    def forward(ctx, x):
-        amax = x.detach().abs().amax().clamp_min(1e-30)
-        scale = amax / 448.0
-        return (x / scale).to(torch.float8_e4m3fn).to(x.dtype) * scale
+    def forward(ctx, x, fn):
+        return fn(x)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
 class Precision:
-    """'fp32': operands as they are; 'fp8': each operand of a product or
-    a convolution rounded to float8 e4m3 first."""
+    """'fp32': operands as they are; 'tf32' or 'fp8': each operand
+    of a product or a convolution rounded to that precision first, with a
+    straight-through gradient. (Under 'tf32' `train.run_steps` also runs
+    the card's products in TF32, so that the backward's operands round
+    too.)"""
 
     def __init__(self, name: str = "fp32"):
-        if name not in ("fp32", "fp8"):
-            raise ValueError(f"precision must be 'fp32' or 'fp8'; got {name!r}")
+        if name != "fp32" and name not in _ROUND:
+            raise ValueError(f"precision must be 'fp32' or one of "
+                             f"{sorted(_ROUND)}; got {name!r}")
         self.name = name
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.name == "fp32" else _Fp8RoundTrip.apply(x)
+        if self.name == "fp32":
+            return x
+        return _RoundTrip.apply(x, _ROUND[self.name])
 
 
 FP32 = Precision("fp32")
 
 
 @contextlib.contextmanager
-def no_tf32():
-    """fp32 products and convolutions in full fp32 on the card."""
+def tf32(on: bool):
+    """The card's fp32 products and convolutions in TF32 (`on`) or in full
+    fp32."""
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
     try:
         yield
     finally:
@@ -302,7 +332,9 @@ def encoder_layer_mean(p: Dict, waves: torch.Tensor, cfg: Dict,
     layers = g.get("layers") or [None] * cfg["num_hidden_layers"]
     acc = x
     for i in range(cfg["num_hidden_layers"]):
-        x = encoder_layer(p, i, x, key_bias, layers[i], cfg, prec)
+        args = (p, i, x, key_bias, layers[i], cfg, prec)
+        x = (checkpoint(encoder_layer, *args, use_reentrant=False)
+             if torch.is_grad_enabled() else encoder_layer(*args))
         acc = acc + x
     if cfg["do_stable_layer_norm"]:
         acc = acc - x + _ln(x, p, "encoder.layer_norm", eps)
@@ -325,7 +357,7 @@ def conv_out_frames(n: int, cfg: Dict) -> int:
     return int(frame_lengths(torch.tensor(n), cfg))
 
 
-__all__ = ["Precision", "FP32", "no_tf32", "dropout", "murmur_keep",
+__all__ = ["Precision", "FP32", "tf32", "dropout", "murmur_keep",
            "attention_keep_scale", "time_mask", "max_mask_spans",
            "frame_lengths", "encoder_layer_mean", "clip_embedding",
            "conv_out_frames"]

@@ -1,12 +1,15 @@
 """The reference's first training steps of stage-1 SupCon finetuning.
 
 From the initial weights and the step's batch it computes, in plain
-PyTorch (fp32, TF32 off, or the fp8 control), what one step of the
-recipe does: RawBoost on the batch, the encoder in train mode (murmur
-dropout, SpecAugment), compression with its dropout, the clip embedding,
-binary SupCon, the gradients of every parameter, a global-norm clip of
-the head's (compression's) gradients, and AdamW per group (head and
-encoder learning rates, shared weight decay, fp32 moments).
+PyTorch (fp32, TF32 off, or a control at a lower precision), what one
+step of the recipe does: RawBoost on the batch, the encoder in train
+mode (murmur dropout, SpecAugment; one layer at a time, see
+`model.encoder_layer_mean`), compression with its dropout, the clip
+embedding, binary SupCon, the gradients of every parameter, a
+global-norm clip of the head's (compression's) gradients, and AdamW per
+group (head and encoder learning rates, shared weight decay, fp32
+moments). The first gradient it reports is rounded as the recipe's
+first moment keeps it (`_as_first_moment`).
 
 Every random number is derived again from the recipe's seed, in the
 order the recipe draws them each step: the RawBoost seed (its numbers
@@ -75,16 +78,26 @@ class _AdamW:
             p.sub_(self.lr * upd)
 
 
+def _as_first_moment(g: torch.Tensor, recipe: Dict) -> torch.Tensor:
+    """g as the recipe's optimizer keeps it after step 1: (1 - b1) g in the
+    first moment's dtype (`adam_mu_dtype`), read back over (1 - b1). The
+    program's first gradient is read from that moment, so both sides
+    round alike and a gap is one of the gradients, not of the rounding."""
+    c = 1 - recipe["b1"]
+    return (g * c).to(getattr(torch, recipe["adam_mu_dtype"])).float() / c
+
+
 def run_steps(params: Dict[str, torch.Tensor], cfg: Dict, recipe: Dict,
               seed: int, batches: Sequence, steps: int = 3,
               precision: str = "fp32",
               fault: Optional[str] = None) -> Dict:
     """`params`: flat HF-named fp32 tensors (encoder names bare,
     'compression.*'), trained in place. `batches`: (waves (B, T) fp32,
-    labels (B,)) on the params' device. `fault`: None, or 'half_batch'
+    labels (B,)) on the params' device. `precision`: a `model.Precision`
+    name. `fault`: None, or 'half_batch'
     (the loss over the first half of the batch alone, a planted fault).
     -> {'loss': [per step], 'first': {name: step 1's gradient as the
-    optimizer takes it}, 'grad': {name: its norm}, 'update': {name: norm
+    optimizer takes it and keeps it in its first moment}, 'grad': {name: its norm}, 'update': {name: norm
     of the change after `steps` steps}}."""
     prec = model.Precision(precision)
     names = list(params)
@@ -100,7 +113,7 @@ def run_steps(params: Dict[str, torch.Tensor], cfg: Dict, recipe: Dict,
                      recipe["weight_decay"], *betas)
     gen = torch.Generator().manual_seed(seed)
     losses, first = [], None
-    with model.no_tf32():
+    with model.tf32(precision == "tf32"):
         for i in range(steps):
             waves, labels = batches[i]
             b, t = waves.shape
@@ -133,6 +146,8 @@ def run_steps(params: Dict[str, torch.Tensor], cfg: Dict, recipe: Dict,
             if first is None:
                 first = dict(zip(head, (g.detach() for g in hg)))
                 first.update({n: grads[n].detach() for n in enc})
+                first = {n: _as_first_moment(g, recipe)
+                         for n, g in first.items()}
             opt_head.step(hg)
             opt_enc.step([grads[n] for n in enc])
             losses.append(float(loss.detach()))

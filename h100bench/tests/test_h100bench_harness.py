@@ -1,8 +1,10 @@
 """The harness on the CPU at a tiny size: the port's train step against
-the plain reference on seeded random weights; the fp8 control and each
-planted fault coming out not correct; no run loading JAX or the JAX
-package; and a cell, a traffic mix and a metric added as files being
-picked up with no edit to a file that is there."""
+the plain reference on seeded random weights; the reference run one
+layer at a time giving what it gives run whole; the lower-precision
+control and each planted fault coming out not correct; no run loading
+JAX or the JAX package; and a cell, a traffic mix, a metric and a
+configuration added as files being picked up with no edit to a file
+that is there."""
 
 import hashlib
 import json
@@ -44,6 +46,10 @@ def test_port_agrees_with_the_reference(root, name):
     assert res["failed"] == 0 and res["attempted"] > 0
     assert all(m["value"] > 0 for m in metrics.values()), metrics
     assert "setup_s" in metrics
+    # the CPU runs no device operation: the step's device time reads
+    # None and is left out of the line, never reading 0
+    assert res["e2e"]["step_device_ms"] is None
+    assert "step_device_ms" not in metrics
 
 
 def _unchanged_state(trainer):
@@ -80,8 +86,55 @@ def test_the_fp8_control_is_not_correct(root, name):
     from h100bench import calibrate
 
     cell = spec.cell(name, root=root)
-    control = calibrate._train_control(cell, SEED, "cpu")["fp8"]
+    control = calibrate._train_control(cell, SEED, "cpu",
+                                       control="fp8")["fp8"]
     assert any(v > cell.limits[k] for k, v in control.items()), control
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_reference_one_layer_at_a_time_changes_nothing(root, name,
+                                                           monkeypatch):
+    """Under checkpoint each layer is recomputed in the backward; with
+    dropout on, its hash masks come out the same, so losses, first
+    gradients and changes are bit for bit those of the layers run
+    whole (checkpoint replaced by a direct call)."""
+    from h100bench import traffic as gen, weights
+    from h100bench.drivers import train as drv
+    from h100bench.reference import model, train as ref_train
+
+    cell = spec.cell(name, root=root)
+    cfg, t = cell.config, cell.traffic
+    assert cfg["hidden_dropout"] > 0 and cfg["attention_dropout"] > 0
+    _, recipe = drv._stage1_config(cell, SEED)
+    pool, labels = gen.train_pool(t, SEED,
+                                  t["clip_seconds"] * gen.SAMPLE_RATE)
+    batches = [(torch.from_numpy(pool[i]), torch.from_numpy(labels[i]))
+               for i in drv.first_batches(labels, t["batch_size"], SEED,
+                                          t["check_steps"])]
+    calls = []
+
+    def counted(fn, *args, **kw):
+        calls.append(args[1])
+        return checkpointed(fn, *args, **kw)
+
+    def run():
+        p = {k: v for k, v in weights.make(cfg, SEED, "cpu").items()
+             if not k.startswith("head.")}
+        return ref_train.run_steps(p, cfg, recipe, SEED, batches,
+                                   t["check_steps"])
+
+    checkpointed = model.checkpoint
+    monkeypatch.setattr(model, "checkpoint", counted)
+    blocked = run()
+    assert calls == list(range(cfg["num_hidden_layers"])) * t["check_steps"]
+    monkeypatch.setattr(model, "checkpoint",
+                        lambda fn, *args, use_reentrant: fn(*args))
+    whole = run()
+    assert blocked["loss"] == whole["loss"]
+    assert blocked["update"] == whole["update"]
+    assert blocked["first"].keys() == whole["first"].keys()
+    for n, g in whole["first"].items():
+        assert torch.equal(blocked["first"][n], g), n
 
 
 def test_traced_run_reads_its_metrics(root):
@@ -170,3 +223,52 @@ def test_a_cell_mix_and_metric_added_as_files(tmp_path):
         cell, SEED, 1.0, True, "cpu", time.perf_counter())
     assert correct, checks
     assert metrics["rows_seen"]["value"] == 4 * res["ctx"]["steps"]
+
+
+def test_a_configuration_at_another_precision_added_as_files(tmp_path):
+    """A configuration whose compute dtype differs is a configuration file:
+    configs/xlsr300m_fp32.json cut to the tiny widths, a cell under the
+    tiny traffic and its limits are picked up with no edit to a file that
+    is there, run at the file's dtype, read against its control, and
+    reported under the metrics that name the fp32 cell."""
+    from h100bench import calibrate
+
+    root = tiny.make_root(str(tmp_path))
+    bench_dir = os.path.join(root, "h100bench")
+    before = _digests(bench_dir)
+    with open(os.path.join(bench_dir, "configs", "xlsr300m_fp32.json")) as f:
+        cfg = json.load(f)
+    cfg.update({k: v for k, v in tiny.TINY.items() if k != "compute_dtype"})
+    with open(os.path.join(bench_dir, "configs", "tiny_fp32.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(bench_dir, "limits", "tiny_fp32.train.json"),
+              "w") as f:
+        json.dump(LIMITS, f)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    bench["configs"].append({"name": "tiny_fp32", "source": "tests",
+                             "file": "h100bench/configs/tiny_fp32.json",
+                             "reduced": [], "why": "added by a test"})
+    bench["workloads"].append({"name": "tiny_fp32.train",
+                               "config": "tiny_fp32", "traffic": "tiny_train",
+                               "chips": 1, "why": "added by a test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "xlsr300m_fp32.train_b32" in m.get("workloads", ()):
+            m["workloads"].append("tiny_fp32.train")
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    after = _digests(bench_dir)
+    assert all(after[k] == v for k, v in before.items())
+    cell = spec.cell("tiny_fp32.train", root=root)
+    assert cell.config["compute_dtype"] == "float32"
+    assert calibrate.CONTROLS["float32"] == "tf32"
+    res, metrics, checks, correct = harness.measure(
+        cell, SEED, 1.0, True, "cpu", time.perf_counter())
+    assert correct, checks
+    assert res["ctx"]["dtype"] == "float32"
+    assert set(metrics) == {"mfu.train_fp32"}, metrics
+    res, metrics, _, _ = harness.measure(cell, SEED, 1.0, False, "cpu",
+                                         time.perf_counter())
+    assert set(metrics) == {"train_clips_per_s.fp32", "setup_s"}, metrics
+    assert metrics["train_clips_per_s.fp32"]["value"] == \
+        res["e2e"]["train_clips_per_s"]
