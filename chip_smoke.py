@@ -32,11 +32,15 @@
    and the nearest single PyTorch call (timed only; the port never calls
    it; SDPA on one named backend) as device time: CUDA events around
    calls queued behind a sleeping kernel. Murmur dropout
-   (csrc/murmur_dropout.cu; `--dropout` runs this part alone) bit for
-   bit against its plain version, output and gradient, at the step's
-   (32, 249, 1024) in bf16 and the compression head's in fp32, an
-   innermost size of 1001 and a gang's offsets; timed at both step
-   shapes beside its byte bound, the plain version and F.dropout.
+   (csrc/murmur_dropout.cu) bit for bit against its plain version,
+   output and gradient, at the step's (32, 249, 1024) in bf16 and the
+   compression head's in fp32, an innermost size of 1001 and a gang's
+   offsets; timed at both step shapes beside its byte bound, the plain
+   version and F.dropout. Then the bf16 attention kernels at XLS-R 1B's
+   and 2B's head dims, 80 and 120, at the training shape (32, 16, 249,
+   D) on strided views: forward and backward held to the plain version,
+   launches by head dim counted, timed beside their bounds, the plain
+   version and SDPA. `--kernels` runs this phase alone.
 3. Serve phase: builds XLS-R-300M (24 layers, 1024 wide, 'layer' norm)
    with a linear head from seeded random numpy weights in the JAX tree
    layout, passed through the port's weight bridge; scores 4 batches of
@@ -476,9 +480,204 @@ def dropout_phase(dev, results) -> None:
         **rows)
 
 
-def dropout_main() -> int:
-    """The murmur dropout part of the kernel phase alone (`--dropout`),
-    its kernel built on demand."""
+def rounded_plain(q, k, v, g, bias, seed, rate):
+    """-> (out, (dq, dk, dv)) with the kernels' roundings, in fp32 on the
+    card: p = softmax(q . k^T + bias) unrounded, out = bf16(p m) . v,
+    out_exact = (p m) . v in bf16, D = rowsum(g * out_exact),
+    dS = p * (g . v^T * m - D), dq = bf16(dS) . k, dk = bf16(dS)^T . q,
+    dv = bf16(p m)^T . g; m the dropout mask (0 or 1 / (1 - rate))."""
+    from wav2vec_contr_loss_torch.ops.dropout import attention_dropout_mask
+
+    bf16 = torch.bfloat16
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    p = torch.softmax(qf @ kf.transpose(-1, -2) + bias[:, None, None, :],
+                      dim=-1)
+    b, h, t, _ = q.shape
+    m = (attention_dropout_mask(b, h, t, seed, rate, q.device)
+         if rate > 0.0 else torch.ones_like(p))
+    pm = p * m
+    out = (pm.to(bf16).float() @ vf).to(bf16)
+    d_row = (gf * (pm @ vf).to(bf16).float()).sum(-1, keepdim=True)
+    ds = (p * ((gf @ vf.transpose(-1, -2)) * m - d_row)).to(bf16).float()
+    grads = (ds @ kf, ds.transpose(-1, -2) @ qf,
+             pm.to(bf16).float().transpose(-1, -2) @ gf)
+    return out, tuple(x.to(bf16) for x in grads)
+
+
+def head_dim_errors(q, k, v, g, bias, seed: int, heads: int):
+    """The attention kernels on q, k, v (cotangent g) against the plain
+    version on the same inputs under the bf16 rule of PERF.md's kernel
+    table, 5e-2 + 5e-2 |plain|: {check: (max |kernel - plain|, worst
+    excess over the rule, held or only reported)}, with the kernel's and
+    the plain version's (out, inputs) kept for timing their backward.
+
+    The forward at rate 0.1 and 0, and the forward that writes the
+    backward's residuals, are held to `fused_attention_plain`, whose
+    arithmetic they are. dq, dk and dv at rate 0.1 are held to
+    `rounded_plain`, the same function with the kernels' (and the Pallas
+    kernel's) roundings, under the rule plus one bf16 ulp of each term of
+    the product whose bf16 factor both round (2^-7 |dS| . |k| for dq,
+    2^-7 |dS|^T . |q| for dk, 2^-7 |p m|^T . |g| for dv): the two round
+    fp32 values that differ in their last bits, so a rounding may land a
+    ulp apart, and at this shape one such term of a large dS alone passes
+    5e-2 where the sum nearly cancels. Their distances to
+    `fused_attention_plain`'s gradients in bf16 (its autograd rounds dP
+    where the kernels round dS) and in fp32 (the exact ones) are
+    reported."""
+    from wav2vec_contr_loss_torch.ops import attention
+    from wav2vec_contr_loss_torch.ops.dropout import attention_dropout_mask
+
+    rule = ATT_BWD_TOL
+
+    def excess(got, want, held=True, slack=0.0):
+        got, want = got.float(), want.float()
+        if not torch.isfinite(got).all():
+            return float("inf"), float("inf"), held
+        err = (got - want).abs()
+        return (err.max().item(), (err - rule["atol"] - slack
+                                   - rule["rtol"] * want.abs()).max().item(),
+                held)
+
+    checks = {}
+    with torch.no_grad():
+        for rate in (0.1, 0.0):
+            want = attention.fused_attention_plain(q, k, v, bias, seed, rate)
+            got = attention.fused_attention(q, k, v, bias, seed, rate, heads)
+            checks[f"out rate {rate}"] = excess(got, want)
+    ins = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = attention.fused_attention(*ins, bias, seed, 0.1, heads)
+    checks["out rate 0.1 writing the residuals"] = excess(
+        out, attention.fused_attention_plain(q, k, v, bias, seed, 0.1))
+    got = torch.autograd.grad(out, ins, g, retain_graph=True)
+    with torch.no_grad():
+        _, rounded = rounded_plain(q, k, v, g, bias, seed, 0.1)
+        qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+        b, h, t, _ = q.shape
+        p = torch.softmax(qf @ kf.transpose(-1, -2)
+                          + bias[:, None, None, :], dim=-1)
+        m = attention_dropout_mask(b, h, t, seed, 0.1, q.device)
+        pm = p * m
+        d_row = (gf * (pm @ vf)).sum(-1, keepdim=True)
+        ds = (p * ((gf @ vf.transpose(-1, -2)) * m - d_row)).abs_()
+        ulps = (2 ** -7 * (ds @ kf.abs()),
+                2 ** -7 * (ds.transpose(-1, -2) @ qf.abs()),
+                2 ** -7 * (pm.transpose(-1, -2) @ gf.abs()))
+        del p, m, pm, ds
+    ins_p = [x.detach().requires_grad_() for x in (q, k, v)]
+    out_p = attention.fused_attention_plain(*ins_p, bias, seed, 0.1)
+    plain = torch.autograd.grad(out_p, ins_p, g, retain_graph=True)
+    ins32 = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    exact = torch.autograd.grad(
+        attention.fused_attention_plain(*ins32, bias, seed, 0.1), ins32,
+        g.float())
+    for name, a, w, u, pw, ew in zip(("dq", "dk", "dv"), got, rounded,
+                                     ulps, plain, exact):
+        checks[f"{name} against rounded_plain"] = excess(a, w, slack=u)
+        checks[f"{name} beside fused_attention_plain in bf16"] = excess(
+            a, pw, False)
+        checks[f"{name} beside fused_attention_plain in fp32"] = excess(
+            a, ew, False)
+    return checks, out, ins, out_p, ins_p
+
+
+def head_dim_phase(dev, results) -> None:
+    """The bf16 attention kernels at XLS-R 1B's and 2B's head dims, 80 and
+    120, at the training shape (32, 16, 249, D) on the (B, T, H, D) views
+    the model passes: held to the plain version (`head_dim_errors`),
+    raising on any miss, with the launches by head dim cleared just
+    before and required to be 3 forward and 1 backward at D alone; then
+    each kernel's device time beside its bound at the true head dim
+    (never the 128 the kernels pad q . k^T to), the plain version's and
+    SDPA's."""
+    from wav2vec_contr_loss_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    F = torch.nn.functional
+    b, h, t = TRAIN_BATCH, 16, 249
+    lengths = torch.full((b,), t, device=dev)
+    lengths[1], lengths[5], lengths[9], lengths[30] = 200, 120, 10, 0
+    bias = _bias_with_tails(lengths, t, dev)
+    mask16 = bias[:, None, None, :].to(torch.bfloat16)
+    sdpa_ctx, sdpa_name = sdpa_backend()
+    seed = 123456789
+    for d in (80, 120):
+        q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev
+                                  ).to(torch.bfloat16).transpose(1, 2)
+                      for _ in range(4))
+        q = (q.float() * d ** -0.5).to(torch.bfloat16)
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+        attention.head_dim_launches.clear()
+        attention.head_dim_bwd_launches.clear()
+        checks, out, ins, out_p, ins_p = head_dim_errors(q, k, v, g, bias,
+                                                         seed, h)
+        counts = (dict(attention.head_dim_launches),
+                  dict(attention.head_dim_bwd_launches))
+        for what, (err, over, held) in checks.items():
+            print(f"attention {(b, h, t, d)} {what}: max_abs_err={err:.3e}, "
+                  f"worst excess over the rule {over:.3e} "
+                  f"({'held' if held else 'reported'})")
+        print(f"attention {(b, h, t, d)} launches by head dim (forward, "
+              f"backward): {counts}")
+        missed = [what for what, (_, over, held) in checks.items()
+                  if held and not over <= 0.0]
+        if missed:
+            raise RuntimeError(f"attention at head dim {d} misses the plain "
+                               f"version: {missed}")
+        if counts != ({d: 3}, {d: 1}):
+            raise RuntimeError(f"attention at head dim {d}: launches by head "
+                               f"dim {counts}, not ({{{d}: 3}}, {{{d}: 1}})")
+        ms_drop = device_ms(lambda: attention.fused_attention(
+            q, k, v, bias, seed, 0.1, h))
+        ms_nodrop = device_ms(lambda: attention.fused_attention(
+            q, k, v, bias, 0, 0.0, h))
+        ms_resid = device_ms(lambda: attention.fused_attention(
+            *ins, bias, seed, 0.1, h))
+        bwd_ms = _grad_ms(out, ins, g)
+        # rate 0, as the kernel phase times the plain forward: its mask is
+        # drawn anew at each call
+        plain_ms = device_ms(lambda: attention.fused_attention_plain(
+            q, k, v, bias))
+        plain_bwd_ms = _grad_ms(out_p, ins_p, g)
+        try:
+            with sdpa_ctx():
+                lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask16, scale=1.0))
+                lib_out = F.scaled_dot_product_attention(
+                    *ins_p, attn_mask=mask16, scale=1.0)
+                lib_bwd_ms = _grad_ms(lib_out, ins_p, g)
+        except RuntimeError as e:       # a backend that refuses this D
+            print(f"SDPA on {sdpa_name} at head dim {d}: {e}")
+            lib_ms = lib_bwd_ms = None
+        n = b * h * t * d
+        fwd_bound, _ = bound(4 * n * 2 + b * t * 4, 4 * b * h * t * t * d,
+                             BF16_FLOP_PER_S)
+        bwd_bound, _ = bound(7 * n * 2 + b * t * 4,
+                             5 * 2 * b * h * t * t * d, BF16_FLOP_PER_S)
+        results[f"attention_d{d}"] = dict(
+            name=f"attention_d{d}", route="cuda",
+            source="wav2vec_contr_loss_torch/csrc/attention_fwd.cu, "
+                   "attention_bwd.cu", shape=[b, h, t, d],
+            max_abs_err={what: err for what, (err, *_) in checks.items()},
+            launches=counts[0][d], bwd_launches=counts[1][d],
+            fwd_ms=ms_drop, fwd_resid_ms=ms_resid, fwd_rate0_ms=ms_nodrop,
+            bwd_ms=bwd_ms, fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound,
+            plain_fwd_ms=plain_ms, plain_bwd_ms=plain_bwd_ms,
+            library_fwd_ms=lib_ms, library_bwd_ms=lib_bwd_ms,
+            library=f"SDPA {sdpa_name}")
+        print(f"attention {(b, h, t, d)} device time: forward rate 0.1 "
+              f"{ms_drop:.4f} ms ({ms_resid:.4f} ms writing the residuals, "
+              f"{100 * fwd_bound / ms_resid:.1f} % of its bound "
+              f"{fwd_bound:.4f} ms), rate 0 {ms_nodrop:.4f} ms; backward "
+              f"rate 0.1 {bwd_ms:.4f} ms ({100 * bwd_bound / bwd_ms:.1f} % "
+              f"of {bwd_bound:.4f} ms); plain (rate 0) {plain_ms:.4f} / "
+              f"{plain_bwd_ms:.4f} ms; SDPA on {sdpa_name} {lib_ms} / "
+              f"{lib_bwd_ms} ms [{CARD}]")
+
+
+def kernels_main() -> int:
+    """The kernel phase alone (`--kernels`), its kernels built on demand,
+    with TF32 off as in `main`: attention at head dim 64, LN+GELU, SupCon,
+    murmur dropout, then attention at head dims 80 and 120."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -487,8 +686,16 @@ def dropout_main() -> int:
     CARD = read_card()
     print(CARD)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    results = {}
-    dropout_phase(torch.device("cuda", 0), results)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    results = kernel_phase(dev)
+    train_kernel_phase(dev, results)
+    dropout_phase(dev, results)
+    head_dim_phase(dev, results)
+    print(f"kernel phase: {time.perf_counter() - t0:.1f} s (builds "
+          f"included) [{CARD}]")
     print(json.dumps({"kernels": list(results.values())}))
     return 0
 
@@ -1065,6 +1272,8 @@ def _reset_counters() -> None:
     from wav2vec_contr_loss_torch.ops import attention, conv_ln, supcon
 
     attention.launches = attention.bwd_launches = 0
+    attention.head_dim_launches.clear()
+    attention.head_dim_bwd_launches.clear()
     conv_ln.launches = conv_ln.bwd_launches = 0
     supcon.launches = 0
 
@@ -4017,6 +4226,7 @@ def main() -> int:
     results = kernel_phase(dev)
     train_kernel_phase(dev, results)
     dropout_phase(dev, results)
+    head_dim_phase(dev, results)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s (Triton JIT "
           f"included)")
     t0 = time.perf_counter()
@@ -4067,5 +4277,5 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit({"--fit": fit_main, "--parallel": parallel_main,
               "--bench": bench_main, "--fp32": fp32_main,
-              "--dropout": dropout_main}.get(
+              "--kernels": kernels_main}.get(
         sys.argv[1] if len(sys.argv) == 2 else None, main)())

@@ -12,7 +12,10 @@ tile kept from pass 1); its residuals (m, log l) and out_exact, the
 output with p not rounded to bf16; the backward's D = rowsum(g *
 out_exact) and its two loops, dq over the key tiles of a query tile, dk
 and dv over the query tiles of a key tile, with p recomputed from the
-residuals.
+residuals. At head dims 80 and 120 (XLS-R 1B and 2B) the tiles are 128
+columns wide, the columns past D zeros (TMA's fill), so q . k^T and
+g . v^T run over the padded contraction and the outputs keep their D
+columns.
 
 Tolerances, those of tests/test_attention_pallas.py: forward atol 2e-3,
 rtol 2e-2 (bf16 outputs, p rounded to bf16 on both sides); gradients
@@ -51,8 +54,13 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _padded(x: torch.Tensor, tp: int) -> torch.Tensor:
-    """(B, H, T, D) -> (B, H, Tp, D), rows past T zero (TMA's fill)."""
-    return torch.nn.functional.pad(x.float(), (0, 0, 0, tp - x.shape[2]))
+    """(B, H, T, D) -> (B, H, Tp, Dp), rows past T and columns past D
+    zero (TMA's fill): Dp = D rounded up to the kernels' 64-column
+    tiles."""
+    d = x.shape[-1]
+    return torch.nn.functional.pad(x.float(),
+                                   (0, -(-d // TILE) * TILE - d, 0,
+                                    tp - x.shape[2]))
 
 
 def emulate_fwd(q, k, v, bias, seed, rate):
@@ -83,7 +91,7 @@ def emulate_fwd(q, k, v, bias, seed, rate):
         l = l * torch.exp(m - m_new) + e.sum(-1, keepdim=True) \
             * torch.exp(mt - m_new)
         m = m_new
-    o = torch.zeros(b, h, tp, q.shape[-1])
+    o = torch.zeros(b, h, tp, qf.shape[-1])
     o_lo = torch.zeros_like(o)
     order = [n - 1] + list(range(n - 1))   # pass 2: the kept tile first
     for j in order:
@@ -95,7 +103,8 @@ def emulate_fwd(q, k, v, bias, seed, rate):
         p_hi = _bf16(p)
         o = o + p_hi @ vf[:, :, tiles[j]]
         o_lo = o_lo + _bf16(p - p_hi) @ vf[:, :, tiles[j]]
-    out, out_exact = o.to(BF16), (o + o_lo).to(BF16)
+    d = q.shape[-1]
+    out, out_exact = o[..., :d].to(BF16), (o + o_lo)[..., :d].to(BF16)
     return (out[:, :, :t], out_exact[:, :, :t], m[..., 0],
             torch.log(l[..., 0]))
 
@@ -111,7 +120,7 @@ def emulate_bwd(q, k, v, g, bias, seed, rate, out_exact, m, log_l):
     mask = torch.ones(b, h, tp, tp)
     if rate > 0.0:
         mask[:, :, :t, :t] = attention_dropout_mask(b, h, t, seed, rate)
-    d_row = (gf[:, :, :t] * out_exact.float()).sum(-1)
+    d_row = (g.float() * out_exact.float()).sum(-1)
     d_row = torch.nn.functional.pad(d_row, (0, tp - t))
     tiles = [slice(j * TILE, (j + 1) * TILE) for j in range(n)]
     dq = torch.zeros_like(qf)
@@ -141,12 +150,13 @@ def emulate_bwd(q, k, v, g, bias, seed, rate, out_exact, m, log_l):
             dv[:, :, tiles[j]] += _bf16(pt * mt) @ gf[:, :, tiles[i]]
             dst = pt * (dpt - d_row[:, :, None, tiles[i]])
             dk[:, :, tiles[j]] += _bf16(dst) @ qf[:, :, tiles[i]]
-    return tuple(x[:, :, :t].to(BF16) for x in (dq, dk, dv))
+    d = q.shape[-1]
+    return tuple(x[:, :, :t, :d].to(BF16) for x in (dq, dk, dv))
 
 
-def _inputs(t, empty_clip, seed=0):
+def _inputs(t, empty_clip, seed=0, d=64):
     rng = np.random.default_rng(seed + t)
-    b, h, d = 2, 2, 64
+    b, h = 2, 2
 
     def bf16_valued(scale=1.0):
         x = rng.normal(0, 1, (b, h, t, d)).astype(np.float32) * scale
@@ -162,11 +172,8 @@ def _inputs(t, empty_clip, seed=0):
     return q, k, v, g, bias
 
 
-@pytest.mark.parametrize("empty_clip", [False, True])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("t", [7, 64, 249, 300, 600])
-def test_tiled_algorithm_matches_pallas(t, rate, empty_clip):
-    q, k, v, g, bias = _inputs(t, empty_clip)
+def _check_against_pallas(q, k, v, g, bias, rate):
+    t = q.shape[2]
     seed, h = 1234, q.shape[1]
     j = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
     want, vjp = jax.vjp(lambda q_, k_, v_: jax_fused_attention(
@@ -188,6 +195,31 @@ def test_tiled_algorithm_matches_pallas(t, rate, empty_clip):
         np.testing.assert_allclose(a.float().numpy(),
                                    np.asarray(w, np.float32), **GRAD_TOL,
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("empty_clip", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t", [7, 64, 249, 300, 600])
+def test_tiled_algorithm_matches_pallas(t, rate, empty_clip):
+    _check_against_pallas(*_inputs(t, empty_clip), rate)
+
+
+@pytest.mark.parametrize("empty_clip", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t", [7, 64, 249, 300])
+@pytest.mark.parametrize("d", [80, 120])
+def test_tiled_algorithm_matches_pallas_at_head_dim(d, t, rate, empty_clip):
+    """XLS-R 1B's and 2B's head dims: the contraction over D padded to
+    128 with zeros, the outputs D wide."""
+    _check_against_pallas(*_inputs(t, empty_clip, d=d), rate)
+
+
+def test_padded_tiles_are_zero_past_the_head_dim():
+    x = torch.ones(1, 1, 70, 120)
+    xp = _padded(x, 128)
+    assert xp.shape == (1, 1, 128, 128)
+    assert xp[..., :70, :120].eq(1).all() and xp[..., 120:].eq(0).all()
+    assert xp[..., 70:, :].eq(0).all()
 
 
 def test_cpu_path_takes_strided_views():
@@ -264,3 +296,15 @@ def test_cuda_checks_refuse_what_tma_cannot_take():
             attention._check_cuda((t,), 64)
     with pytest.raises(ValueError):
         attention._check_cuda((view,), 32)
+    # XLS-R 1B's and 2B's head dims: bf16 views of their projections
+    # (row strides 3 x 80 and 3 x 120 elements) go to the bf16 kernels;
+    # the fp32 kernels take 64 alone, and say what each dtype takes
+    for d in (80, 120):
+        v = torch.zeros(2, 10, 3, d, dtype=BF16).transpose(1, 2)
+        assert attention._check_cuda((v, v.contiguous()), d) == BF16
+        with pytest.raises(ValueError, match=r"\[64, 80, 120\] in "
+                           r"bfloat16 and \[64\] in float32; got "
+                           f"{d} in float32"):
+            attention._check_cuda((v.float(),), d)
+    with pytest.raises(ValueError, match="got 32 in bfloat16"):
+        attention._check_cuda((torch.zeros(2, 3, 10, 32, dtype=BF16),), 32)

@@ -25,7 +25,8 @@ import importlib
 _EXPORTS = {
     "jax_params_to_torch": "bridge",
     **{name: "config" for name in (
-        "LARGE_960H", "XLSR_300M", "BaselineConfig", "Stage1Config",
+        "LARGE_960H", "XLSR_300M", "XLSR_2B", "BaselineConfig",
+        "Stage1Config",
         "Stage2Config", "SupConConfig", "Wav2Vec2Config", "config_from_dict",
         "feature_frame_length")},
     "SpoofScorer": "eval.serving",

@@ -10,7 +10,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..config import LARGE_960H, XLSR_300M, Wav2Vec2Config, run_tag
+from ..config import LARGE_960H, XLSR_2B, XLSR_300M, Wav2Vec2Config, run_tag
 from ..data import AudioConfig, parse_asvspoof2019, parse_in_the_wild
 
 __all__ = ["TINY_TEST", "KNOWN_ARCHS", "add_asv_paths", "add_encoder_args",
@@ -30,6 +30,7 @@ TINY_TEST = Wav2Vec2Config(
 KNOWN_ARCHS = {
     "facebook/wav2vec2-xls-r-300m": XLSR_300M,
     "facebook/wav2vec2-large-960h": LARGE_960H,
+    "facebook/wav2vec2-xls-r-2b": XLSR_2B,
     "test/tiny-wav2vec2": TINY_TEST,
 }
 
@@ -164,7 +165,11 @@ def load_encoder_init(encoder_init: str, model_name: str
                 f"stage-1 checkpoint")
         encoder_init = snap
     if encoder_init == "random":
-        return KNOWN_ARCHS.get(model_name, XLSR_300M), {}
+        if model_name not in KNOWN_ARCHS:
+            raise ValueError(
+                f"--encoder_init random builds a known architecture; "
+                f"{model_name!r} is none of {sorted(KNOWN_ARCHS)}")
+        return KNOWN_ARCHS[model_name], {}
     if hf_convert.is_hf_snapshot(encoder_init):
         return hf_convert.load_local_hf_checkpoint(encoder_init)
     # a missing path is an error

@@ -21,7 +21,8 @@ import torch
 
 __all__ = ["Wav2Vec2Config", "Stage1Config", "Stage2Config", "BaselineConfig",
            "SupConConfig",
-           "XLSR_300M", "LARGE_960H", "EXPERIMENT_PRESETS", "preset",
+           "XLSR_300M", "XLSR_2B", "LARGE_960H", "EXPERIMENT_PRESETS",
+           "preset",
            "feature_frame_length", "config_from_dict", "run_tag"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -350,6 +351,10 @@ def preset(name: str) -> Stage1Config:
 
 # facebook/wav2vec2-xls-r-300m
 XLSR_300M = Wav2Vec2Config()
+# facebook/wav2vec2-xls-r-2b: 48 layers of 1920, 16 heads of 120, the
+# 300M's extractor and everything else
+XLSR_2B = Wav2Vec2Config(hidden_size=1920, num_layers=48, num_heads=16,
+                         intermediate_size=7680)
 # facebook/wav2vec2-large-960h, the older post-LN variant
 LARGE_960H = Wav2Vec2Config(
     conv_bias=False, feat_extract_norm="group", do_stable_layer_norm=False,

@@ -47,6 +47,16 @@
 //      dv_j += bf16(p^T * mask) . g_i and dk_j += bf16(ds^T) . q_i.
 // Each block takes 82-87 KB of shared memory and at most 168 registers a
 // thread, so two blocks share an SM.
+//
+// Head dims 80 and 120 (XLS-R 1B and 2B; hopper.cuh HeadDim): a row is two
+// 64-column tiles, the score products take 5 / 8 k16 steps over them (at
+// 120 the last over TMA's zeros past the row), the gradient products one
+// m64n80 / m64n120 product a step, dq 40 / 60 accumulator registers a
+// thread and dk with dv 80 / 120. Each tile is 16 KB, so both rings hold
+// two slots (98-101 KB a block) and two blocks share an SM, but for the
+// dk/dv kernel at 120, one block at up to 255 registers: at two (168
+// registers) it spilled 420 bytes a thread, and the backward took 0.367
+// ms at (32, 16, 249, 120) against 0.294 ms at one (H100, PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,10 +73,17 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kStages = 4;      // ring slots (a K/V or Q/G tile pair each)
 constexpr int kThreads = 160;   // one consumer warpgroup + a producer warp
 
-struct Strides {  // element strides (batch, head, row) of a (B, H, T, 64)
+// ring slots (a K/V or Q/G tile pair each)
+template <int D>
+constexpr int kStages = D == 64 ? 4 : 2;
+
+// blocks an SM of the dk/dv kernel (registers: see above)
+template <int D>
+constexpr int kDkvBlocks = D == 120 ? 1 : 2;
+
+struct Strides {  // element strides (batch, head, row) of a (B, H, T, D)
   long long b, h, t;
 };
 
@@ -76,33 +93,39 @@ __device__ __forceinline__ Smem& aligned_smem(unsigned char* raw) {
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
 }
 
-// rows r_lo and r_lo + 8 of a (64 x 64) fp32 accumulator as bf16 into
-// `dst` (rows below T only)
+// rows r_lo and r_lo + 8 of a (64 x D) fp32 accumulator as bf16 into
+// `dst` (rows below T only, columns below D only)
+template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, Strides s,
                                            int b, int h, int r_lo, int T,
-                                           int c_lane, const float (&d)[32]) {
+                                           int c_lane,
+                                           const float (&d)[HeadDim<D>::kAcc]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r_lo + 8 * i;
     if (r >= T) continue;
     __nv_bfloat16* row = dst + b * s.b + h * s.h + r * s.t;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j + c_lane) =
           pack_bf16(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
   }
 }
 
-// x = a . b^T and y = c . d^T over 64 x 64 K-major tiles, once the ring
-// slot's loads (the phase of use t) have landed
+// x = a . b^T and y = c . d^T over 64-row K-major tiles of D columns,
+// once the ring slot's loads (the phase of use t) have landed
+template <int D>
 __device__ __forceinline__ void score_pair(uint64_t* full, int t,
-                                           float (&x)[32], const void* a,
-                                           const void* b, float (&y)[32],
-                                           const void* c, const void* d) {
-  bar_wait(full, (t / kStages) & 1);
+                                           float (&x)[32],
+                                           const __nv_bfloat16* a,
+                                           const __nv_bfloat16* b,
+                                           float (&y)[32],
+                                           const __nv_bfloat16* c,
+                                           const __nv_bfloat16* d) {
+  bar_wait(full, (t / kStages<D>) & 1);
   wg_fence();
-  tile_abt(x, a, b);
-  tile_abt(y, c, d);
+  tile_abt_d<D>(x, a, b);
+  tile_abt_d<D>(y, c, d);
   wg_commit();
   wg_wait<0>();
   fence_regs(x);
@@ -111,14 +134,17 @@ __device__ __forceinline__ void score_pair(uint64_t* full, int t,
 
 // ---------------------------------------------------------------- dq ----
 
+template <int D>
 struct __align__(1024) DqSmem {
-  __nv_bfloat16 q[kTile * 64], g[kTile * 64];
-  __nv_bfloat16 k[kStages][kTile * 64], v[kStages][kTile * 64];
-  uint64_t full[kStages], empty[kStages], qg_full;
+  static constexpr int E = HeadDim<D>::kElems;
+  __nv_bfloat16 q[E], g[E];
+  __nv_bfloat16 k[kStages<D>][E], v[kStages<D>][E];
+  uint64_t full[kStages<D>], empty[kStages<D>], qg_full;
 };
-constexpr size_t kDqSmem = sizeof(DqSmem) + 1024;
+template <int D>
+constexpr size_t kDqSmem = sizeof(DqSmem<D>) + 1024;
 
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
@@ -133,13 +159,13 @@ attention_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     unsigned seed, unsigned seed_stride,
                     unsigned threshold, float scale) {
   extern __shared__ unsigned char smem_raw[];
-  DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
+  DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_tiles = (T + kTile - 1) / kTile;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kStages<D>; ++s) {
       bar_init(&sm.full[s], 1);
       bar_init(&sm.empty[s], 128);
     }
@@ -154,15 +180,15 @@ attention_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       prefetch_map(&kmap);
       prefetch_map(&vmap);
       prefetch_map(&gmap);
-      bar_expect(&sm.qg_full, 2 * kTileBytes);
-      tma_load(sm.q, &qmap, qt * kTile, h, b, &sm.qg_full);
-      tma_load(sm.g, &gmap, qt * kTile, h, b, &sm.qg_full);
+      bar_expect(&sm.qg_full, 2 * HeadDim<D>::kBytes);
+      tma_load_d<D>(sm.q, &qmap, qt * kTile, h, b, &sm.qg_full);
+      tma_load_d<D>(sm.g, &gmap, qt * kTile, h, b, &sm.qg_full);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        bar_wait(&sm.empty[s], ((t / kStages) & 1) ^ 1);
-        bar_expect(&sm.full[s], 2 * kTileBytes);
-        tma_load(sm.k[s], &kmap, t * kTile, h, b, &sm.full[s]);
-        tma_load(sm.v[s], &vmap, t * kTile, h, b, &sm.full[s]);
+        const int s = t % kStages<D>;
+        bar_wait(&sm.empty[s], ((t / kStages<D>) & 1) ^ 1);
+        bar_expect(&sm.full[s], 2 * HeadDim<D>::kBytes);
+        tma_load_d<D>(sm.k[s], &kmap, t * kTile, h, b, &sm.full[s]);
+        tma_load_d<D>(sm.v[s], &vmap, t * kTile, h, b, &sm.full[s]);
       }
     }
     return;
@@ -176,21 +202,24 @@ attention_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   const size_t bh_rows = (size_t)(b * H + h) * n_tiles * kTile;
   const float* brow = bias + (size_t)b * T;
 
-  // D of rows r_lo, r_lo + 8: each lane of the quad sums 16 of the 64
+  // D of rows r_lo, r_lo + 8: each lane of the quad sums kWords runs of 8
+  // of the row's head-dim columns, 16 of 64, 24 of 80, up to 32 of 120
   // (from device memory: the loads overlap the TMA of the Q and G tiles)
+  constexpr int kWords = (D / 8 + 3) / 4;
   float m2[2], l2[2], d_row[2];  // row max, log2 of the row sum, D
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r_lo + 8 * i;
     float acc = 0.f;
     if (r < T) {
-      const int c0 = 16 * (lane & 3);
+      const int c0 = 8 * kWords * (lane & 3);
       const uint4* gp = reinterpret_cast<const uint4*>(
           g + b * gs.b + h * gs.h + r * gs.t + c0);
       const uint4* op = reinterpret_cast<const uint4*>(
           out_exact + b * os.b + h * os.h + r * os.t + c0);
 #pragma unroll
-      for (int w = 0; w < 2; ++w) {
+      for (int w = 0; w < kWords; ++w) {
+        if (D % 32 != 0 && c0 + 8 * w >= D) break;  // past the row
         const uint4 gv = __ldg(gp + w), ov = __ldg(op + w);
         const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -210,14 +239,15 @@ attention_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     l2[i] = st.y * kLog2e;
   }
 
-  float dqa[32];
+  float dqa[HeadDim<D>::kAcc];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+  for (int i = 0; i < HeadDim<D>::kAcc; ++i) dqa[i] = 0.f;
   bar_wait(&sm.qg_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int slot = t % kStages;
+    const int slot = t % kStages<D>;
     float s[32], dp[32];  // s = q k_t^T, dp = g v_t^T
-    score_pair(&sm.full[slot], t, s, sm.q, sm.k[slot], dp, sm.g, sm.v[slot]);
+    score_pair<D>(&sm.full[slot], t, s, sm.q, sm.k[slot], dp, sm.g,
+                  sm.v[slot]);
     // the mask of this thread's 32 elements, bit n for accumulator entry
     // n, handed to the dk/dv kernel (one word per thread and tile pair)
     uint32_t keep = 0;
@@ -253,30 +283,33 @@ attention_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     uint32_t ds[16];
     to_operand(ds, s);
     wg_fence();
-    tile_pb(dqa, ds, sm.k[slot]);
+    tile_pb_d<D>(dqa, ds, sm.k[slot]);
     wg_commit();
     wg_wait<0>();
     fence_regs(dqa);
     fence_regs(ds);
     bar_arrive(&sm.empty[slot]);
   }
-  store_rows(dq, dqs, b, h, r_lo, T, c_lane, dqa);
+  store_rows<D>(dq, dqs, b, h, r_lo, T, c_lane, dqa);
 }
 
 // ------------------------------------------------------------- dk, dv ----
 
+template <int D>
 struct __align__(1024) DkvSmem {
-  __nv_bfloat16 k[kTile * 64], v[kTile * 64];
-  __nv_bfloat16 q[kStages][kTile * 64], g[kStages][kTile * 64];
-  float2 stats[kStages][kTile];
-  float d[kStages][kTile];
-  uint32_t keep[kStages][128];  // the dq kernel's mask words of the tile pair
-  uint64_t full[kStages], empty[kStages], kv_full;
+  static constexpr int E = HeadDim<D>::kElems, S = kStages<D>;
+  __nv_bfloat16 k[E], v[E];
+  __nv_bfloat16 q[S][E], g[S][E];
+  float2 stats[S][kTile];
+  float d[S][kTile];
+  uint32_t keep[S][128];  // the dq kernel's mask words of the tile pair
+  uint64_t full[S], empty[S], kv_full;
 };
-constexpr size_t kDkvSmem = sizeof(DkvSmem) + 1024;
+template <int D>
+constexpr size_t kDkvSmem = sizeof(DkvSmem<D>) + 1024;
 
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, kDkvBlocks<D>)
 attention_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
@@ -290,14 +323,14 @@ attention_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
                       int T, unsigned seed, unsigned seed_stride,
                       unsigned threshold, float scale) {
   extern __shared__ unsigned char smem_raw[];
-  DkvSmem& sm = aligned_smem<DkvSmem>(smem_raw);
+  DkvSmem<D>& sm = aligned_smem<DkvSmem<D>>(smem_raw);
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_tiles = (T + kTile - 1) / kTile;
   const size_t bh_rows = (size_t)(b * H + h) * n_tiles * kTile;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kStages<D>; ++s) {
       bar_init(&sm.full[s], 1);
       bar_init(&sm.empty[s], 128);
     }
@@ -312,18 +345,18 @@ attention_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
       prefetch_map(&kmap);
       prefetch_map(&vmap);
       prefetch_map(&gmap);
-      bar_expect(&sm.kv_full, 2 * kTileBytes);
-      tma_load(sm.k, &kmap, kt * kTile, h, b, &sm.kv_full);
-      tma_load(sm.v, &vmap, kt * kTile, h, b, &sm.kv_full);
-      const uint32_t bytes = 2 * kTileBytes +
+      bar_expect(&sm.kv_full, 2 * HeadDim<D>::kBytes);
+      tma_load_d<D>(sm.k, &kmap, kt * kTile, h, b, &sm.kv_full);
+      tma_load_d<D>(sm.v, &vmap, kt * kTile, h, b, &sm.kv_full);
+      const uint32_t bytes = 2 * HeadDim<D>::kBytes +
                              kTile * (sizeof(float2) + sizeof(float)) +
                              (kDrop ? 128 * sizeof(uint32_t) : 0);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        bar_wait(&sm.empty[s], ((t / kStages) & 1) ^ 1);
+        const int s = t % kStages<D>;
+        bar_wait(&sm.empty[s], ((t / kStages<D>) & 1) ^ 1);
         bar_expect(&sm.full[s], bytes);
-        tma_load(sm.q[s], &qmap, t * kTile, h, b, &sm.full[s]);
-        tma_load(sm.g[s], &gmap, t * kTile, h, b, &sm.full[s]);
+        tma_load_d<D>(sm.q[s], &qmap, t * kTile, h, b, &sm.full[s]);
+        tma_load_d<D>(sm.g[s], &gmap, t * kTile, h, b, &sm.full[s]);
         bulk_load(sm.stats[s], stats + bh_rows + t * kTile,
                   kTile * sizeof(float2), &sm.full[s]);
         bulk_load(sm.d[s], dbuf + bh_rows + t * kTile, kTile * sizeof(float),
@@ -349,16 +382,16 @@ attention_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     kb[i] = r < T ? __ldg(bias + (size_t)b * T + r) : -INFINITY;
   }
 
-  float dka[32], dva[32];
+  float dka[HeadDim<D>::kAcc], dva[HeadDim<D>::kAcc];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < HeadDim<D>::kAcc; ++i) dka[i] = dva[i] = 0.f;
   bar_wait(&sm.kv_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int slot = t % kStages;
+    const int slot = t % kStages<D>;
     // s^T = k q_t^T and dp^T = v g_t^T: rows keys, columns queries
     float st[32], dpt[32];
-    score_pair(&sm.full[slot], t, st, sm.k, sm.q[slot], dpt, sm.v,
-               sm.g[slot]);
+    score_pair<D>(&sm.full[slot], t, st, sm.k, sm.q[slot], dpt, sm.v,
+                  sm.g[slot]);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -395,8 +428,8 @@ attention_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     to_operand(pf, st);
     to_operand(dsf, dpt);
     wg_fence();
-    tile_pb(dva, pf, sm.g[slot]);
-    tile_pb(dka, dsf, sm.q[slot]);
+    tile_pb_d<D>(dva, pf, sm.g[slot]);
+    tile_pb_d<D>(dka, dsf, sm.q[slot]);
     wg_commit();
     wg_wait<0>();
     fence_regs(dva);
@@ -405,13 +438,13 @@ attention_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_regs(dsf);
     bar_arrive(&sm.empty[slot]);
   }
-  store_rows(dk, dks, b, h, r_lo, T, c_lane, dka);
-  store_rows(dv, dvs, b, h, r_lo, T, c_lane, dva);
+  store_rows<D>(dk, dks, b, h, r_lo, T, c_lane, dka);
+  store_rows<D>(dv, dvs, b, h, r_lo, T, c_lane, dva);
 }
 
 Strides strides_of(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 
-template <bool kDrop>
+template <int D, bool kDrop>
 cudaError_t launch(const CUtensorMap* maps, const void* g, const long long* gs,
                    const void* out_exact, const long long* os,
                    const float* bias,
@@ -421,15 +454,15 @@ cudaError_t launch(const CUtensorMap* maps, const void* g, const long long* gs,
                    unsigned seed, unsigned seed_stride, unsigned threshold,
                    float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      attention_dq_kernel<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDqSmem);
+      attention_dq_kernel<D, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDqSmem<D>);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attention_dkdv_kernel<kDrop>,
+    err = cudaFuncSetAttribute(attention_dkdv_kernel<D, kDrop>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kDkvSmem);
+                               (int)kDkvSmem<D>);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kTile - 1) / kTile, H, B);
-  attention_dq_kernel<kDrop><<<grid, kThreads, kDqSmem, stream>>>(
+  attention_dq_kernel<D, kDrop><<<grid, kThreads, kDqSmem<D>, stream>>>(
       maps[0], maps[1], maps[2], maps[3],
       static_cast<const __nv_bfloat16*>(g), strides_of(gs),
       static_cast<const __nv_bfloat16*>(out_exact), strides_of(os), bias, stats,
@@ -437,7 +470,7 @@ cudaError_t launch(const CUtensorMap* maps, const void* g, const long long* gs,
       seed_stride, threshold, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_dkdv_kernel<kDrop><<<grid, kThreads, kDkvSmem, stream>>>(
+  attention_dkdv_kernel<D, kDrop><<<grid, kThreads, kDkvSmem<D>, stream>>>(
       maps[0], maps[1], maps[2], maps[3], bias, stats, dbuf, keep,
       static_cast<__nv_bfloat16*>(dk), strides_of(dks),
       static_cast<__nv_bfloat16*>(dv), strides_of(dvs), H, T, seed,
@@ -445,11 +478,37 @@ cudaError_t launch(const CUtensorMap* maps, const void* g, const long long* gs,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t run(const void* const* src, const long long* const* st,
+                const void* g, const long long* gs, const void* out_exact,
+                const long long* os, const float* bias, const float2* stats,
+                float* dbuf, uint32_t* keep, void* dq, const long long* dqs,
+                void* dk, const long long* dks, void* dv,
+                const long long* dvs, int B, int H, int T, unsigned seed,
+                unsigned seed_stride, unsigned threshold, float scale,
+                cudaStream_t stream) {
+  CUtensorMap maps[4];
+  cudaError_t err = bind_device();
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = make_map(&maps[i], src[i], B, H, T, st[i][0], st[i][1], st[i][2],
+                   false, D);
+  if (err != cudaSuccess) return err;
+  return threshold != 0u
+             ? launch<D, true>(maps, g, gs, out_exact, os, bias, stats, dbuf,
+                               keep, dq, dqs, dk, dks, dv, dvs, B, H, T, seed,
+                               seed_stride, threshold, scale, stream)
+             : launch<D, false>(maps, g, gs, out_exact, os, bias, stats,
+                                dbuf, keep, dq, dqs, dk, dks, dv, dvs, B, H,
+                                T, seed, seed_stride, threshold, scale,
+                                stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// q, k, v, g, out_exact, dq, dk, dv: (B, H, T, 64) bf16 with element
+// q, k, v, g, out_exact, dq, dk, dv: (B, H, T, D) bf16, D = 64, 80 or
+// 120, with element
 // strides (batch, head, row) in the matching *s array (out_exact: the
 // forward's output with p unrounded); bias (B, T) fp32; stats the
 // forward's (B, H, Tp, 2) row statistics; dbuf an fp32 (B, H, Tp) scratch
@@ -468,27 +527,25 @@ int attention_bwd(const void* q, const void* k, const void* v, const void* g,
                   const long long* dks, const long long* dvs, int B, int H,
                   int T, int D, unsigned seed, unsigned seed_stride,
                   unsigned threshold, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || D != 64) return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[4];
+  if (B <= 0 || H <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   const void* src[4] = {q, k, v, g};
   const long long* st[4] = {qs, ks, vs, gs};
-  cudaError_t err = bind_device();
-  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
-    err = make_map(&maps[i], src[i], B, H, T, st[i][0], st[i][1], st[i][2]);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const float*>(bias);
   const auto* sp = static_cast<const float2*>(stats);
   auto* d = static_cast<float*>(dbuf);
   auto* kp = static_cast<uint32_t*>(keep);
   if (threshold != 0u && kp == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)(threshold != 0u
-                   ? launch<true>(maps, g, gs, out_exact, os, b, sp, d, kp, dq,
-                                  dqs, dk, dks, dv, dvs, B, H, T, seed,
-                                  seed_stride, threshold, scale, s)
-                   : launch<false>(maps, g, gs, out_exact, os, b, sp, d, kp, dq,
-                                   dqs, dk, dks, dv, dvs, B, H, T, seed,
-                                   seed_stride, threshold, scale, s));
+#define W2V_RUN(HD)                                                          \
+  run<HD>(src, st, g, gs, out_exact, os, b, sp, d, kp, dq, dqs, dk, dks, dv, \
+          dvs, B, H, T, seed, seed_stride, threshold, scale, s)
+  switch (D) {
+    case 64: return (int)W2V_RUN(64);
+    case 80: return (int)W2V_RUN(80);
+    case 120: return (int)W2V_RUN(120);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef W2V_RUN
 }
 
 }  // extern "C"

@@ -3,9 +3,10 @@
 // Replaces the forward body of the Pallas kernel `_fwd_kernel` in
 // wav2vec_contr_loss_tpu/ops/attention_pallas.py:
 //   out = bf16(p * mask) . v,  p = softmax_fp32(q . k^T + bias)
-// with bf16 q/k/v (B, H, T, 64) given by element strides (the head dim
-// contiguous, so a (B, T, H, 64) projection output needs no copy), q
-// pre-scaled by 1/sqrt(64), an fp32 (B, T) additive key bias (0 or
+// with bf16 q/k/v (B, H, T, D) given by element strides (the head dim
+// contiguous, so a (B, T, H, D) projection output needs no copy), D = 64
+// (XLS-R 300M, large-960h), 80 (XLS-R 1B) or 120 (XLS-R 2B), q
+// pre-scaled by 1/sqrt(D), an fp32 (B, T) additive key bias (0 or
 // -1e30), fp32 accumulation and a bf16 output written through its own
 // strides. The max-subtracted softmax makes a fully masked row uniform,
 // as in JAX. For the backward it also writes each row's softmax
@@ -52,6 +53,15 @@
 //     256 keys of a 5 s clip in registers instead (64 or 128 a thread)
 //     leaves two blocks an SM or spills, and ran slower on the H100 than
 //     this recompute at three (PERF.md).
+//   * D = 80 and 120 (hopper.cuh HeadDim): a row is two 64-column tiles,
+//     q . k^T takes 5 / 8 k16 steps over them (at 120 the last one over
+//     TMA's zeros past the row), p . v one m64n80 / m64n120 product a
+//     step. Each tile is 16 KB and the O accumulators 40 / 60 registers a
+//     thread, so a block has a ring of 5 tiles (98 KB) and two blocks
+//     share an SM; at 120 with out_exact's accumulator (60 more) one block
+//     an SM at up to 255 registers: at two (168 registers) it spilled
+//     868 bytes a thread and took 0.257 ms at (32, 16, 249, 120) against
+//     0.237 ms at one (H100, PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,26 +78,39 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kStages = 6;      // K/V ring slots of one 64-key tile each
 constexpr int kThreads = 160;   // one consumer warpgroup + a producer warp
 
+// K/V ring slots of one 64-key tile each
+template <int D>
+constexpr int kStages = D == 64 ? 6 : 5;
+
+template <int D>
 struct __align__(1024) Smem {
-  __nv_bfloat16 q[kTile * 64];
-  __nv_bfloat16 ring[kStages][kTile * 64];
-  uint64_t full[kStages], empty[kStages], q_full;
+  __nv_bfloat16 q[HeadDim<D>::kElems];
+  __nv_bfloat16 ring[kStages<D>][HeadDim<D>::kElems];
+  uint64_t full[kStages<D>], empty[kStages<D>], q_full;
 };
-constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + base alignment
+template <int D>
+constexpr size_t kSmemBytes = sizeof(Smem<D>) + 1024;  // + base alignment
+
+// blocks an SM: at D = 64 three, two with the residuals' accumulator; at
+// 80 and 120 two (shared memory), one at 120 with the residuals'
+// accumulator (registers)
+template <int D, bool kResid>
+constexpr int kBlocks =
+    D == 64 ? (kResid ? 2 : 3) : (kResid && D == 120 ? 1 : 2);
 
 // What a consumer thread carries through the key tiles of its query tile.
+template <int D>
 struct Ctx {
-  Smem* sm;
+  Smem<D>* sm;
   const float* brow;  // the key bias of this batch element
   int T, r_lo, c_lane;
   int it;             // ring position: tiles consumed so far
 
-  __device__ __forceinline__ int slot() const { return it % kStages; }
+  __device__ __forceinline__ int slot() const { return it % kStages<D>; }
   __device__ __forceinline__ void wait() {
-    bar_wait(&sm->full[slot()], (it / kStages) & 1);
+    bar_wait(&sm->full[slot()], (it / kStages<D>) & 1);
   }
   __device__ __forceinline__ void release() {
     bar_arrive(&sm->empty[slot()]);
@@ -96,10 +119,11 @@ struct Ctx {
 };
 
 // s = q . k^T + bias for key tile t (the K tile next in the ring)
-__device__ __forceinline__ void scores(float (&s)[32], Ctx& cx, int t) {
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[32], Ctx<D>& cx, int t) {
   cx.wait();
   wg_fence();
-  tile_abt(s, cx.sm->q, cx.sm->ring[cx.slot()]);
+  tile_abt_d<D>(s, cx.sm->q, cx.sm->ring[cx.slot()]);
   wg_commit();
   wg_wait<0>();
   fence_regs(s);
@@ -137,11 +161,11 @@ __device__ __forceinline__ void tile_exp(float (&s)[32], const float (&mx)[2],
 // o += bf16(s * scale * mask) . v for key tile t (the V tile next in the
 // ring); with kResid also o_lo += (what that bf16 rounding dropped) . v,
 // so o + o_lo is (s * scale * mask) . v with p unrounded
-template <bool kDrop, bool kResid>
-__device__ __forceinline__ void accumulate_pv(float (&o)[32],
-                                              float (&o_lo)[32],
-                                              float (&s)[32], Ctx& cx, int t,
-                                              const float (&scale)[2],
+template <int D, bool kDrop, bool kResid>
+__device__ __forceinline__ void accumulate_pv(float (&o)[HeadDim<D>::kAcc],
+                                              float (&o_lo)[HeadDim<D>::kAcc],
+                                              float (&s)[32], Ctx<D>& cx,
+                                              int t, const float (&scale)[2],
                                               const DropoutMask& mask) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -162,8 +186,8 @@ __device__ __forceinline__ void accumulate_pv(float (&o)[32],
     to_operand(p, s);
   cx.wait();
   wg_fence();
-  tile_pb(o, p, cx.sm->ring[cx.slot()]);
-  if (kResid) tile_pb(o_lo, p_lo, cx.sm->ring[cx.slot()]);
+  tile_pb_d<D>(o, p, cx.sm->ring[cx.slot()]);
+  if (kResid) tile_pb_d<D>(o_lo, p_lo, cx.sm->ring[cx.slot()]);
   wg_commit();
   wg_wait<0>();
   fence_regs(o);
@@ -177,8 +201,8 @@ __device__ __forceinline__ void accumulate_pv(float (&o)[32],
 
 // kResid: also write the backward's residuals (out_exact, stats); the extra
 // accumulator takes the registers of the third block an SM
-template <bool kDrop, bool kResid>
-__global__ void __launch_bounds__(kThreads, kResid ? 2 : 3)
+template <int D, bool kDrop, bool kResid>
+__global__ void __launch_bounds__(kThreads, (kBlocks<D, kResid>))
 attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
@@ -189,7 +213,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                      int H, int T, unsigned seed, unsigned seed_stride,
                      unsigned threshold, float scale) {
   extern __shared__ unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -197,7 +221,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   const int last = n_tiles - 1;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kStages<D>; ++s) {
       bar_init(&sm.full[s], 1);
       bar_init(&sm.empty[s], 128);
     }
@@ -211,14 +235,14 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       prefetch_map(&qmap);
       prefetch_map(&kmap);
       prefetch_map(&vmap);
-      bar_expect(&sm.q_full, kTileBytes);
-      tma_load(sm.q, &qmap, qt * kTile, h, b, &sm.q_full);
+      bar_expect(&sm.q_full, HeadDim<D>::kBytes);
+      tma_load_d<D>(sm.q, &qmap, qt * kTile, h, b, &sm.q_full);
       int it = 0;
       auto push = [&](const CUtensorMap* map, int tile) {
-        const int s = it % kStages;
-        bar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
-        bar_expect(&sm.full[s], kTileBytes);
-        tma_load(sm.ring[s], map, tile * kTile, h, b, &sm.full[s]);
+        const int s = it % kStages<D>;
+        bar_wait(&sm.empty[s], ((it / kStages<D>) & 1) ^ 1);
+        bar_expect(&sm.full[s], HeadDim<D>::kBytes);
+        tma_load_d<D>(sm.ring[s], map, tile * kTile, h, b, &sm.full[s]);
         ++it;
       };
       // the consumer's order: every K tile (pass 1), the last V tile, then
@@ -236,7 +260,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   // ---- consumer warpgroup: 64 query rows ----
   const DropoutMask mask(seed + (unsigned)b * seed_stride + (unsigned)h,
                          threshold, scale);
-  Ctx cx{&sm, bias + (size_t)b * T, T,
+  Ctx<D> cx{&sm, bias + (size_t)b * T, T,
          qt * kTile + 16 * warp + (lane >> 2),  // rows r_lo and r_lo + 8
          2 * (lane & 3), 0};
   bar_wait(&sm.q_full, 0);
@@ -268,17 +292,17 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
 
   // pass 2: p = exp(s - m) / l, then out += p . v; the last tile first,
   // from registers, then the others with their scores computed again
-  float o[32], o_lo[32];
+  float o[HeadDim<D>::kAcc], o_lo[HeadDim<D>::kAcc];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = o_lo[i] = 0.f;
+  for (int i = 0; i < HeadDim<D>::kAcc; ++i) o[i] = o_lo[i] = 0.f;
   const float kept[2] = {fast_exp2((mt[0] - m[0]) * kLog2e) * inv_l[0],
                          fast_exp2((mt[1] - m[1]) * kLog2e) * inv_l[1]};
-  accumulate_pv<kDrop, kResid>(o, o_lo, s, cx, last, kept, mask);
+  accumulate_pv<D, kDrop, kResid>(o, o_lo, s, cx, last, kept, mask);
   for (int t = 0; t < last; ++t) {
     float unused[2];
     scores(s, cx, t);
     tile_exp(s, m, unused);
-    accumulate_pv<kDrop, kResid>(o, o_lo, s, cx, t, inv_l, mask);
+    accumulate_pv<D, kDrop, kResid>(o, o_lo, s, cx, t, inv_l, mask);
   }
 
   // out rows r_lo and r_lo + 8 (those below T), the row statistics of
@@ -289,7 +313,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     if (r < T) {
       const long long off = b * osb + h * osh + r * ost + cx.c_lane;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < D / 8; ++j) {
         const float x = o[4 * j + 2 * i], y = o[4 * j + 2 * i + 1];
         const uint32_t hi = pack_bf16(x, y);
         *reinterpret_cast<uint32_t*>(out + off + 8 * j) = hi;
@@ -306,7 +330,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <bool kDrop, bool kResid>
+template <int D, bool kDrop, bool kResid>
 cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
                    const CUtensorMap& vm, const float* bias,
                    __nv_bfloat16* out, __nv_bfloat16* out_exact,
@@ -315,22 +339,48 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
                    unsigned seed_stride, unsigned threshold, float scale,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<kDrop, kResid>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      attention_fwd_kernel<D, kDrop, kResid>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes<D>);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kTile - 1) / kTile, H, B);
-  attention_fwd_kernel<kDrop, kResid>
-      <<<grid, kThreads, kSmemBytes, stream>>>(
+  attention_fwd_kernel<D, kDrop, kResid>
+      <<<grid, kThreads, kSmemBytes<D>, stream>>>(
       qm, km, vm, bias, out, out_exact, os[0], os[1], os[2], stats, H, T, seed,
       seed_stride, threshold, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t run(const void* q, const void* k, const void* v, const float* b,
+                __nv_bfloat16* o, __nv_bfloat16* ox, float* st,
+                const long long* qs, const long long* ks, const long long* vs,
+                const long long* os, int B, int H, int T, unsigned seed,
+                unsigned seed_stride, unsigned threshold, float scale,
+                cudaStream_t s) {
+  CUtensorMap qm, km, vm;
+  cudaError_t err = bind_device();
+  if (err == cudaSuccess)
+    err = make_map(&qm, q, B, H, T, qs[0], qs[1], qs[2], false, D);
+  if (err == cudaSuccess)
+    err = make_map(&km, k, B, H, T, ks[0], ks[1], ks[2], false, D);
+  if (err == cudaSuccess)
+    err = make_map(&vm, v, B, H, T, vs[0], vs[1], vs[2], false, D);
+  if (err != cudaSuccess) return err;
+  const bool drop = threshold != 0u, resid = st != nullptr;
+#define W2V_LAUNCH(DR, R) \
+  launch<D, DR, R>(qm, km, vm, b, o, ox, os, st, B, H, T, seed, seed_stride, \
+                   threshold, scale, s)
+  return drop ? (resid ? W2V_LAUNCH(true, true) : W2V_LAUNCH(true, false))
+              : (resid ? W2V_LAUNCH(false, true) : W2V_LAUNCH(false, false));
+#undef W2V_LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out: (B, H, T, 64) bf16 with element strides {q,k,v,o}s =
+// q, k, v, out: (B, H, T, D) bf16, D = 64, 80 or 120, with element
+// strides {q,k,v,o}s =
 // (batch, head, row); bias (B, T) fp32 contiguous; stats: fp32
 // (B, H, Tp, 2) contiguous, Tp = T rounded up to 64, or null; out_exact:
 // null with stats, or a bf16 tensor of out's strides that takes
@@ -345,27 +395,23 @@ int attention_fwd(const void* q, const void* k, const void* v,
                   const long long* vs, const long long* os, int B, int H,
                   int T, int D, unsigned seed, unsigned seed_stride,
                   unsigned threshold, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || D != 64) return (int)cudaErrorInvalidValue;
-  CUtensorMap qm, km, vm;
-  cudaError_t err = bind_device();
-  if (err == cudaSuccess) err = make_map(&qm, q, B, H, T, qs[0], qs[1], qs[2]);
-  if (err == cudaSuccess) err = make_map(&km, k, B, H, T, ks[0], ks[1], ks[2]);
-  if (err == cudaSuccess) err = make_map(&vm, v, B, H, T, vs[0], vs[1], vs[2]);
-  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || H <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const float*>(bias);
   auto* o = static_cast<__nv_bfloat16*>(out);
   auto* ox = static_cast<__nv_bfloat16*>(out_exact);
   auto* st = static_cast<float*>(stats);
   if ((ox == nullptr) != (st == nullptr)) return (int)cudaErrorInvalidValue;
-  const bool drop = threshold != 0u, resid = st != nullptr;
-#define W2V_LAUNCH(D, R) \
-  launch<D, R>(qm, km, vm, b, o, ox, os, st, B, H, T, seed, seed_stride, \
-               threshold, scale, s)
-  return (int)(drop ? (resid ? W2V_LAUNCH(true, true) : W2V_LAUNCH(true, false))
-                    : (resid ? W2V_LAUNCH(false, true)
-                             : W2V_LAUNCH(false, false)));
-#undef W2V_LAUNCH
+#define W2V_RUN(HD)                                                        \
+  run<HD>(q, k, v, b, o, ox, st, qs, ks, vs, os, B, H, T, seed, seed_stride, \
+          threshold, scale, s)
+  switch (D) {
+    case 64: return (int)W2V_RUN(64);
+    case 80: return (int)W2V_RUN(80);
+    case 120: return (int)W2V_RUN(120);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef W2V_RUN
 }
 
 }  // extern "C"

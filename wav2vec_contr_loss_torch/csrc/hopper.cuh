@@ -1,6 +1,7 @@
 // Hopper building blocks of the attention kernels: TMA tensor maps and
 // loads, mbarriers, and wgmma on bf16 tiles of 64 rows x 64 columns
-// (128 bytes a row, the width of the 128-byte swizzle); the fp32 kernels'
+// (128 bytes a row, the width of the 128-byte swizzle), and on rows of a
+// head dim D of 80 or 120 held as two such tiles (HeadDim); the fp32 kernels'
 // tensor maps (64 x 32 fp32 boxes, the same 128 bytes a row), the TF32
 // conversion and tf32 wgmma (f32_tiles.cuh builds 3xTF32 on them). The
 // LN+GELU backward uses the mbarriers and the plain bulk copy.
@@ -33,7 +34,7 @@ namespace hopper {
 constexpr int kTile = 64;                    // rows of every tile
 constexpr int kTileBytes = kTile * 64 * 2;   // 64 x 64 bf16
 
-// ---- host: a 4-D tensor map over (B, H, T, 64) bf16 or fp32 with explicit
+// ---- host: a 4-D tensor map over (B, H, T, D) bf16 or fp32 with explicit
 // element strides, one box = 64 rows of one (b, h) pair ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -65,19 +66,21 @@ inline cudaError_t bind_device() {
   return err == cudaSuccess ? cudaSetDevice(dev) : err;
 }
 
-// strides in elements (sb, sh, st; the head dim is contiguous). Rows past
-// T read as zeros. One box is 64 rows of 128 bytes (the width of the
-// 128-byte swizzle): all 64 bf16 columns, or 32 of the 64 fp32 ones, so a
-// 64 x 64 fp32 tile is two boxes, at columns 0 and 32. A map libcuda
-// refuses (strides, alignment) returns cudaErrorInvalidPitchValue. Call
-// bind_device() first.
+// strides in elements (sb, sh, st; the head dim, d columns, is
+// contiguous). Rows past T, and columns past d, read as zeros. One box is
+// 64 rows of 128 bytes (the width of the 128-byte swizzle): 64 bf16
+// columns, or 32 of the 64 fp32 ones, so a 64 x 64 fp32 tile is two
+// boxes, at columns 0 and 32, and a bf16 row of d = 80 or 120 two, at
+// columns 0 and 64 (the second box's columns past d zeros, nothing read
+// past the row's d-th element). A map libcuda refuses (strides,
+// alignment) returns cudaErrorInvalidPitchValue. Call bind_device() first.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int H,
                             int T, long long sb, long long sh, long long st,
-                            bool f32 = false) {
+                            bool f32 = false, int d = 64) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return cudaErrorSharedObjectSymbolNotFound;
   const cuuint64_t size = f32 ? 4 : 2;
-  const cuuint64_t dims[4] = {64, (cuuint64_t)T, (cuuint64_t)H,
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)T, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st * size, (cuuint64_t)sh * size,
                                  (cuuint64_t)sb * size};
@@ -182,12 +185,14 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 
 // wgmma descriptor of a 64 x 64 bf16 tile with the 128-byte swizzle.
 // K-major: the leading offset is unused (16 bytes by convention).
-// MN-major: the leading offset would step between 64-column atoms, of
-// which a 64-wide tile has one, so both offsets are the 1024-byte 8-row
-// stride.
+// MN-major: the leading offset steps between 64-column atoms, of which a
+// 64-wide tile has one, so by default both offsets are the 1024-byte
+// 8-row stride; an operand of two tiles side by side (HeadDim below)
+// passes their distance.
 template <bool kMnMajor>
-__device__ __forceinline__ uint64_t desc(const void* tile) {
-  const uint64_t lbo = kMnMajor ? 1024 : 16;
+__device__ __forceinline__ uint64_t desc(const void* tile,
+                                         uint64_t lbo = kMnMajor ? 1024
+                                                                 : 16) {
   return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
@@ -250,6 +255,69 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define W2V_D40  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
+#define W2V_D40_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+#define W2V_D60  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59}"
+#define W2V_D60_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+
+// d += A . B, one k16 step of an m64nNk16 product, N = 80 or 120 (d: N / 2
+// accumulator entries; N = 64 is mma_rs): A = four bf16x2 registers, B
+// from shared memory, MN-major; a B of two 64-column tiles takes a
+// descriptor whose leading offset is their distance
+template <int N>
+__device__ __forceinline__ void mma_rs_n(float (&d)[N / 2], const uint32_t* a,
+                                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void mma_rs_n<80>(float (&d)[40], const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " W2V_D40
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : W2V_D40_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs_n<120>(float (&d)[60],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 " W2V_D60
+      ", {%60, %61, %62, %63}, %64, p, 1, 1, 1;\n}\n"
+      : W2V_D60_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // ---- TF32 products (the fp32 kernels' 3xTF32 tiles, f32_tiles.cuh) ----
 //
 // wgmma takes tf32 operands K-major only (no transpose bits), k8 a step:
@@ -297,6 +365,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[32]) {
 
 #undef W2V_D32
 #undef W2V_D32_OPS
+#undef W2V_D40
+#undef W2V_D40_OPS
+#undef W2V_D60
+#undef W2V_D60_OPS
+
+// an accumulator of any width: as fence_regs above
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
 // d = A . B^T over the 64 columns of both tiles (four k16 steps): A and
 // B are 64 x 64 K-major tiles in shared memory
@@ -315,6 +394,69 @@ __device__ __forceinline__ void tile_pb(float (&d)[32], const uint32_t (&p)[16],
   const uint64_t db = desc<true>(b);
 #pragma unroll
   for (int s = 0; s < 4; ++s) mma_rs(d, p + 4 * s, db + 128 * s);
+}
+
+// ---- rows of head dim D: 64, or 80 and 120 (XLS-R 1B and 2B) ----
+//
+// A 64-row tile of D bf16 columns is kChunks 64 x 64 tiles one after
+// another (one TMA box each, columns past D zeros). q . k^T takes kSteps
+// k16 steps over them: at D = 120 the last covers columns 112-127, whose
+// 120-127 are the zeros (the contraction padded to 128 in shared memory,
+// never in device memory); at D = 80, five steps and no padding. p . v
+// and the backward's gradients are one m64nDk16 product a k16 step, the
+// accumulator D / 2 entries a thread (columns 8j + 2(l%4) + c, j < D / 8).
+template <int D>
+struct HeadDim {
+  static_assert(D == 64 || D == 80 || D == 120, "head dim 64, 80 or 120");
+  static constexpr int kChunks = (D + 63) / 64;        // 64-column tiles
+  static constexpr int kSteps = (D + 15) / 16;         // k16 steps over D
+  static constexpr int kElems = kChunks * kTile * 64;  // of a 64-row tile
+  static constexpr uint32_t kBytes = kChunks * kTileBytes;
+  static constexpr int kAcc = D / 2;                   // accumulator entries
+};
+
+// d = A . B^T over the D columns of both (kSteps k16 steps): A and B are
+// 64-row K-major tiles of HeadDim<D> in shared memory
+template <int D>
+__device__ __forceinline__ void tile_abt_d(float (&d)[32],
+                                           const __nv_bfloat16* a,
+                                           const __nv_bfloat16* b) {
+  if constexpr (D == 64) {
+    tile_abt(d, a, b);
+  } else {
+#pragma unroll
+    for (int s = 0; s < HeadDim<D>::kSteps; ++s) {
+      const int c = (s / 4) * kTile * 64;
+      mma_ss(d, desc<false>(a + c) + 2 * (s % 4),
+             desc<false>(b + c) + 2 * (s % 4), s > 0);
+    }
+  }
+}
+
+// d += P . B over the 64 rows of B (four k16 steps): P as in tile_pb, B a
+// 64-row tile of HeadDim<D> whose rows are the reduction; d has D columns
+template <int D>
+__device__ __forceinline__ void tile_pb_d(float (&d)[HeadDim<D>::kAcc],
+                                          const uint32_t (&p)[16],
+                                          const __nv_bfloat16* b) {
+  if constexpr (D == 64) {
+    tile_pb(d, p, b);
+  } else {
+    const uint64_t db = desc<true>(b, kTileBytes);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) mma_rs_n<D>(d, p + 4 * s, db + 128 * s);
+  }
+}
+
+// loads one 64-row tile of HeadDim<D> at row t0 of (b, h) into `dst`: one
+// box per 64 columns
+template <int D>
+__device__ __forceinline__ void tma_load_d(__nv_bfloat16* dst,
+                                           const CUtensorMap* map, int t0,
+                                           int h, int b, uint64_t* bar) {
+#pragma unroll
+  for (int c = 0; c < HeadDim<D>::kChunks; ++c)
+    tma_load_at(dst + c * kTile * 64, map, 64 * c, t0, h, b, bar);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

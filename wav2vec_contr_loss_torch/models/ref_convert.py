@@ -38,8 +38,9 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from ..config import (LARGE_960H, XLSR_300M, BaselineConfig, Stage1Config,
-                      Stage2Config, Wav2Vec2Config, config_from_dict)
+from ..config import (LARGE_960H, XLSR_2B, XLSR_300M, BaselineConfig,
+                      Stage1Config, Stage2Config, Wav2Vec2Config,
+                      config_from_dict)
 from ..train import checkpoint as ckpt_mod
 from ..train.stage2 import STAGE2_BEST
 from .hf_convert import config_from_hf, convert_hf_state_dict, load_encoder_init
@@ -55,6 +56,7 @@ __all__ = ["detect_kind", "convert_reference_checkpoint",
 _KNOWN_MODELS = {
     "facebook/wav2vec2-xls-r-300m": XLSR_300M,
     "facebook/wav2vec2-large-960h": LARGE_960H,
+    "facebook/wav2vec2-xls-r-2b": XLSR_2B,
 }
 
 

@@ -17,10 +17,15 @@ by 64 query or key rows, with no bound on T:
     recomputing p from the row statistics and the mask from the seed; no
     atomics, so the backward is deterministic.
 
-Both take head dim 64 (both model presets) and bf16 tensors given by
-strides (the head dim contiguous, the other strides multiples of 8
-elements, 16-byte aligned), so the (B, T, H, 64) view of a projection
-output goes in without a copy; the outputs take the layout of q.
+Both take head dims 64 (XLS-R 300M, large-960h), 80 (XLS-R 1B) and 120
+(XLS-R 2B), one template instantiated for each: a row of 80 or 120 is
+two 64-column tiles in shared memory, the columns past the row TMA's
+zeros, so q . k^T at 120 runs over 128 columns with no copy of q, k or v
+in device memory. They take bf16 tensors given by strides (the head dim
+contiguous, the other strides multiples of 8 elements, 16-byte
+aligned), so the (B, T, H, D) view of a projection output goes in
+without a copy; the outputs take the layout of q. The dropout mask does
+not depend on D.
 
 fp32 q, k, v (and g) go to fp32 counterparts of both, which compute what
 the plain version computes in fp32, nothing rounded to bf16 (JAX's
@@ -36,10 +41,14 @@ in fp32, about as accurate as an fp32 product. Tiles land by TMA.
     writes no out_exact, since in fp32 that is the output itself.
   * csrc/attention_bwd_f32.cu: the same dq and dk/dv kernels, no atomics.
 
-They take head dim 64 and tensors whose head dim is contiguous and whose
-other strides are multiples of 4 elements (16-byte aligned). Any other
-dtype, or q, k, v (and g) of mixed dtypes, is refused on the card; the
-fp32 kernels count in the same `launches` and `bwd_launches`.
+They take head dim 64 only and tensors whose head dim is contiguous and
+whose other strides are multiples of 4 elements (16-byte aligned). Any
+other dtype, or q, k, v (and g) of mixed dtypes, is refused on the card;
+the fp32 kernels count in the same `launches` and `bwd_launches`.
+
+`fused_attention` is a `w2v.attention` range under a profiler: the
+forward and a remat recompute; the backward's launches come from
+autograd, outside it.
 
 `fused_attention` picks its path by whether a gradient is needed:
 
@@ -59,26 +68,34 @@ fp32 kernels count in the same `launches` and `bwd_launches`.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
 
 import torch
 
+from ..utils.timing import span
 from ._build import check
 from .dropout import attention_dropout_mask, threshold
 
 __all__ = ["fused_attention", "fused_attention_plain", "FusedAttention",
-           "attention_fwd", "launches", "bwd_launches"]
+           "attention_fwd", "launches", "bwd_launches", "head_dim_launches",
+           "head_dim_bwd_launches", "HEAD_DIMS"]
 
 # kernel launches through `fused_attention` (forward) and its backward
 # (one per backward call, which runs the dq and the dk/dv kernel); read
 # and reset by callers
 launches = 0
 bwd_launches = 0
+# the same launches by head dim, {head dim: launches}; read and cleared
+# by callers
+head_dim_launches: collections.Counter = collections.Counter()
+head_dim_bwd_launches: collections.Counter = collections.Counter()
 
 _TILE = 64        # rows of the kernels' query and key tiles
-_D = 64           # the head dim the kernels take
+# the head dims each kernel pair takes, by dtype
+HEAD_DIMS = {torch.bfloat16: (64, 80, 120), torch.float32: (64,)}
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -197,9 +214,12 @@ def _check_cuda(tensors, d: int) -> torch.dtype:
                          "bfloat16 or all float32; got "
                          f"{[x.dtype for x in tensors]}")
     dtype = dtypes.pop()
-    if d != _D:
-        raise ValueError(f"the CUDA attention kernels take head dim {_D}; "
-                         f"got {d}")
+    if d not in HEAD_DIMS[dtype]:
+        raise ValueError(
+            "the CUDA attention kernels take head dims "
+            f"{list(HEAD_DIMS[torch.bfloat16])} in bfloat16 and "
+            f"{list(HEAD_DIMS[torch.float32])} in float32; got {d} in "
+            f"{str(dtype).removeprefix('torch.')}")
     if not all(_LAYOUT_OK[dtype](x) for x in tensors):
         mult = 8 if dtype == torch.bfloat16 else 4
         raise ValueError(
@@ -259,6 +279,7 @@ def _launch_fwd(q, k, v, bias, seed, rate, seed_stride,
             *_dropout_args(seed, rate, seed_stride), stream)
     check(lib, name, err)
     launches += 1
+    head_dim_launches[d] += 1
     return out, out_exact, stats
 
 
@@ -290,6 +311,7 @@ def _launch_bwd(q, k, v, g, out_exact, bias, stats, seed, rate,
             *_dropout_args(seed, rate, seed_stride), stream)
     check(lib, "attention_bwd", err)
     bwd_launches += 1
+    head_dim_bwd_launches[d] += 1
     return dq, dk, dv
 
 
@@ -312,6 +334,7 @@ def _launch_bwd_f32(q, k, v, g, out, bias, stats, seed, rate, seed_stride):
             *_dropout_args(seed, rate, seed_stride), stream)
     check(lib, "attention_bwd_f32", err)
     bwd_launches += 1
+    head_dim_bwd_launches[d] += 1
     return dq, dk, dv
 
 
@@ -371,7 +394,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention-probability dropout. -> (B, H, T, D), in q's layout on the
     card. q must arrive pre-scaled (1/sqrt(D)). Same contract as the JAX
     `fused_attention`; `heads` must equal H. Differentiable in q, k and
-    v; without a gradient it is the op `w2v_torch::attention_fwd`."""
+    v; without a gradient it is the op `w2v_torch::attention_fwd`. Under
+    a profiler it is a `w2v.attention` range."""
     _check(q, k, v, bias)
     if heads != q.shape[1]:
         raise ValueError(f"heads={heads} but q has {q.shape[1]} heads")
@@ -380,10 +404,12 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     stride = heads if seed_stride is None else int(seed_stride)
-    if not (torch.is_grad_enabled()
-            and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        return attention_fwd(q, k, v, bias, int(seed), float(rate), stride)
-    if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, bias, seed, rate, stride)
-    return FusedAttention.apply(q, k, v, bias, int(seed), float(rate),
-                                stride)
+    with span("w2v.attention"):
+        if not (torch.is_grad_enabled()
+                and (q.requires_grad or k.requires_grad or v.requires_grad)):
+            return attention_fwd(q, k, v, bias, int(seed), float(rate),
+                                 stride)
+        if q.device.type == "cpu":
+            return fused_attention_plain(q, k, v, bias, seed, rate, stride)
+        return FusedAttention.apply(q, k, v, bias, int(seed), float(rate),
+                                    stride)

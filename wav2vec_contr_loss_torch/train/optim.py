@@ -37,6 +37,7 @@ order; a norm over the group sums its squares over the stages.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Optional
 
 import torch
@@ -157,6 +158,11 @@ class AdamWGroup:
             nu.copy_(v32)
 
 
+def _release(groups: List[AdamWGroup]) -> None:
+    for grp in groups:
+        grp.params, grp.mu, grp.nu, grp.norm_groups = [], [], [], []
+
+
 class GroupedAdamW:
     """The optax.multi_transform of the JAX trainer over named groups;
     parameters in no group take no update."""
@@ -165,6 +171,10 @@ class GroupedAdamW:
                  clip: Optional[float] = None):
         self.groups = groups
         self.clip = clip   # over the gradients of every group
+        # a group is a part of its optimizer: one still referenced once the
+        # optimizer is gone (a caller's loop variable) keeps none of its
+        # parameters, gradients or moments alive
+        weakref.finalize(self, _release, list(groups.values()))
 
     def parameters(self) -> List[torch.nn.Parameter]:
         return [p for grp in self.groups.values() for p in grp.params]
