@@ -36,11 +36,16 @@
    output and gradient, at the step's (32, 249, 1024) in bf16 and the
    compression head's in fp32, an innermost size of 1001 and a gang's
    offsets; timed at both step shapes beside its byte bound, the plain
-   version and F.dropout. Then the bf16 attention kernels at XLS-R 1B's
-   and 2B's head dims, 80 and 120, at the training shape (32, 16, 249,
-   D) on strided views: forward and backward held to the plain version,
-   launches by head dim counted, timed beside their bounds, the plain
-   version and SDPA. `--kernels` runs this phase alone.
+   version and F.dropout. AdamW (csrc/adamw.cu) bit for bit against its
+   plain version at XLS-R 300M's parameter list over three steps (a
+   clip's scale, a missing gradient), its launches counted, timed beside
+   its byte bound (20 bytes a parameter), the plain loop and
+   torch.optim.AdamW(fused=True) at fp32 moments. Then the bf16
+   attention kernels at XLS-R 1B's and 2B's head dims, 80 and 120, at
+   the training shape (32, 16, 249, D) on strided views: forward and
+   backward held to the plain version, launches by head dim counted,
+   timed beside their bounds, the plain version and SDPA. `--kernels`
+   runs this phase alone.
 3. Serve phase: builds XLS-R-300M (24 layers, 1024 wide, 'layer' norm)
    with a linear head from seeded random numpy weights in the JAX tree
    layout, passed through the port's weight bridge; scores 4 batches of
@@ -53,7 +58,8 @@
    bf16, dropout, SpecAugment, remat) takes 8 SupCon steps on one fixed
    batch of 32 x 5 s clips at alpha = 1, with the launch counters reset
    just before and read just after; checks the losses and the exact
-   launch counts; times the steps and breaks one down with
+   launch counts (the AdamW kernel's: `optim.launches` and
+   `optim.tensors`); times the steps and breaks one down with
    torch.profiler. Then one step at 2 layers, B=4, dropout and
    SpecAugment off, on the card in bf16 against the CPU in fp32.
 5. RawBoost phase: device RawBoost (ops/rawboost.py, plain PyTorch) on
@@ -480,6 +486,123 @@ def dropout_phase(dev, results) -> None:
         **rows)
 
 
+def xlsr300m_param_shapes() -> list:
+    """The shapes of the stage-1 optimizer's parameters at XLS-R 300M
+    width, in its groups' order: the compression head's 2, then the
+    encoder's 421 (the finetune trains all of them)."""
+    from wav2vec_contr_loss_torch import XLSR_300M, Stage1Config
+    from wav2vec_contr_loss_torch.models.compression import CompressionModule
+    from wav2vec_contr_loss_torch.models.wav2vec2 import Wav2Vec2Encoder
+
+    scfg = Stage1Config()
+    with torch.device("meta"):
+        mods = (CompressionModule(scfg.input_dim, scfg.hidden_dim,
+                                  scfg.dropout), Wav2Vec2Encoder(XLSR_300M))
+    return [tuple(p.shape) for m in mods for p in m.parameters()]
+
+
+def optimizer_tables(opt) -> int:
+    """csrc/adamw.cu launches one step of a GroupedAdamW needs."""
+    from wav2vec_contr_loss_torch.train import optim
+
+    return sum(len(optim.launch_tables([p.numel() for p in grp.params],
+                                       *optim.kernel_limits()))
+               for grp in opt.groups.values())
+
+
+ADAMW_STEPS = 3
+
+
+def adamw_phase(dev, results) -> None:
+    """csrc/adamw.cu against its plain version at XLS-R 300M's parameter
+    list (one group, bf16 moments, the recipe's encoder lr and weight
+    decay): three steps, the first and third behind a clip's scale, the
+    second with one parameter left without a gradient, parameters and
+    moments bit for bit after each; then its device time beside its byte
+    bound (20 bytes a parameter), the plain loop's and, as the nearest
+    library call, torch.optim.AdamW(fused=True)'s at fp32 moments (not
+    the same function: its moments' dtype and arithmetic; timed only)."""
+    from wav2vec_contr_loss_torch import Stage1Config
+    from wav2vec_contr_loss_torch.train import optim
+
+    scfg = Stage1Config()
+    hyper = dict(lr=scfg.enc_lr, weight_decay=scfg.weight_decay, b1=0.9,
+                 b2=0.999, eps=1e-8)
+    shapes = xlsr300m_param_shapes()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    first = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    grads = [torch.empty_like(p) for p in first]
+    sides = [([p.clone() for p in first],
+              [torch.zeros_like(p, dtype=torch.bfloat16) for p in first],
+              [torch.zeros_like(p, dtype=torch.bfloat16) for p in first])
+             for _ in range(2)]
+    del first
+    n = sum(p.numel() for p in sides[0][0])
+    n0 = optim.launches
+    for step in range(1, ADAMW_STEPS + 1):
+        for g in grads:
+            g.normal_(0.0, 1e-2, generator=gen)
+        gs, scale = list(grads), None
+        if step == 2:
+            gs[5] = None
+        else:
+            scale = optim.clip_scale(grads, 1.0)
+        for fn, (p, m, v) in zip((optim.adamw, optim.adamw_plain), sides):
+            fn(p, gs, m, v, count=step, scale=scale, **hyper)
+        diffs = {}
+        for what, a, b in zip(("p", "mu", "nu"), sides[0], sides[1]):
+            d = [ulps(x, y) for x, y in zip(a, b) if x.numel()]
+            diffs[what] = (max(int(u.max()) for u in d),
+                           sum(int((u != 0).sum()) for u in d))
+        print(f"adamw {len(shapes)} tensors, {n} parameters, step {step} "
+              f"({'scale' if scale is not None else 'no scale'}"
+              f"{', one gradient None' if step == 2 else ''}): largest "
+              f"difference from the plain version in units of the last "
+              f"place, and elements that differ: {diffs}")
+        if any(d[1] for d in diffs.values()):
+            raise RuntimeError("the AdamW kernel differs from its plain "
+                               "version")
+    launches = optim.launches - n0
+    want = ADAMW_STEPS * len(optim.launch_tables(
+        [p.numel() for p in sides[0][0]], *optim.kernel_limits()))
+    if launches != want:
+        raise RuntimeError(f"AdamW: {launches} launches over {ADAMW_STEPS} "
+                           f"steps, expected {want}")
+
+    (p, m, v), (pp, pm, pv) = sides
+    ms = device_ms(lambda: optim.adamw(p, grads, m, v, count=4, **hyper))
+    # thousands of operations a call overflow the launch queue behind
+    # device_ms's sleep: the plain loop's device time is the sum of its
+    # operations' in a profile
+    plain_ops, plain_ms = device_ops(lambda: optim.adamw_plain(
+        pp, grads, pm, pv, count=4, **hyper))
+    leaves = [torch.nn.Parameter(x) for x in pp]
+    for leaf, g in zip(leaves, grads):
+        leaf.grad = g
+    lib = torch.optim.AdamW(leaves, lr=hyper["lr"], betas=(0.9, 0.999),
+                            eps=hyper["eps"],
+                            weight_decay=hyper["weight_decay"], fused=True)
+    lib_ms = device_ms(lib.step)
+    bound_ms, bound_by = bound(20 * n, 0, BF16_FLOP_PER_S)
+    print(f"adamw {n} parameters in {len(shapes)} tensors, bf16 moments: "
+          f"kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f} % of the bound, "
+          f"{ms / bound_ms:.2f}x it) in {want // ADAMW_STEPS} launch(es), "
+          f"plain {plain_ms:.4f} ms in {plain_ops} device operations, "
+          f"torch.optim.AdamW(fused=True) at fp32 moments {lib_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"20 bytes a parameter) [{CARD}]")
+    results["adamw"] = dict(
+        name="adamw", route="cuda",
+        source="wav2vec_contr_loss_torch/csrc/adamw.cu",
+        replaces="none: wav2vec_contr_loss_tpu/ops/adam_bf16nu.py "
+                 "_scale_by_adam_storage is jnp that XLA fuses",
+        library="torch.optim.AdamW(fused=True) at fp32 moments, not the "
+                "same function",
+        parameters=n, tensors=len(shapes), launches=launches, ms=ms,
+        plain_ms=plain_ms, plain_ops=plain_ops, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms, share_of_bound=bound_ms / ms)
+
+
 def rounded_plain(q, k, v, g, bias, seed, rate):
     """-> (out, (dq, dk, dv)) with the kernels' roundings, in fp32 on the
     card: p = softmax(q . k^T + bias) unrounded, out = bf16(p m) . v,
@@ -677,7 +800,7 @@ def head_dim_phase(dev, results) -> None:
 def kernels_main() -> int:
     """The kernel phase alone (`--kernels`), its kernels built on demand,
     with TF32 off as in `main`: attention at head dim 64, LN+GELU, SupCon,
-    murmur dropout, then attention at head dims 80 and 120."""
+    murmur dropout, AdamW, then attention at head dims 80 and 120."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -693,6 +816,7 @@ def kernels_main() -> int:
     results = kernel_phase(dev)
     train_kernel_phase(dev, results)
     dropout_phase(dev, results)
+    adamw_phase(dev, results)
     head_dim_phase(dev, results)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s (builds "
           f"included) [{CARD}]")
@@ -1281,6 +1405,7 @@ def _reset_counters() -> None:
 def train_phase(dev, results):
     from wav2vec_contr_loss_torch import XLSR_300M, Stage1Config, Stage1Trainer
     from wav2vec_contr_loss_torch.ops import dropout
+    from wav2vec_contr_loss_torch.train import optim
 
     cfg = XLSR_300M
     scfg = Stage1Config(finetune_encoder=True, use_rawboost=False)
@@ -1297,6 +1422,7 @@ def train_phase(dev, results):
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     drops = (dropout.launches, dropout.bwd_launches)
+    opt = (optim.launches, optim.tensors)
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1311,6 +1437,16 @@ def train_phase(dev, results):
         raise RuntimeError("a dropout site of the step ran no backward "
                            "kernel")
     results["murmur_dropout"]["train_launches"] = drops
+    opt = (optim.launches - opt[0], optim.tensors - opt[1])
+    tables = optimizer_tables(trainer.optimizer)
+    n_params = len(trainer.optimizer.parameters())
+    print(f"train: AdamW kernel over {TRAIN_STEPS} steps: optim.launches "
+          f"{opt[0]}, optim.tensors {opt[1]} ({tables} launches and "
+          f"{n_params} tensors a step)")
+    if opt != (TRAIN_STEPS * tables, TRAIN_STEPS * n_params):
+        raise RuntimeError("the optimizer did not update every parameter "
+                           "through its tables' launches")
+    results["adamw"]["train_launches"] = opt[0]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"train: losses {[round(x, 5) for x in losses]}")
     want = {k: v * TRAIN_STEPS
@@ -2897,10 +3033,11 @@ def convert_front_door(tmp: str, files: dict, hf_config=None) -> dict:
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise distance in units in the last place of two float32
-    tensors of one sign pattern."""
-    return (a.contiguous().view(torch.int32).long()
-            - b.contiguous().view(torch.int32).long()).abs()
+    """Elementwise distance in units in the last place of two float32 (or
+    bf16) tensors of one sign pattern."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (a.contiguous().view(ints).long()
+            - b.contiguous().view(ints).long()).abs()
 
 
 def compare_converted(weights, dirs: dict) -> dict:
@@ -4226,6 +4363,7 @@ def main() -> int:
     results = kernel_phase(dev)
     train_kernel_phase(dev, results)
     dropout_phase(dev, results)
+    adamw_phase(dev, results)
     head_dim_phase(dev, results)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s (Triton JIT "
           f"included)")

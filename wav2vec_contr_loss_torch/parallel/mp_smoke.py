@@ -290,7 +290,7 @@ def grad_norms(trainer) -> Dict[str, float]:
     a gang."""
     from ..train.optim import global_norm
 
-    return {name: float(global_norm(grp.gradients(), grp.norm_groups))
+    return {name: float(global_norm(grp.norm_inputs(), grp.norm_groups))
             for name, grp in trainer.optimizer.groups.items()}
 
 

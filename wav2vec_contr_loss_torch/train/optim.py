@@ -20,8 +20,15 @@ applied to each gradient as its parameter is updated.
 
 Both moments are stored in `adam_mu_dtype` / `adam_nu_dtype` and the
 moment and step math runs in fp32; with fp32 storage it is optax.adamw's
-arithmetic. Parameters, moments and gradients are updated in place (the
-JAX package builds new trees), which keeps one copy of each on the card.
+arithmetic. Parameters and moments are updated in place (the JAX package
+builds new trees), which keeps one copy of each on the card.
+
+The update is `adamw`: on CUDA tensors csrc/adamw.cu, one pass over a
+group's parameters, gradients and moments in as many launches as
+`launch_tables` cuts the group into (a parameter that got no gradient
+reads zeros, and no zeros are made); on CPU tensors `adamw_plain`, the
+same arithmetic as eager operations a parameter, which the kernel equals
+bit for bit on the same CUDA tensors.
 
 In a parallel gang (parallel/mesh.py) a parameter may be an FSDP2
 DTensor or a tensor-parallel slice: the update runs on the local shard
@@ -37,15 +44,28 @@ order; a norm over the group sums its squares over the stages.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import weakref
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_grad_bf16", "global_norm", "clip_scale", "AdamWGroup", "GroupedAdamW",
-           "build_optimizer", "build_baseline_optimizer"]
+from ..ops._build import check
+
+__all__ = ["resolve_grad_bf16", "global_norm", "clip_scale", "adamw",
+           "adamw_plain", "launch_tables", "kernel_limits", "AdamWGroup",
+           "GroupedAdamW", "build_optimizer", "build_baseline_optimizer",
+           "launches", "tensors"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_MOMENT_DTYPES = {torch.bfloat16, torch.float32}
+
+# csrc/adamw.cu launches through `adamw`, and the tensors they updated;
+# read and reset by callers
+launches = 0
+tensors = 0
 
 
 def resolve_grad_bf16(cfg) -> bool:
@@ -105,6 +125,202 @@ def clip_scale(grads: List[torch.Tensor], clip: float,
     return torch.where(norm < clip, torch.ones_like(norm), clip / norm)
 
 
+def _bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
+    """1 - b1^count and 1 - b2^count, the powers taken in fp32 (optax's)."""
+    f32 = torch.float32
+    return (float(1 - torch.tensor(b1, dtype=f32) ** count),
+            float(1 - torch.tensor(b2, dtype=f32) ** count))
+
+
+def adamw_plain(params: Sequence[torch.Tensor],
+                grads: Sequence[Optional[torch.Tensor]],
+                mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor], *,
+                lr: float, weight_decay: float, b1: float, b2: float,
+                eps: float, count: int,
+                scale: Optional[torch.Tensor] = None) -> None:
+    """Step `count` of AdamW on each (parameter, gradient, moments) in
+    place, as eager operations a parameter: the kernel's plain version.
+    A None gradient reads as zeros; `scale` multiplies every gradient."""
+    bc1, bc2 = _bias_corrections(b1, b2, count)
+    for p, g, m, v in zip(params, grads, mu, nu):
+        g = torch.zeros_like(p) if g is None else g.float()
+        if scale is not None:
+            g = g * scale
+        m32 = m.float().mul_(b1).add_(g, alpha=1 - b1)
+        v32 = v.float().mul_(b2).addcmul_(g, g, value=1 - b2)
+        upd = (m32 / bc1) / ((v32 / bc2).sqrt_().add_(eps))
+        upd.add_(p, alpha=weight_decay).mul_(-lr)
+        p.add_(upd)
+        m.copy_(m32)
+        v.copy_(v32)
+
+
+def launch_tables(numels: Sequence[int], capacity: int, chunk: int
+                  ) -> List[Tuple[List[int], List[int], int]]:
+    """The kernel's launches over tensors of `numels` elements: for each,
+    (indices of its tensors, the first block of each, its block count),
+    a block taking `chunk` elements of one tensor and a launch at most
+    `capacity` tensors. Empty tensors are in none."""
+    tables, idx, firsts, blocks = [], [], [], 0
+    for i, n in enumerate(numels):
+        if n == 0:
+            continue
+        if len(idx) == capacity:
+            tables.append((idx, firsts, blocks))
+            idx, firsts, blocks = [], [], 0
+        idx.append(i)
+        firsts.append(blocks)
+        blocks += -(-n // chunk)
+    if idx:
+        tables.append((idx, firsts, blocks))
+    return tables
+
+
+_P = ctypes.c_void_p
+
+
+@functools.cache
+def _lib() -> Tuple[ctypes.CDLL, int, int]:
+    """(csrc/adamw.cu's library, tensors a launch, elements a block)."""
+    from ..ops._build import load
+
+    lib = load("adamw")
+    lib.adamw_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.adamw_limits.restype = None
+    lib.adamw.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+                          _P, _P, _P, _P, ctypes.c_uint, _P, _P, _P]
+    lib.adamw.restype = ctypes.c_int
+    capacity, chunk = ctypes.c_int(), ctypes.c_int()
+    lib.adamw_limits(ctypes.byref(capacity), ctypes.byref(chunk))
+    return lib, capacity.value, chunk.value
+
+
+def kernel_limits() -> Tuple[int, int]:
+    """csrc/adamw.cu's tensors a launch and elements a block (builds the
+    kernel if needed)."""
+    return _lib()[1:]
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """Whether t's elements fill one block of memory from its first, with
+    no gap or overlap, its axes in any order (a transposed weight)."""
+    if t.is_contiguous():
+        return True
+    step = 1
+    for stride, size in sorted((st, sz) for st, sz in zip(t.stride(), t.shape)
+                               if sz != 1):
+        if stride != step:
+            return False
+        step *= size
+    return True
+
+
+def _check_cuda(params, grads, mu, nu) -> None:
+    """Raise unless every tensor is on the parameters' CUDA device, the
+    parameters and gradients fp32, each moment list of one dtype, bf16
+    or fp32, each parameter one dense block of memory, and its gradient
+    and moments of its shape and strides: the kernel runs over the four
+    blocks element by element."""
+    dev = params[0].device
+    present = [g for g in grads if g is not None]
+    for what, ts, takes in (("parameter", params, {torch.float32}),
+                            ("gradient", present, {torch.float32}),
+                            ("first moment", mu, _MOMENT_DTYPES),
+                            ("second moment", nu, _MOMENT_DTYPES)):
+        dtypes = {t.dtype for t in ts}
+        if not dtypes <= takes or len(dtypes) > 1:
+            raise ValueError(
+                f"the CUDA AdamW kernel takes each {what} of a group in one "
+                f"dtype of {sorted(str(d) for d in takes)}; got "
+                f"{sorted(str(d) for d in dtypes)}")
+        if any(t.device != dev for t in ts):
+            raise ValueError(f"the CUDA AdamW kernel takes tensors on one "
+                             f"device, the parameters' {dev}; got a {what} "
+                             f"elsewhere")
+    for p, g, m, v in zip(params, grads, mu, nu):
+        if not _dense(p):
+            raise ValueError(f"the CUDA AdamW kernel takes parameters that "
+                             f"are one dense block of memory; got strides "
+                             f"{p.stride()} for {tuple(p.shape)}")
+        layout = (p.shape, p.stride())
+        for what, t in (("gradient", g), ("moment", m), ("moment", v)):
+            if t is not None and (t.shape, t.stride()) != layout:
+                raise ValueError(
+                    f"the CUDA AdamW kernel takes a {what} in its "
+                    f"parameter's shape and strides {layout}; got "
+                    f"{(t.shape, t.stride())}")
+
+
+def _adamw_cuda(params, grads, mu, nu, *, lr, weight_decay, b1, b2, eps,
+                count, scale) -> None:
+    """csrc/adamw.cu over the group, table by table, on the current
+    stream."""
+    global launches, tensors
+    _check_cuda(params, grads, mu, nu)
+    dev = params[0].device
+    if scale is not None:
+        if (scale.dtype != torch.float32 or scale.numel() != 1
+                or scale.device != dev):
+            raise ValueError("the CUDA AdamW kernel takes a clip scale of one "
+                             f"fp32 element on {dev}; got {scale.dtype} "
+                             f"{tuple(scale.shape)} on {scale.device}")
+    lib, capacity, chunk = _lib()
+    bc1, bc2 = _bias_corrections(b1, b2, count)
+    one = np.float32(1.0)
+    scalars = (ctypes.c_float * 9)(
+        _f32(b1), _f32(1 - b1), _f32(b2), _f32(1 - b2),
+        float(one / np.float32(bc1)), float(one / np.float32(bc2)),
+        _f32(eps), _f32(weight_decay), _f32(-lr))
+    mu_f32 = int(mu[0].dtype == torch.float32)
+    nu_f32 = int(nu[0].dtype == torch.float32)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        numels = [p.numel() for p in params]
+        for idx, firsts, blocks in launch_tables(numels, capacity, chunk):
+            k = len(idx)
+            arrays = [(_P * k)(*[ptr(ts[i]) for i in idx])
+                      for ts in (params, grads, mu, nu)]
+            err = lib.adamw(
+                mu_f32, nu_f32, k, *arrays,
+                (ctypes.c_longlong * k)(*[numels[i] for i in idx]),
+                (ctypes.c_uint * k)(*firsts), blocks, ptr(scale), scalars,
+                stream)
+            check(lib, "adamw", err)
+            launches += 1
+            tensors += k
+
+
+def adamw(params: Sequence[torch.Tensor],
+          grads: Sequence[Optional[torch.Tensor]],
+          mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor], *,
+          lr: float, weight_decay: float, b1: float, b2: float, eps: float,
+          count: int, scale: Optional[torch.Tensor] = None) -> None:
+    """Step `count` of AdamW on each (parameter, gradient, moments) in
+    place: csrc/adamw.cu on CUDA tensors (fp32 parameters and gradients,
+    bf16 or fp32 moments, each parameter one dense block of memory and
+    its gradient and moments in its layout; anything else raises), the plain
+    version on CPU tensors. A None gradient reads as zeros; `scale`, a
+    0-d fp32 tensor, multiplies every gradient."""
+    if not params:
+        return
+    devices = {p.device.type for p in params}
+    if devices == {"cpu"}:
+        adamw_plain(params, grads, mu, nu, lr=lr, weight_decay=weight_decay,
+                    b1=b1, b2=b2, eps=eps, count=count, scale=scale)
+    elif devices == {"cuda"}:
+        _adamw_cuda(params, grads, mu, nu, lr=lr, weight_decay=weight_decay,
+                    b1=b1, b2=b2, eps=eps, count=count, scale=scale)
+    else:
+        raise ValueError(f"AdamW runs on CPU tensors (plain) or CUDA tensors "
+                         f"(the kernel), one kind a group; got "
+                         f"{sorted(devices)}")
+
+
 class AdamWGroup:
     """One optax.adamw over a list of parameters, optionally behind a
     global-norm clip of their gradients."""
@@ -125,37 +341,31 @@ class AdamWGroup:
                    for p in self.params]
         self.count = 0
 
-    def gradients(self) -> List[torch.Tensor]:
-        """fp32 gradients (local shards), zeros for a parameter that got
+    def grads(self) -> List[Optional[torch.Tensor]]:
+        """The gradients (local shards), None for a parameter that got
         none."""
-        return [torch.zeros_like(_local(p)) if p.grad is None
-                else _local(p.grad).float() for p in self.params]
+        return [None if p.grad is None else _local(p.grad)
+                for p in self.params]
+
+    def norm_inputs(self) -> List[torch.Tensor]:
+        """The fp32 gradients a clip's norm reads: an empty tensor for a
+        parameter that got none (its norm is 0, as of zeros)."""
+        return [_local(p).new_zeros(0) if g is None else g.float()
+                for p, g in zip(self.params, self.grads())]
 
     @torch.no_grad()
-    def step(self, grads: Optional[List[torch.Tensor]] = None,
-             scale: Optional[torch.Tensor] = None) -> None:
-        """One update. `grads` and `scale` come from a clip that spans
-        more than this group (GroupedAdamW); otherwise the group reads
-        its parameters' gradients and applies its own clip."""
-        if grads is None:
-            grads = self.gradients()
-            if self.clip is not None and grads:
-                scale = clip_scale(grads, self.clip, self.norm_groups)
+    def step(self, scale: Optional[torch.Tensor] = None) -> None:
+        """One update. `scale` comes from a clip that spans more than this
+        group (GroupedAdamW); otherwise the group applies its own clip,
+        if it has one."""
+        if scale is None and self.clip is not None and self.params:
+            scale = clip_scale(self.norm_inputs(), self.clip,
+                               self.norm_groups)
         self.count += 1
-        f32 = torch.float32
-        bc1 = float(1 - torch.tensor(self.b1, dtype=f32) ** self.count)
-        bc2 = float(1 - torch.tensor(self.b2, dtype=f32) ** self.count)
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            p = _local(p)
-            if scale is not None:
-                g = g * scale
-            m32 = mu.float().mul_(self.b1).add_(g, alpha=1 - self.b1)
-            v32 = nu.float().mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
-            upd = (m32 / bc1) / ((v32 / bc2).sqrt_().add_(self.eps))
-            upd.add_(p, alpha=self.weight_decay).mul_(-self.lr)
-            p.add_(upd)
-            mu.copy_(m32)
-            nu.copy_(v32)
+        adamw([_local(p) for p in self.params], self.grads(), self.mu,
+              self.nu, lr=self.lr, weight_decay=self.weight_decay,
+              b1=self.b1, b2=self.b2, eps=self.eps, count=self.count,
+              scale=scale)
 
 
 def _release(groups: List[AdamWGroup]) -> None:
@@ -185,17 +395,14 @@ class GroupedAdamW:
                 p.grad = None
 
     def step(self) -> None:
-        if self.clip is None:
-            for grp in self.groups.values():
-                grp.step()
-            return
-        grads = {name: grp.gradients() for name, grp in self.groups.items()}
-        scale = clip_scale([g for gs in grads.values() for g in gs],
-                           self.clip,
-                           [k for grp in self.groups.values()
-                            for k in grp.norm_groups])
-        for name, grp in self.groups.items():
-            grp.step(grads[name], scale)
+        scale = None
+        if self.clip is not None:
+            groups = list(self.groups.values())
+            scale = clip_scale(
+                [g for grp in groups for g in grp.norm_inputs()], self.clip,
+                [k for grp in groups for k in grp.norm_groups])
+        for grp in self.groups.values():
+            grp.step(scale)
 
     def state_dict(self) -> Dict[str, Dict]:
         """Each group's stored moments (in their storage dtype) and step
