@@ -153,20 +153,14 @@ import torch
 
 T_START = time.perf_counter()
 
+from h100bench.roofline import (BF16_FLOP_PER_S, FP32_FLOP_PER_S,
+                                HBM_BYTES_PER_S, TF32_FLOP_PER_S,
+                                least_seconds)
 from wav2vec_contr_loss_torch.bridge import random_jax_trees
 
 # the card's name and power limit as nvidia-smi gives them, printed
 # beside the timings
 CARD = "not read"
-
-# H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
-# fp32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-FP32_FLOP_PER_S = 67e12
-# dense TF32 on the tensor cores; an fp32-accurate 3xTF32 product costs
-# three of them
-TF32_FLOP_PER_S = 494.7e12
 
 BATCH = 8
 SAMPLES = 80000                  # 5 s at 16 kHz, the serving clip
@@ -298,10 +292,13 @@ def sdpa_backend(dtype=torch.bfloat16):
 
 
 def bound(nbytes: float, flops: float, flop_rate: float):
-    """(least time in ms, what bounds it) on an H100 SXM."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """(least time in ms, what bounds it) on an H100 SXM, by the least-time
+    rule and the peaks of h100bench/roofline.py (the card's published
+    dense rates: bf16 and TF32 tensor cores, fp32 outside them; an
+    fp32-accurate 3xTF32 product costs three TF32 ones)."""
+    least = least_seconds(nbytes, flops, flop_rate)
+    return 1e3 * least, ("bytes" if nbytes / HBM_BYTES_PER_S >= least
+                         else "operations")
 
 
 def serving_waves(rng, n_batches: int):

@@ -33,7 +33,7 @@ from wav2vec_contr_loss_torch.parallel.mesh import (check_layout, local_batch,
                                                     make_mesh,
                                                     param_sharding_rules)
 from wav2vec_contr_loss_torch.parallel.pipeline import gpipe_stack
-from wav2vec_contr_loss_torch.train.stage1 import _device_rawboost
+from wav2vec_contr_loss_torch.train.core import device_rawboost
 
 cap_torch_threads()
 
@@ -127,9 +127,9 @@ def test_compression_and_rawboost_draws_in_global_coordinates():
     waves = torch.randn(4, 4000) * 0.1
 
     def run(w, shard):
-        return _device_rawboost(w, torch.Generator().manual_seed(5),
-                                torch.Generator(), 1.0,
-                                cfg.rawboost_params(), shard)
+        return device_rawboost(w, torch.Generator().manual_seed(5),
+                               torch.Generator(), 1.0,
+                               cfg.rawboost_params(), shard)
     full = run(waves, Shard())
     assert torch.equal(run(waves[2:4], Shard(data_rank=1, n_data=2)),
                        full[2:4])

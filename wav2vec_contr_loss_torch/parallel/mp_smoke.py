@@ -256,9 +256,9 @@ def model_state(trainer) -> Dict[str, torch.Tensor]:
     """A host copy of the trainer's full parameters, HF-named under their
     module ('encoder.', 'compression.', 'classifier.'); collective in a
     gang."""
-    from ..train.stage1 import _module_states
+    from ..train.core import module_states
 
-    state = _module_states(trainer.layout, trainer._parts)
+    state = module_states(trainer.layout, trainer._parts)
     return {f"{part}.{k}": v.detach().to("cpu", copy=True)
             for part, sd in state.items() for k, v in sd.items()}
 

@@ -51,14 +51,13 @@ from ..eval.metrics import eer_threshold_sweep
 from ..losses.bce import bce_logits_loss
 from ..models.compression import CompressionModule, clip_embedding
 from ..models.wav2vec2 import Wav2Vec2Encoder
-from ..ops.wire import quantize_wire
 from ..parallel.collectives import SINGLE, gather_rows
-from ..parallel.mesh import apply_layout, local_batch
+from ..parallel.mesh import apply_layout
 from . import checkpoint as ckpt
+from .core import (EpochEnd, check_config, device_rawboost, fit_epochs,
+                   load_fp32, load_states, module_states, norm_group_fn,
+                   optimizer_state, to_device, wire_batch)
 from .optim import build_baseline_optimizer
-from .stage1 import (_device_rawboost, _load, _load_states, _module_states,
-                     _norm_group_fn, _optimizer_state, _pinned,
-                     _to_device, check_config)
 
 __all__ = ["BaselineTrainer", "BASELINE_NO_PP"]
 
@@ -92,7 +91,7 @@ class BaselineTrainer:
                                                  cfg.dropout)
             self.classifier = nn.Linear(cfg.hidden_dim, 1)
         for name in ("encoder", "compression", "classifier"):
-            _load(getattr(self, name), weights[name], self.device)
+            load_fp32(getattr(self, name), weights[name], self.device)
         self.encoder.requires_grad_(cfg.finetune_encoder)
         self._parts = {"encoder": self.encoder,
                        "compression": self.compression,
@@ -103,7 +102,7 @@ class BaselineTrainer:
             cfg, list(self.compression.parameters())
             + list(self.classifier.parameters()),
             list(self.encoder.parameters()) if cfg.finetune_encoder else [],
-            _norm_group_fn(self.layout, self._parts))
+            norm_group_fn(self.layout, self._parts))
         self.pos_weight = pos_weight if cfg.use_pos_weight else None
         self.rawboost_params = cfg.rawboost_params()
         self.gen = torch.Generator().manual_seed(cfg.seed)
@@ -136,12 +135,12 @@ class BaselineTrainer:
         wire, 'labels': (B,) 0/1}; in a gang, this rank's slice of the
         global batch). -> {'loss': scalar tensor on the device, averaged
         over 'data' in a gang} (no host sync)."""
-        b = _to_device(batch, self.device, ("waveforms", "labels"))
+        b = to_device(batch, self.device, ("waveforms", "labels"))
         waves = b["waveforms"]
         if self._rawboost_gen is not None:
-            waves = _device_rawboost(waves, self.gen, self._rawboost_gen,
-                                     self.cfg.rawboost_prob,
-                                     self.rawboost_params, self.shard)
+            waves = device_rawboost(waves, self.gen, self._rawboost_gen,
+                                    self.cfg.rawboost_prob,
+                                    self.rawboost_params, self.shard)
         loss = bce_logits_loss(self._logits(waves, train=True), b["labels"],
                                self.pos_weight)
         self.optimizer.zero_grad()
@@ -158,18 +157,14 @@ class BaselineTrainer:
     def logits_step(self, waves) -> torch.Tensor:
         """(B, T) waveforms (float32 or int16 wire) -> (B,) eval-mode
         logits on the device."""
-        b = _to_device({"waveforms": waves}, self.device, ("waveforms",))
+        b = to_device({"waveforms": waves}, self.device, ("waveforms",))
         return self._logits(b["waveforms"], train=False)
 
     # --------------------------------------------------------------- data
     def _put(self, b: Batch) -> Dict[str, torch.Tensor]:
         """Pinned wire tensors; in a gang, this rank's rows."""
-        arrays = {"waveforms": quantize_wire(b.waveforms)
-                  if self.cfg.wire_dtype == "int16" else b.waveforms,
-                  "labels": b.labels.astype(np.int64)}
-        if self.layout is not None:
-            arrays = local_batch(arrays, self.layout.shard)
-        return _pinned(arrays, self.device)
+        return wire_batch(b, self.cfg, self.device,
+                          self.layout and self.layout.shard)
 
     def _scored_batches(self, pipe: BatchPipeline
                         ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -207,7 +202,8 @@ class BaselineTrainer:
             start_epoch: int = 1, skip_steps: int = 0,
             best_eer: float = float("inf"),
             epochs_no_improve: int = 0) -> Dict:
-        """Epoch loop with the dev EER, patience and early stop.
+        """Epoch loop with the dev EER, patience and early stop
+        (train/core.py `fit_epochs`).
         -> history {'train_loss', 'dev_eer', 'dev_acc'} (one entry an
         epoch), plus 'preempted': True after a stop.
 
@@ -218,93 +214,45 @@ class BaselineTrainer:
         first epoch past that cursor; `best_eer` and `epochs_no_improve`
         carry the best dev EER and the patience count across resumes, and
         a resume that has already reached the patience is a no-op."""
-        cfg = self.cfg
-        history = {"train_loss": [], "dev_eer": [], "dev_acc": []}
-        if epochs_no_improve >= cfg.patience:
-            log_fn(f"[EARLY STOP] patience {cfg.patience} already reached "
-                   f"at resume (best EER={best_eer * 100:.2f}%)")
-            return history
-        for epoch in range(start_epoch, cfg.epochs + 1):
-            losses = []
-            skip = skip_steps if epoch == start_epoch else 0
-            n_steps = skip   # absolute batch cursor within the epoch
-            preempted = False
-            for batch in prefetch_to_device(
-                    train_pipe.train_epoch(epoch, skip=skip), self._put,
-                    depth=2):
-                losses.append(self.train_step(batch)["loss"])
-                n_steps += 1
-                if preemption is not None and preemption.requested(n_steps):
-                    preempted = True
-                    break
-            if preempted:
-                if save_dir is not None:
-                    ckpt.save_checkpoint(
-                        save_dir, LATEST, self.state_dict(),
-                        cfg.ckpt_config(),
-                        {"epoch": epoch, "batches_done": n_steps,
-                         "preempted": True, "best_eer": best_eer,
-                         "epochs_no_improve": epochs_no_improve},
-                        self._sidecar_extra())
-                log_fn(f"[PREEMPTED] "
-                       f"{'saved mid-epoch state at' if save_dir else 'stopping (no save_dir) at'} "
-                       f"epoch {epoch} batch {n_steps}"
-                       + ("; resume with --resume" if save_dir else ""))
-                history["preempted"] = True
-                return history
-            train_loss = (float(np.mean(torch.stack(losses).tolist()))
-                          if losses else 0.0)
+        def end_epoch(epoch, train_loss, n_run, seconds):
             dev_eer, thresh, dev_acc = self.evaluate_dev(dev_pipe)
-            history["train_loss"].append(train_loss)
-            history["dev_eer"].append(dev_eer)
-            history["dev_acc"].append(dev_acc)
             log_fn(f"[epoch {epoch:03d}] train_loss={train_loss:.4f} | "
                    f"dev_eer={dev_eer * 100:.2f}% | dev_acc="
                    f"{dev_acc * 100:.2f}% | thresh={thresh:.4f}")
-            is_new_best = dev_eer < best_eer
-            if is_new_best:
-                best_eer = dev_eer
-                epochs_no_improve = 0
-            else:
-                epochs_no_improve += 1
-            if save_dir is not None:
-                # one host copy serves 'baseline_best' and 'baseline_latest'
-                host = ckpt.snapshot_for_save(self.state_dict())
-                extra = self._sidecar_extra()
-                if is_new_best:
-                    ckpt.save_checkpoint(
-                        save_dir, BEST, None, cfg.ckpt_config(),
-                        {"epoch": epoch, "dev_eer": dev_eer,
-                         "dev_acc": dev_acc}, extra, block=False,
-                        host_state=host)
-                    log_fn(f"[epoch {epoch:03d}] new best dev EER="
-                           f"{best_eer * 100:.2f}%")
-                ckpt.save_checkpoint(
-                    save_dir, LATEST, None, cfg.ckpt_config(),
-                    {"epoch": epoch, "dev_eer": dev_eer, "dev_acc": dev_acc,
-                     "best_eer": best_eer,
-                     "epochs_no_improve": epochs_no_improve},
-                    extra, block=False, host_state=host)
-            if epochs_no_improve >= cfg.patience:
-                log_fn(f"[EARLY STOP] patience {cfg.patience} reached "
-                       f"(best EER={best_eer * 100:.2f}%)")
-                break
-        if save_dir is not None:
-            ckpt.wait_for_saves()
-        return history
+            return EpochEnd(dev_eer, {"train_loss": train_loss,
+                                      "dev_eer": dev_eer, "dev_acc": dev_acc},
+                            {"dev_eer": dev_eer, "dev_acc": dev_acc},
+                            f"[epoch {epoch:03d}] new best dev EER="
+                            f"{dev_eer * 100:.2f}%")
+
+        def cursor(name, best, stale):
+            # 'baseline_best' carries no resume cursor, as JAX's
+            return ({"best_eer": best, "epochs_no_improve": stale}
+                    if name == LATEST else {})
+
+        return fit_epochs(
+            self, ("train_loss", "dev_eer", "dev_acc"),
+            lambda epoch, skip: prefetch_to_device(
+                train_pipe.train_epoch(epoch, skip=skip), self._put, depth=2),
+            lambda batch, epoch: self.train_step(batch)["loss"], end_epoch,
+            save_dir=save_dir, log_fn=log_fn, names=(LATEST, BEST),
+            cursor=cursor, start_epoch=start_epoch, skip_steps=skip_steps,
+            best=best_eer, stale=epochs_no_improve, patience=self.cfg.patience,
+            show_best=lambda best: f"best EER={best * 100:.2f}%",
+            preemption=preemption)
 
     # -------------------------------------------------------------- state
     def state_dict(self) -> Dict:
         """The full train state; its tensors are the live ones. In a
         gang: full tensors gathered from the shards (collective)."""
-        return {**_module_states(self.layout, self._parts),
-                "optimizer": _optimizer_state(self.layout, self.optimizer,
-                                              self._parts),
+        return {**module_states(self.layout, self._parts),
+                "optimizer": optimizer_state(self.layout, self.optimizer,
+                                             self._parts),
                 "step": self.step, "gen": self.gen.get_state()}
 
     def load_state_dict(self, state: Mapping) -> None:
         """Load a full train state (in a gang, each rank its shards)."""
-        _load_states(self.layout, self.optimizer, self._parts, state)
+        load_states(self.layout, self.optimizer, self._parts, state)
         self.step = int(state["step"])
         self.gen.set_state(state["gen"])
 

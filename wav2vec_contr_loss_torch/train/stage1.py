@@ -57,7 +57,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -70,102 +69,20 @@ from ..data.pipeline import (Batch, BatchPipeline, prefetch_to_device,
 from ..device import resolve_device
 from ..models.compression import CompressionModule, clip_embedding
 from ..models.wav2vec2 import Wav2Vec2Encoder
-from ..ops.rawboost import RawBoostDraws, rawboost_batch, rawboost_draws
 from ..parallel.collectives import SINGLE, Shard, gather_rows
-from ..parallel.mesh import (PARAM_SHARDINGS, apply_layout, check_layout,
-                             local_batch)
+from ..parallel.mesh import apply_layout, local_batch
 from ..data.sampler import BalancedBatchSampler
 from ..losses.supcon import supcon_multiclass_loss
 from ..ops.supcon import supcon_binary_loss_fused
-from ..ops.wire import dequantize_wire, quantize_wire
 from ..utils.timing import span, start_profile, stop_profile
 from . import checkpoint as ckpt
-from .optim import build_optimizer, resolve_grad_bf16
+from .core import (EpochEnd, check_config, device_rawboost, fit_epochs,
+                   load_fp32, load_states, module_states, norm_group_fn,
+                   optimizer_state, pinned, to_device, wire_batch)
+from .optim import build_optimizer
 from .schedule import alpha_for_epoch
 
 __all__ = ["Stage1Trainer"]
-
-
-def check_config(cfg, enc_config: Wav2Vec2Config) -> None:
-    """Refuse the settings the port does not compute (a Stage1Config or
-    a BaselineConfig, and the encoder's config)."""
-    if enc_config.quant != "none":
-        raise ValueError(f"quant={enc_config.quant!r} is serving only "
-                         f"(int8 rounding has no gradient); the trainers "
-                         f"take quant='none'")
-    if resolve_grad_bf16(cfg) and cfg.compute_dtype != "bfloat16":
-        raise ValueError(
-            "grad_dtype='bfloat16' requires compute_dtype='bfloat16' "
-            "(with fp32 compute, bf16 weight gradients would change "
-            "what the step computes)")
-    if cfg.rawboost_mode not in ("device", "host", "off"):
-        raise ValueError(f"rawboost_mode must be 'device', 'host' or "
-                         f"'off'; got {cfg.rawboost_mode!r}")
-    if cfg.wire_dtype not in ("float32", "int16"):
-        raise ValueError(f"wire_dtype must be 'float32' or 'int16'; got "
-                         f"{cfg.wire_dtype!r}")
-    if cfg.param_sharding not in PARAM_SHARDINGS:
-        raise ValueError(f"param_sharding must be one of {PARAM_SHARDINGS}; "
-                         f"got {cfg.param_sharding!r}")
-    check_layout(pipeline=cfg.param_sharding == "pp",
-                 sequence_parallel=getattr(cfg, "sequence_parallel", False),
-                 microbatches=getattr(cfg, "pipeline_microbatches", 1),
-                 batch=cfg.batch_size)
-
-
-def _to_device(batch: Mapping, device: torch.device,
-               keys=("waveforms", "labels", "multi_labels", "features")
-               ) -> Dict[str, torch.Tensor]:
-    """Host or device arrays -> tensors on `device` (a non-blocking copy
-    from pinned host memory); int16 wire waveforms are dequantized there
-    (dewire)."""
-    out = {}
-    for key in keys:
-        if key in batch:
-            x = batch[key]
-            x = torch.from_numpy(np.asarray(x)) if not isinstance(
-                x, torch.Tensor) else x
-            out[key] = x.to(device, non_blocking=True)
-    if "waveforms" in out:
-        out["waveforms"] = dequantize_wire(out["waveforms"])
-    return out
-
-
-def _pinned(arrays: Mapping[str, np.ndarray], device: torch.device
-            ) -> Dict[str, torch.Tensor]:
-    """Host arrays as tensors, pinned when `device` is the card (so the
-    step's copy is non-blocking)."""
-    out = {k: torch.from_numpy(np.ascontiguousarray(v))
-           for k, v in arrays.items()}
-    if device.type == "cuda":
-        return {k: v.pin_memory() for k, v in out.items()}
-    return out
-
-
-def _device_rawboost(waves: torch.Tensor, gen: torch.Generator,
-                     device_gen: torch.Generator, prob: float,
-                     params, shard: Shard = SINGLE) -> torch.Tensor:
-    """In-step device RawBoost: a seed from the trainer's CPU generator
-    seeds the device generator, which draws the numbers of the global
-    batch; a gang's rank keeps its rows of every draw."""
-    seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
-    device_gen.manual_seed(seed)
-    b, t = waves.shape
-    draws = rawboost_draws(device_gen, b * shard.n_data, t, params)
-    if shard.n_data > 1:
-        rows = slice(shard.batch_offset(b), shard.batch_offset(b) + b)
-        draws = RawBoostDraws(**{f.name: getattr(draws, f.name)[rows]
-                                 for f in dataclasses.fields(draws)})
-    return rawboost_batch(waves, draws, prob, params)
-
-
-def _load(mod: torch.nn.Module, sd: Mapping[str, torch.Tensor],
-          device: torch.device) -> torch.nn.Module:
-    """Copies of `sd` in fp32 on `device` as the parameters of `mod`,
-    which was built on the meta device."""
-    mod.load_state_dict({k: v.to(device, torch.float32, copy=True)
-                         for k, v in sd.items()}, strict=True, assign=True)
-    return mod
 
 
 class Stage1Trainer:
@@ -197,9 +114,9 @@ class Stage1Trainer:
                 self.enc_config, remat=cfg.remat_encoder,
                 remat_conv=cfg.remat_conv,
                 freeze_feature_extractor=cfg.freeze_feature_extractor)
-        _load(self.compression, weights["compression"], self.device)
+        load_fp32(self.compression, weights["compression"], self.device)
         if self.encoder is not None:
-            _load(self.encoder, weights["encoder"], self.device)
+            load_fp32(self.encoder, weights["encoder"], self.device)
             # the 'frozen' group of the JAX trainer: no gradient, no update
             fx = set(self.encoder.feature_extractor.parameters())
             for p in self.encoder.parameters():
@@ -217,7 +134,7 @@ class Stage1Trainer:
             cfg, list(self.compression.parameters()),
             [] if self.encoder is None else
             [p for p in self.encoder.parameters() if p.requires_grad],
-            _norm_group_fn(self.layout, self._parts))
+            norm_group_fn(self.layout, self._parts))
         self.supcon_cfg = SupConConfig(
             temperature=cfg.temperature, similarity=cfg.supcon_similarity,
             topk_neg=cfg.topk_neg, uniformity_weight=cfg.uniformity_weight,
@@ -235,7 +152,7 @@ class Stage1Trainer:
     def _batch(self, batch: Mapping) -> Dict[str, torch.Tensor]:
         """The batch's 'waveforms' (or 'features'), 'labels' and
         'multi_labels' on the trainer's device (_to_device)."""
-        return _to_device(batch, self.device)
+        return to_device(batch, self.device)
 
     def _embed(self, b: Mapping[str, torch.Tensor],
                train: bool) -> torch.Tensor:
@@ -289,7 +206,7 @@ class Stage1Trainer:
                 b = self._batch(batch)
             if self._rawboost_gen is not None:
                 with span("w2v.rawboost"):
-                    b["waveforms"] = _device_rawboost(
+                    b["waveforms"] = device_rawboost(
                         b["waveforms"], self.gen, self._rawboost_gen,
                         self.cfg.rawboost_prob, self.rawboost_params,
                         self.shard)
@@ -327,14 +244,14 @@ class Stage1Trainer:
         """The full train state; its tensors are the live ones. A
         from_features trainer has no 'encoder'. In a gang: full tensors
         gathered from the shards (collective: every rank calls it)."""
-        return {**_module_states(self.layout, self._parts),
-                "optimizer": _optimizer_state(self.layout, self.optimizer,
-                                              self._parts),
+        return {**module_states(self.layout, self._parts),
+                "optimizer": optimizer_state(self.layout, self.optimizer,
+                                             self._parts),
                 "step": self.step, "gen": self.gen.get_state()}
 
     def load_state_dict(self, state: Mapping) -> None:
         """Load a full train state (in a gang, each rank its shards)."""
-        _load_states(self.layout, self.optimizer, self._parts, state)
+        load_states(self.layout, self.optimizer, self._parts, state)
         self.step = int(state["step"])
         self.gen.set_state(state["gen"])
 
@@ -343,14 +260,9 @@ class Stage1Trainer:
         """A host batch as tensors in the wire dtype, pinned on the card
         (run in the prefetch thread); in a gang, this rank's rows of the
         global batch."""
-        arrays = {
-            "waveforms": quantize_wire(b.waveforms)
-            if self.cfg.wire_dtype == "int16" else b.waveforms,
-            "labels": b.labels.astype(np.int64),
-            "multi_labels": b.multi_labels.astype(np.int64)}
-        if self.layout is not None:
-            arrays = local_batch(arrays, self.layout.shard)
-        return _pinned(arrays, self.device)
+        return wire_batch(b, self.cfg, self.device,
+                          self.layout and self.layout.shard,
+                          ("multi_labels",))
 
     def _device_batches(self, batches: Iterator[Batch]) -> Iterator[Dict]:
         """Prefetch two batches ahead: the producer thread decodes and, on
@@ -368,13 +280,9 @@ class Stage1Trainer:
         (collective) each rank decodes and embeds its data rank's rows of
         every padded batch, and every rank gets the gathered result."""
         sh = self.shard
-        wire16 = self.cfg.wire_dtype == "int16"
 
         def put(b: Batch) -> Dict[str, torch.Tensor]:
-            return _pinned({
-                "waveforms": quantize_wire(b.waveforms) if wire16
-                else b.waveforms, "labels": b.labels.astype(np.int64),
-                "valid": b.valid.astype(np.uint8)}, self.device)
+            return wire_batch(b, self.cfg, self.device, keys=("valid",))
 
         def embed(b: Dict[str, torch.Tensor]):
             z = self.embed_step(b)
@@ -390,128 +298,77 @@ class Stage1Trainer:
         return np.concatenate(zs), np.concatenate(ys).astype(np.int32)
 
     # ---------------------------------------------------------------- fit
+    def _alpha(self, epoch: int) -> float:
+        cfg = self.cfg
+        return alpha_for_epoch(epoch, cfg.warmup_epochs,
+                               cfg.alpha_ramp_epochs, cfg.alpha_end)
+
+    def _dev_loss(self, batches: Iterator[Mapping]) -> float:
+        """The mean eval loss over `batches` (NaN without any)."""
+        dev = [self.eval_step(b) for b in batches]
+        return (float(np.mean(torch.stack(dev).tolist())) if dev
+                else float("nan"))
+
     def fit(self, train_pipe: BatchPipeline,
             dev_pipe: Optional[BatchPipeline] = None,
             save_dir: Optional[str] = None, start_epoch: int = 1,
             log_fn=print, metrics_logger=None, preemption=None,
             skip_steps: int = 0, best_dev: float = float("inf"),
             profile_dir: Optional[str] = None) -> Dict:
-        """Epoch loop with the alpha ramp and best-by-dev-loss checkpoints.
-        -> history {'train_loss', 'dev_loss', 'alpha', 'clips_per_sec'}
-        (one entry an epoch), plus 'preempted': True after a stop.
+        """Epoch loop with the alpha ramp and best-by-dev-loss checkpoints
+        (train/core.py `fit_epochs`: 'latest' every epoch, 'best' on a new
+        best dev loss, NaN never, or an alias of 'latest' without a dev
+        pipe; on a `preemption` request, 'latest' with its `batches_done`
+        cursor). -> history {'train_loss', 'dev_loss', 'alpha',
+        'clips_per_sec'} (one entry an epoch), plus 'preempted': True
+        after a stop.
 
-        In a gang every rank runs it in lockstep: the losses are the
-        global batch's on every rank (so is the best-by-dev decision),
-        the preemption flag is agreed, and every save is collective.
-        The step losses stay on the device and are read once an epoch.
+        `skip_steps` resumes the first epoch past that cursor (the
+        pipeline replays the batch and host-RawBoost stream), and
+        `best_dev` carries the best dev loss across resumes. In a gang
+        every rank runs it in lockstep on the global batch's losses.
         `metrics_logger` (anything with `.log(epoch, dict)`) receives the
-        epoch's scalars. `preemption` (utils/preemption.PreemptionGuard or
-        anything with `requested(step)`) is polled after every step; on a
-        request the full state is saved to 'latest' with a `batches_done`
-        cursor and fit returns. `skip_steps` resumes the first epoch past
-        that cursor (the pipeline replays the batch and host-RawBoost
-        stream), and `best_dev` carries the best dev loss across resumes.
-        A NaN dev loss is never best; without a dev pipe 'best' is an
-        alias of 'latest'. `profile_dir` receives a torch.profiler trace
+        epoch's scalars; `profile_dir` a torch.profiler trace
         (`train_steps_2-5.json`) of the first epoch's steps 2-5 of this
         call."""
-        cfg = self.cfg
         if dev_pipe is not None and dev_pipe.rawboost is not None:
             raise ValueError("dev pipeline must not apply RawBoost")
-        history = {"train_loss": [], "dev_loss": [], "alpha": [],
-                   "clips_per_sec": []}
-        prof = None
-        profile_path = profile_dir and os.path.join(profile_dir,
-                                                    "train_steps_2-5.json")
-        for epoch in range(start_epoch, cfg.epochs + 1):
-            alpha = alpha_for_epoch(epoch, cfg.warmup_epochs,
-                                    cfg.alpha_ramp_epochs, cfg.alpha_end)
-            t_epoch = time.perf_counter()
-            losses = []
-            skip = skip_steps if epoch == start_epoch else 0
-            n_steps = skip   # absolute batch cursor within the epoch
-            preempted = False
-            for batch in self._device_batches(
-                    train_pipe.train_epoch(epoch, skip=skip)):
-                if profile_path and n_steps == skip + 1 and prof is None:
-                    losses[-1].item()   # step 1 stays out of the trace
-                    prof = start_profile(self.device)
-                losses.append(self.train_step(batch, alpha)["loss"])
-                n_steps += 1
-                if prof is not None and n_steps >= skip + 5:
-                    log_fn(stop_profile(prof, profile_path, losses[-1]))
-                    prof, profile_path = None, None
-                if preemption is not None and preemption.requested(n_steps):
-                    preempted = True
-                    break
-            if prof is not None:   # the epoch ended inside the window
-                log_fn(stop_profile(prof, profile_path, losses[-1]))
-                prof, profile_path = None, None
-            if preempted:
-                if save_dir is not None:
-                    # blocking: the process is about to stop
-                    ckpt.save_checkpoint(
-                        save_dir, "latest", self.state_dict(),
-                        cfg.ckpt_config(),
-                        {"epoch": epoch, "batches_done": n_steps,
-                         "preempted": True, "best_dev": best_dev},
-                        self._sidecar_extra())
-                log_fn(f"[PREEMPTED] "
-                       f"{'saved mid-epoch state at' if save_dir else 'stopping (no save_dir) at'} "
-                       f"epoch {epoch} batch {n_steps}"
-                       + ("; resume with --resume" if save_dir else ""))
-                history["preempted"] = True
-                return history
-            values = torch.stack(losses).tolist() if losses else []
-            epoch_s = time.perf_counter() - t_epoch
-            train_loss = float(np.mean(values)) if values else 0.0
+        trace = _TraceWindow(profile_dir, self.device, log_fn)
 
-            dev_loss = float("nan")
-            if dev_pipe is not None:
-                dev = [self.eval_step(b) for b in
-                       self._device_batches(dev_pipe.train_epoch(epoch))]
-                if dev:
-                    dev_loss = float(np.mean(torch.stack(dev).tolist()))
+        def step(batch, epoch):
+            return trace.step(
+                lambda: self.train_step(batch, self._alpha(epoch))["loss"])
 
-            n_run = n_steps - skip   # steps run in this call
-            cps = (n_run * cfg.batch_size / epoch_s
-                   if n_run and epoch_s > 0 else 0.0)
-            history["train_loss"].append(train_loss)
-            history["dev_loss"].append(dev_loss)
-            history["alpha"].append(alpha)
-            history["clips_per_sec"].append(cps)
+        def end_epoch(epoch, train_loss, n_run, seconds):
+            trace.stop()   # the epoch ended inside the window
+            dev_loss = (float("nan") if dev_pipe is None else
+                        self._dev_loss(self._device_batches(
+                            dev_pipe.train_epoch(epoch))))
+            alpha = self._alpha(epoch)
+            cps = (n_run * self.cfg.batch_size / seconds
+                   if n_run and seconds > 0 else 0.0)
             log_fn(f"[epoch {epoch:03d}] train_loss={train_loss:.4f} | "
                    f"dev_loss={dev_loss:.4f} | alpha={alpha:.3f} | "
                    f"clips/s={cps:.1f}")
+            row = {"train_loss": train_loss, "dev_loss": dev_loss,
+                   "alpha": alpha, "clips_per_sec": cps}
             if metrics_logger is not None:
-                metrics_logger.log(epoch, {
-                    "train_loss": train_loss, "dev_loss": dev_loss,
-                    "alpha": alpha, "clips_per_sec": cps})
+                metrics_logger.log(epoch, dict(row))
+            return EpochEnd(dev_loss, row,
+                            {"train_loss": train_loss, "dev_loss": dev_loss},
+                            f"[epoch {epoch:03d}] new best "
+                            f"dev_loss={dev_loss:.4f}")
 
-            is_new_best = dev_loss < best_dev   # NaN is never best
-            if is_new_best:
-                best_dev = dev_loss
-            if save_dir is not None:
-                metrics = {"epoch": epoch, "train_loss": train_loss,
-                           "dev_loss": dev_loss, "best_dev": best_dev}
-                extra = self._sidecar_extra()
-                # one host copy of the state serves 'latest' and 'best';
-                # the writer thread hides the file writes behind the next
-                # epoch
-                host = ckpt.snapshot_for_save(self.state_dict())
-                ckpt.save_checkpoint(save_dir, "latest", None,
-                                     cfg.ckpt_config(), metrics, extra,
-                                     block=False, host_state=host)
-                if dev_pipe is None:
-                    ckpt.alias_checkpoint(save_dir, "best", "latest")
-                elif is_new_best:
-                    ckpt.save_checkpoint(save_dir, "best", None,
-                                         cfg.ckpt_config(), metrics, extra,
-                                         block=False, host_state=host)
-                    log_fn(f"[epoch {epoch:03d}] new best "
-                           f"dev_loss={dev_loss:.4f}")
-        if save_dir is not None:
-            ckpt.wait_for_saves()
+        history = fit_epochs(
+            self, ("train_loss", "dev_loss", "alpha", "clips_per_sec"),
+            lambda epoch, skip: self._device_batches(
+                train_pipe.train_epoch(epoch, skip=skip)),
+            step, end_epoch, save_dir=save_dir, log_fn=log_fn,
+            has_dev=dev_pipe is not None,
+            cursor=lambda name, best, stale: {"best_dev": best},
+            start_epoch=start_epoch, skip_steps=skip_steps, best=best_dev,
+            preemption=preemption)
+        trace.stop()   # preempted inside the window
         return history
 
     # ------------------------------------------------ from features
@@ -519,25 +376,22 @@ class Stage1Trainer:
                          multi: Optional[np.ndarray],
                          batches: Iterator[np.ndarray]) -> Iterator[Dict]:
         """Balanced rows gathered from the (N, F, T) features (a memmap
-        stays on disk), pinned in the prefetch thread; the step copies
-        them to the card non-blocking, and `_feature_step_batch` turns
-        them into (B, T, F) there. In a gang, this data rank's rows of
-        each global batch."""
+        stays on disk) and pinned in the prefetch thread, then copied to
+        the trainer's device non-blocking and turned into (B, T, F)
+        there. In a gang, this data rank's rows of each global batch."""
         def put(idx):
             if self.layout is not None:
                 idx = local_batch({"idx": idx}, self.layout.shard)["idx"]
-            return _pinned({
+            return pinned({
                 "features": np.asarray(features[idx], np.float32),
                 "labels": np.asarray(labels[idx]).astype(np.int64),
                 "multi_labels": np.asarray(
                     (multi if multi is not None else labels)[idx]
                 ).astype(np.int64)}, self.device)
-        return prefetch_to_device(batches, put, depth=2)
-
-    def _feature_step_batch(self, batch: Mapping) -> Dict[str, torch.Tensor]:
-        b = _to_device(batch, self.device)
-        b["features"] = b["features"].transpose(1, 2)   # (B, T, F)
-        return b
+        for batch in prefetch_to_device(batches, put, depth=2):
+            b = to_device(batch, self.device)
+            b["features"] = b["features"].transpose(1, 2)   # (B, T, F)
+            yield b
 
     def fit_from_features(self, features: np.ndarray, labels: np.ndarray,
                           dev_features: Optional[np.ndarray] = None,
@@ -552,7 +406,8 @@ class Stage1Trainer:
         set is scored with its binary labels, as the JAX loop does).
         Balanced batches (seed cfg.seed; dev seed + 1), the alpha ramp,
         one dev loss an epoch, 'latest' every epoch and 'best' on a new
-        best dev loss ('best' an alias of 'latest' without a dev set).
+        best dev loss ('best' an alias of 'latest' without a dev set;
+        train/core.py `fit_epochs`).
         -> history {'train_loss', 'dev_loss', 'alpha'}.
 
         The rows of a batch are gathered on the host in the (N, F, T)
@@ -568,49 +423,27 @@ class Stage1Trainer:
         dev_sampler = (BalancedBatchSampler(dev_labels, cfg.batch_size,
                                             seed=cfg.seed + 1)
                        if dev_labels is not None else None)
-        best_dev = float("inf")
-        history = {"train_loss": [], "dev_loss": [], "alpha": []}
-        for epoch in range(1, cfg.epochs + 1):
-            alpha = alpha_for_epoch(epoch, cfg.warmup_epochs,
-                                    cfg.alpha_ramp_epochs, cfg.alpha_end)
-            losses = [self.train_step(self._feature_step_batch(b),
-                                      alpha)["loss"]
-                      for b in self._feature_batches(
-                          features, labels, multi_labels,
-                          sampler.epoch_batches(epoch))]
-            train_loss = (float(np.mean(torch.stack(losses).tolist()))
-                          if losses else 0.0)
-            dev_loss = float("nan")
-            if dev_sampler is not None:
-                dev = [self.eval_step(self._feature_step_batch(b))
-                       for b in self._feature_batches(
-                           dev_features, dev_labels, None,
-                           dev_sampler.epoch_batches(epoch))]
-                if dev:
-                    dev_loss = float(np.mean(torch.stack(dev).tolist()))
-            history["train_loss"].append(train_loss)
-            history["dev_loss"].append(dev_loss)
-            history["alpha"].append(alpha)
+
+        def end_epoch(epoch, train_loss, n_run, seconds):
+            dev_loss = (float("nan") if dev_sampler is None else
+                        self._dev_loss(self._feature_batches(
+                            dev_features, dev_labels, None,
+                            dev_sampler.epoch_batches(epoch))))
+            alpha = self._alpha(epoch)
             log_fn(f"[epoch {epoch:03d}] train_loss={train_loss:.4f} | "
                    f"dev_loss={dev_loss:.4f} | alpha={alpha:.3f}")
-            if save_dir is not None:
-                metrics = {"epoch": epoch, "train_loss": train_loss,
-                           "dev_loss": dev_loss}
-                extra = self._sidecar_extra()
-                host = ckpt.snapshot_for_save(self.state_dict())
-                ckpt.save_checkpoint(save_dir, "latest", None,
-                                     cfg.ckpt_config(), metrics, extra,
-                                     block=False, host_state=host)
-                if dev_sampler is None:
-                    ckpt.alias_checkpoint(save_dir, "best", "latest")
-                elif dev_loss < best_dev:   # NaN is never best
-                    best_dev = dev_loss
-                    ckpt.save_checkpoint(save_dir, "best", None,
-                                         cfg.ckpt_config(), metrics, extra,
-                                         block=False, host_state=host)
-        if save_dir is not None:
-            ckpt.wait_for_saves()
-        return history
+            return EpochEnd(dev_loss, {"train_loss": train_loss,
+                                       "dev_loss": dev_loss, "alpha": alpha},
+                            {"train_loss": train_loss, "dev_loss": dev_loss})
+
+        return fit_epochs(
+            self, ("train_loss", "dev_loss", "alpha"),
+            lambda epoch, skip: self._feature_batches(
+                features, labels, multi_labels, sampler.epoch_batches(epoch)),
+            lambda batch, epoch: self.train_step(
+                batch, self._alpha(epoch))["loss"],
+            end_epoch, save_dir=save_dir, log_fn=log_fn,
+            has_dev=dev_sampler is not None)
 
     # ------------------------------------------------------------ restore
     def _sidecar_extra(self) -> Dict:
@@ -654,63 +487,28 @@ class Stage1Trainer:
         return trainer
 
 
-def _named(modules: Mapping[str, Optional[torch.nn.Module]]):
-    """{id(parameter): (module key, parameter name)} over `modules`."""
-    return {id(p): (key, n) for key, m in modules.items() if m is not None
-            for n, p in m.named_parameters()}
+class _TraceWindow:
+    """`fit`'s profiler window: steps 2-5 of the call, closed early where
+    the first epoch ends; the trace goes to train_steps_2-5.json."""
 
+    def __init__(self, profile_dir: Optional[str], device: torch.device,
+                 log_fn):
+        self.path = profile_dir and os.path.join(profile_dir,
+                                                 "train_steps_2-5.json")
+        self.device, self.log_fn = device, log_fn
+        self.prof, self.last, self.n = None, None, 0
 
-def _norm_group_fn(layout, modules):
-    """The optimizer's `norm_group` of a gang's layout (None in one
-    process)."""
-    if layout is None:
-        return None
-    names = _named(modules)
-    return lambda p: layout.norm_group(names[id(p)][1], p)
+    def step(self, run):
+        if self.path and self.n == 1:
+            self.last.item()   # step 1 stays out of the trace
+            self.prof = start_profile(self.device)
+        self.last = run()
+        self.n += 1
+        if self.n == 5:
+            self.stop()
+        return self.last
 
-
-def _module_states(layout, modules) -> Dict:
-    """{key: state dict} of the modules; a gang's gathered to full."""
-    return {key: (m.state_dict() if layout is None
-                  else layout.full_state_dict(m))
-            for key, m in modules.items() if m is not None}
-
-
-def _optimizer_state(layout, optimizer, modules) -> Dict:
-    """The optimizer's state; a gang's moments gathered to full."""
-    state = optimizer.state_dict()
-    if layout is None:
-        return state
-    names = _named(modules)
-    for gname, grp in optimizer.groups.items():
-        for key in ("mu", "nu"):
-            state[gname][key] = [
-                layout.full(names[id(p)][1], m, p)
-                for p, m in zip(grp.params, state[gname][key])]
-    return state
-
-
-def _load_states(layout, optimizer, modules, state: Mapping) -> None:
-    """Load a full state into the modules and the optimizer (in a gang,
-    each rank its shards); the optimizer checks first."""
-    opt = state["optimizer"]
-    if layout is not None:
-        names = _named(modules)
-        opt = {g: dict(s) for g, s in opt.items()}
-        for gname, grp in optimizer.groups.items():
-            if gname not in opt:
-                continue
-            for key in ("mu", "nu"):
-                if len(opt[gname][key]) != len(grp.params):
-                    continue   # load_state_dict names the mismatch
-                opt[gname][key] = [
-                    layout.local(names[id(p)][1], m.to(p.device), p)
-                    for p, m in zip(grp.params, opt[gname][key])]
-    optimizer.load_state_dict(opt)
-    for key, m in modules.items():
-        if m is None:
-            continue
-        if layout is None:
-            m.load_state_dict(state[key], strict=True)
-        else:
-            layout.load_full_state_dict(m, state[key])
+    def stop(self) -> None:
+        if self.prof is not None:
+            self.log_fn(stop_profile(self.prof, self.path, self.last))
+        self.prof, self.path = None, None
