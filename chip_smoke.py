@@ -44,8 +44,12 @@
    attention kernels at XLS-R 1B's and 2B's head dims, 80 and 120, at
    the training shape (32, 16, 249, D) on strided views: forward and
    backward held to the plain version, launches by head dim counted,
-   timed beside their bounds, the plain version and SDPA. `--kernels`
-   runs this phase alone.
+   timed beside their bounds, the plain version and SDPA. Then the
+   positional conv (csrc/pos_conv.cu) at (32, 249, D), 16 groups of 120
+   and 80 channels, kernel 128: forward, input and weight gradient
+   held to the plain version, launches counted, timed beside the bound,
+   the plain version and cuDNN's bf16 conv. `--kernels` runs this phase
+   alone.
 3. Serve phase: builds XLS-R-300M (24 layers, 1024 wide, 'layer' norm)
    with a linear head from seeded random numpy weights in the JAX tree
    layout, passed through the port's weight bridge; scores 4 batches of
@@ -794,10 +798,119 @@ def head_dim_phase(dev, results) -> None:
               f"{lib_bwd_ms} ms [{CARD}]")
 
 
+# the positional conv at the training shape, by group width: XLS-R 2B's
+# 120 and 1B's 80
+POS_CONV_CASES = (("xlsr2b", 1920), ("xlsr1b", 1280))
+# |kernel - plain| <= rtol |plain| + share max |plain|: the kernel and the
+# plain version each round their fp32 sum (taken in another order) to
+# bf16 once, so a conv output may differ by one bf16 ulp (up to 2^-7 of
+# it); the weight gradient stays fp32
+POS_CONV_TOL = {"y": (2 ** -7, 1e-4), "dx": (2 ** -7, 1e-4),
+                "dw": (1e-4, 1e-5)}
+
+
+def pos_conv_phase(dev, results) -> None:
+    """The positional conv kernels (csrc/pos_conv.cu) at (32, 249, D), 16
+    groups, kernel 128: the forward, the input gradient and the weight
+    gradient held to the plain version on the card (raising on a miss),
+    the launches of one forward and backward required to be 2 and 1;
+    then each product's device time beside its bound at the true width
+    (one conv: 2 B T D (D / 16) 128 operations at the bf16 peak), the
+    plain version's (cuDNN in full fp32) and cuDNN's bf16 F.conv1d at the
+    same groups (`library_ms`, forward; its backward, input and weight
+    gradients together)."""
+    from wav2vec_contr_loss_torch.ops import pos_conv as pc
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, t, groups, k, pad = TRAIN_BATCH, 249, 16, 128, 64
+    for name, d in POS_CONV_CASES:
+        c = d // groups
+        x = torch.randn(b, t, d, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(d, c, k, generator=gen, device=dev) * (c * k) ** -0.5
+        bias = torch.randn(d, generator=gen, device=dev)
+        leaves = [a.clone().requires_grad_() for a in (x, w, bias)]
+        before = (pc.launches, pc.bwd_launches)
+        y = pc.pos_conv(*leaves, pad, groups)
+        gy = torch.randn(y.shape, generator=gen, device=dev).to(torch.bfloat16)
+        dx, dw, _ = torch.autograd.grad(y, leaves, gy)
+        counts = (pc.launches - before[0], pc.bwd_launches - before[1])
+        wt = pc.tap_major(w, groups, torch.bfloat16)
+        bias16 = bias.to(torch.bfloat16)
+        flipped = pc._flipped(w, groups)
+        plain = {"y": pc.pos_conv_plain(x, w, bias, pad, groups),
+                 "dx": pc.pos_conv_plain(gy, flipped, None, k - 1 - pad,
+                                         groups),
+                 "dw": pc._weight_grad_plain(gy, x, w, pad, groups)}
+        errs, missed = {}, []
+        for what, got in (("y", y), ("dx", dx), ("dw", dw)):
+            want = plain[what].float()
+            err = (got.float() - want).abs()
+            rtol, share = POS_CONV_TOL[what]
+            over = float((err - rtol * want.abs()
+                          - share * want.abs().max()).max())
+            errs[what] = float(err.max())
+            if not over <= 0.0:
+                missed.append(f"{what} (excess {over:.3e})")
+        print(f"pos_conv {name} {(b, t, d, groups, k)}: max_abs_err "
+              f"{errs}, launches (fwd, wgrad) {counts}")
+        if missed:
+            raise RuntimeError(f"pos_conv at {name} misses the plain "
+                               f"version: {missed}")
+        if counts != (2, 1):
+            raise RuntimeError(f"pos_conv at {name}: launches {counts}, not "
+                               f"(2, 1) for one forward and backward")
+        ms = {"fwd": device_ms(lambda: pc._conv(x, wt, bias16, pad, groups,
+                                                False)),
+              "dx": device_ms(lambda: pc._conv(gy, wt, None, k - 1 - pad,
+                                               groups, True)),
+              "dw": device_ms(lambda: pc._weight_grad(gy, x, k, pad,
+                                                      groups)),
+              "tap_major": device_ms(lambda: pc.tap_major(
+                  w, groups, torch.bfloat16))}
+        plain_ms = {
+            "fwd": device_ms(lambda: pc.pos_conv_plain(x, w, bias, pad,
+                                                       groups)),
+            "dx": device_ms(lambda: pc.pos_conv_plain(
+                gy, flipped, None, k - 1 - pad, groups)),
+            "dw": device_ms(lambda: pc._weight_grad_plain(gy, x, w, pad,
+                                                          groups))}
+        w16 = w.to(torch.bfloat16)
+        lib_in = [x.transpose(1, 2).clone().requires_grad_(),
+                  w16.clone().requires_grad_()]
+        lib_out = torch.nn.functional.conv1d(*lib_in, bias16, 1, pad,
+                                             groups=groups)
+        lib_ms = device_ms(lambda: torch.nn.functional.conv1d(
+            x.transpose(1, 2), w16, bias16, 1, pad, groups=groups))
+        lib_bwd_ms = _grad_ms(lib_out, lib_in, gy.transpose(1, 2))
+        bound_ms, bound_by = bound(2 * b * t * d * 2 + d * c * k * 2,
+                                   2 * b * t * d * c * k, BF16_FLOP_PER_S)
+        results[f"pos_conv_{name}"] = dict(
+            name=f"pos_conv_{name}", route="cuda",
+            source="wav2vec_contr_loss_torch/csrc/pos_conv.cu",
+            shape=[b, t, d, groups, k], max_abs_err=errs,
+            launches=counts[0], bwd_launches=counts[1],
+            fwd_ms=ms["fwd"], dx_ms=ms["dx"], dw_ms=ms["dw"],
+            tap_major_ms=ms["tap_major"], bound_ms=bound_ms,
+            bound_by=bound_by, plain_fwd_ms=plain_ms["fwd"],
+            plain_dx_ms=plain_ms["dx"], plain_dw_ms=plain_ms["dw"],
+            library_ms=lib_ms, library_bwd_ms=lib_bwd_ms,
+            library="cuDNN F.conv1d bf16")
+        print(f"pos_conv {name} device time: forward {ms['fwd']:.4f} ms "
+              f"({100 * bound_ms / ms['fwd']:.1f} % of its bound "
+              f"{bound_ms:.4f} ms, {bound_by}), input gradient "
+              f"{ms['dx']:.4f} ms ({100 * bound_ms / ms['dx']:.1f} %), weight "
+              f"gradient {ms['dw']:.4f} ms ({100 * bound_ms / ms['dw']:.1f} "
+              f"%, its two chunk-major copies included), the tap-major "
+              f"weight {ms['tap_major']:.4f} ms; plain {plain_ms}; cuDNN "
+              f"bf16 forward {lib_ms:.4f} ms, backward {lib_bwd_ms:.4f} ms "
+              f"[{CARD}]")
+
+
 def kernels_main() -> int:
     """The kernel phase alone (`--kernels`), its kernels built on demand,
     with TF32 off as in `main`: attention at head dim 64, LN+GELU, SupCon,
-    murmur dropout, AdamW, then attention at head dims 80 and 120."""
+    murmur dropout, AdamW, attention at head dims 80 and 120, then the
+    positional conv."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -815,6 +928,7 @@ def kernels_main() -> int:
     dropout_phase(dev, results)
     adamw_phase(dev, results)
     head_dim_phase(dev, results)
+    pos_conv_phase(dev, results)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s (builds "
           f"included) [{CARD}]")
     print(json.dumps({"kernels": list(results.values())}))
@@ -4362,6 +4476,7 @@ def main() -> int:
     dropout_phase(dev, results)
     adamw_phase(dev, results)
     head_dim_phase(dev, results)
+    pos_conv_phase(dev, results)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s (Triton JIT "
           f"included)")
     t0 = time.perf_counter()

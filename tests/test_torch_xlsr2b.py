@@ -24,8 +24,9 @@ from wav2vec_contr_loss_tpu.models.wav2vec2 import \
 import wav2vec_contr_loss_torch as w2v
 from wav2vec_contr_loss_torch.cli import common
 from wav2vec_contr_loss_torch.config import XLSR_2B, XLSR_300M
-from wav2vec_contr_loss_torch.models import ref_convert, wav2vec2
+from wav2vec_contr_loss_torch.models import ref_convert
 from wav2vec_contr_loss_torch.ops import attention
+from wav2vec_contr_loss_torch.ops.pos_conv import pos_conv
 
 cap_torch_threads()
 
@@ -154,14 +155,15 @@ def test_an_optimizer_kept_past_its_trainer_keeps_its_state():
 @pytest.mark.parametrize("d, groups, k", [(240, 2, 16), (1920 // 8, 16, 16),
                                          (128, 2, 16), (240, 2, 7)])
 def test_aligned_group_conv_is_the_plain_grouped_conv(d, groups, k):
-    """Each group's channels zero-padded up to `GROUP_ALIGN` (120 -> 128,
-    15 -> 64; 64 untouched), the input gradient a forward conv with the
-    flipped weight: the same outputs and gradients as the plain conv, in
-    fp32 on the CPU, at an even and an odd kernel."""
+    """The model's grouped conv at 2B's widths (ops/pos_conv.py
+    `pos_conv`; 120 and 15 here, 64 too), the input gradient a forward
+    conv with the flipped weight: the same outputs and gradients as the
+    plain conv, in fp32 on the CPU, at an even and an odd kernel."""
     torch.manual_seed(0)
     conv = torch.nn.Conv1d(d, d, k, padding=k // 2, groups=groups)
     x = torch.randn(3, 37, d, requires_grad=True)
-    got = wav2vec2.aligned_group_conv(conv, x)
+    got = pos_conv(x, conv.weight, conv.bias, conv.padding[0],
+                   groups).transpose(1, 2)
     want = F.conv1d(x.transpose(1, 2), conv.weight, conv.bias, conv.stride,
                     conv.padding, groups=groups)
     assert got.shape == want.shape == (3, d, 37 + 2 * (k // 2) - k + 1)

@@ -22,7 +22,9 @@ The two Pallas kernels of the JAX encoder have Hopper counterparts here,
 forward and backward: the conv extractor's LayerNorm+GELU
 (`ops/conv_ln.py`, 'layer' variant, one launch per conv) and the
 attention core with its dropout (`ops/attention.py`, one launch per
-layer).
+layer). The positional conv, which JAX leaves to XLA, runs hand-written
+kernels on the card in bf16 at the group widths they are built for
+(`ops/pos_conv.py`: XLS-R 2B's 120, 1B's 80).
 
 With `cfg.quant` 'w8a8' or 'w8' (serving only) the six linears of each
 layer are `ops.quant.QuantLinear`s under the same state-dict names, as
@@ -95,6 +97,7 @@ from ..device import fp32_convs
 from ..ops.attention import fused_attention
 from ..ops.conv_ln import fused_ln_gelu
 from ..ops.dropout import draw_seed, murmur_dropout
+from ..ops.pos_conv import pos_conv, routed
 from ..ops.quant import QuantLinear
 from ..parallel.collectives import (SINGLE, Shard, copy_to_model,
                                     gather_frames, reduce_from_model,
@@ -324,65 +327,6 @@ class FeatureProjection(nn.Module):
                      self.cfg.feat_proj_dropout, self.shard)
 
 
-# cuDNN runs a bf16 grouped conv on the tensor cores when each group is
-# a multiple of 64 channels wide; XLS-R 2B's 120 got its generic
-# SIMT kernels, ~480 ms of an 870 ms train step on the H100
-GROUP_ALIGN = 64
-
-
-class _GroupConv(torch.autograd.Function):
-    """F.conv1d at stride 1 whose input gradient is a forward conv too:
-    the output gradient against each group's weight transposed and
-    flipped in time, padded k - 1 - padding. Autograd's own dgrad of a
-    group 128 wide is cuDNN's generic SIMT kernel (~350 ms of the 2B
-    step), where its forward convs run on the tensor cores."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, padding, groups):
-        ctx.save_for_backward(x, weight)
-        ctx.conv = (padding, groups, bias is not None)
-        return F.conv1d(x, weight, bias, 1, padding, groups=groups)
-
-    @staticmethod
-    def backward(ctx, gy):
-        x, weight = ctx.saved_tensors
-        padding, groups, has_bias = ctx.conv
-        cout, cin, k = weight.shape
-        need = ctx.needs_input_grad
-        dx = dw = db = None
-        # (B, T', C) in memory, as the forward's input
-        gy = gy.transpose(1, 2).contiguous().transpose(1, 2)
-        if need[0]:
-            wt = (weight.reshape(groups, cout // groups, cin, k)
-                  .transpose(1, 2).flip(-1).reshape(groups * cin,
-                                                    cout // groups, k))
-            dx = F.conv1d(gy, wt, None, 1, k - 1 - padding, groups=groups)
-        if need[1] or (has_bias and need[2]):
-            _, dw, db = torch.ops.aten.convolution_backward(
-                gy, x, weight, [cout] if has_bias else None, [1],
-                [padding], [1], False, [0], groups,
-                [False, need[1], has_bias and need[2]])
-        return dx, dw, db, None, None
-
-
-def aligned_group_conv(m: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """m's grouped conv (stride 1, D channels to D) of x (B, T, D), as
-    (B, D, T'), with each group's input and output channels zero-padded
-    up to a multiple of GROUP_ALIGN: the added terms are exact zeros and
-    the added outputs are dropped, so it is the same conv."""
-    g, k = m.groups, m.kernel_size[0]
-    c = m.in_channels // g
-    p = -c % GROUP_ALIGN
-    b, t, d = x.shape
-    xp = F.pad(x.reshape(b, t, g, c), (0, p)).reshape(b, t, g * (c + p))
-    w = F.pad(m.weight.to(x.dtype).reshape(g, c, c, k), (0, 0, 0, p, 0, p))
-    bias = (None if m.bias is None else
-            F.pad(m.bias.to(x.dtype).reshape(g, c), (0, p)).reshape(-1))
-    y = _GroupConv.apply(xp.transpose(1, 2), w.reshape(g * (c + p), c + p, k),
-                         bias, m.padding[0], g)
-    return y.reshape(b, g, c + p, -1)[:, :, :c].reshape(b, d, -1)
-
-
 class PositionalConvEmbedding(nn.Module):
     """Grouped conv (kernel 128, 16 groups), padding k//2, the last frame
     trimmed for an even kernel, then GELU."""
@@ -395,13 +339,15 @@ class PositionalConvEmbedding(nn.Module):
                               groups=cfg.num_conv_pos_embedding_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, T, D)
-        width = self.conv.in_channels // self.conv.groups
-        if (x.device.type == "cuda" and x.dtype != torch.float32
-                and width % GROUP_ALIGN):
-            y = aligned_group_conv(self.conv, x)
-        else:
-            y = _conv(self.conv, x.transpose(1, 2))
-        if self.conv.kernel_size[0] % 2 == 0:
+        trim = self.conv.kernel_size[0] % 2 == 0
+        if routed(x, self.conv.in_channels // self.conv.groups):
+            # trimmed as (B, T', D): the gradient comes back in that
+            # layout, the one the kernels read
+            y = pos_conv(x, self.conv.weight, self.conv.bias,
+                         self.conv.padding[0], self.conv.groups)
+            return F.gelu(y[:, :-1] if trim else y)
+        y = _conv(self.conv, x.transpose(1, 2))
+        if trim:
             y = y[:, :, :-1]
         return F.gelu(y).transpose(1, 2)
 
